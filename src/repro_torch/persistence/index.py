@@ -1,0 +1,190 @@
+"""Set-membership index on the PyTorch durable map (port of
+``repro.persistence.index``, single-device backend).
+
+One mixed ``update_parallel`` round keeps the index current (new members
+insert, removed members delete), one batched
+:func:`repro_torch.core.batched.lookup` answers membership (the journey:
+zero persistence work), and the map grows online through
+:func:`repro_torch.core.migrate.migrate_state` before a batch that would
+not fit, so the index never drops a member.  The sharded and
+auto-rebalancing backends are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Iterable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core import batched
+from ..obs.metrics import get_registry
+
+N_BUCKETS = 128
+
+
+def owner_step(rel: str) -> int:
+    """Owner step of a manifest-referenced path (``step_XXXXXXXX/…``)."""
+    return int(rel.split("/", 1)[0].split("_")[1])
+
+
+def _pad_pow2(xs: np.ndarray) -> np.ndarray:
+    """Pad a batch to the next power of two with duplicates of its *last*
+    element.  A duplicate of the batch's last op never commits -- after an
+    insert the key is live (a repeat insert fails), after a delete it is
+    dead (a repeat delete fails) -- so padding is invisible to the map.
+    Duplicating the *first* op would not be safe in a mixed batch: an
+    insert replayed after a later delete of the same key would resurrect
+    it."""
+    n = max(1, 1 << (xs.size - 1).bit_length())
+    return np.concatenate([xs, np.full(n - xs.size, xs[-1], xs.dtype)])
+
+
+class _SingleBackend:
+    """The single-device plan/commit engine behind the index."""
+
+    def __init__(self, capacity: int, n_buckets: int, device):
+        self.capacity = capacity
+        self.n_buckets = n_buckets
+        self.device = batched.resolve_device(device)
+        self.state = batched.make_state(capacity, n_buckets, self.device)
+        self.migrations = 0
+
+    def _tensor(self, xs: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(_pad_pow2(xs), device=self.device)
+
+    def fits(self, ks: np.ndarray) -> bool:
+        """Exact fit check for a batch of fresh-insert keys: only keys
+        without a node (live or dead) allocate.  The probe only runs when
+        the batch-size upper bound does not already prove fitness."""
+        cursor = int(self.state.cursor)
+        if cursor + ks.size <= self.capacity:
+            return True
+        ex, _, _ = batched.probe(self.state, self._tensor(ks),
+                                 self.n_buckets)
+        n_fresh = int((~ex.cpu().numpy()[:ks.size]).sum())
+        return cursor + n_fresh <= self.capacity
+
+    def grow_for(self, ks: np.ndarray) -> None:
+        """Online growth: migrate to a doubled pool and bucket count (a
+        rehash) in bounded rounds until the batch fits; dead nodes are
+        compacted away by the drain."""
+        from ..core.migrate import migrate_state
+        from ..obs.compile import get_tracker
+        while not self.fits(ks):
+            nb_old = self.n_buckets
+            self.capacity *= 2
+            self.n_buckets *= 2
+            with get_tracker().reason("capacity_ladder"):
+                self.state, _ = migrate_state(
+                    self.state, nb_old, self.capacity, self.n_buckets)
+            self.migrations += 1
+            get_registry().counter("dedup_migrations_total").inc()
+
+    def update(self, ops: np.ndarray, ks: np.ndarray):
+        pk = self._tensor(ks)
+        self.state, ok, stats = batched.update_parallel(
+            self.state, self._tensor(ops), pk, pk, self.n_buckets)
+        return ok.cpu().numpy()[:ks.size], stats
+
+    def lookup(self, ks: np.ndarray) -> np.ndarray:
+        found, _ = batched.lookup(self.state, self._tensor(ks),
+                                  self.n_buckets)
+        return found.cpu().numpy()[:ks.size]
+
+
+class MembershipIndex:
+    """Growable set-membership index on the durable map.
+
+    Keys are arbitrary ints.  Keys in ``[0, 2**31-2]`` are stored in the
+    int32-keyed map as ``key + 1``; the rare out-of-range key falls back
+    to a Python-set side table rather than wrapping.  :meth:`update`
+    commits adds and removes in one mixed plan/commit round; a removed
+    key's node is resurrected if the key returns.
+
+    ``n_shards`` and ``auto_rebalance`` select backends that are not
+    ported yet and raise ``NotImplementedError``."""
+
+    def __init__(self, capacity: int = 4096, n_buckets: int = N_BUCKETS,
+                 n_shards: Optional[int] = None,
+                 auto_rebalance: bool = False, device=None):
+        if n_shards is not None or auto_rebalance:
+            raise NotImplementedError("later slice")
+        self.n_buckets = n_buckets
+        self.capacity = capacity
+        self._backend = _SingleBackend(capacity, n_buckets, device)
+        self._members: set = set()               # live in-range members
+        self._oob: set = set()     # members outside the int32 key space
+        self.last_stats = None
+
+    @property
+    def state(self):
+        """The backing ``HashMapState``."""
+        return self._backend.state
+
+    @property
+    def migrations(self) -> int:
+        """Online growth migrations the backend has run so far."""
+        return self._backend.migrations
+
+    @staticmethod
+    def _in_range(k: int) -> bool:
+        return 0 <= k < 2**31 - 1
+
+    @property
+    def members(self) -> set:
+        """The current member set (copy), side-table keys included."""
+        return self._members | self._oob
+
+    def update(self, add_keys: Iterable[int] = (),
+               remove_keys: Iterable[int] = ()) -> None:
+        """Commit adds and removes in one mixed plan/commit round.  Batch
+        order is adds-then-removes, so a key named in both leaves."""
+        adds = {int(k) for k in add_keys}
+        rems = {int(k) for k in remove_keys}
+        self._oob.update(k for k in adds if not self._in_range(k))
+        self._oob.difference_update(k for k in rems
+                                    if not self._in_range(k))
+        ins_set = {k for k in adds
+                   if self._in_range(k) and k not in self._members}
+        del_set = {k for k in rems if self._in_range(k)
+                   and (k in self._members or k in ins_set)}
+        ins = np.asarray(sorted(ins_set), np.int32)
+        dels = np.asarray(sorted(del_set), np.int32)
+        if ins.size + dels.size == 0:
+            return
+        if not self._backend.fits(ins + 1):
+            self._backend.grow_for(ins + 1)
+            self.capacity = self._backend.capacity
+        ks = np.concatenate([ins, dels]) + 1
+        ops = np.concatenate([
+            np.full(ins.size, batched.OP_INSERT, np.int32),
+            np.full(dels.size, batched.OP_DELETE, np.int32)])
+        okh, self.last_stats = self._backend.update(ops, ks)
+        # every planned insert is a non-member and growth ran first, so a
+        # failed insert here means the growth arithmetic is wrong
+        if not okh[:ins.size].all():
+            raise RuntimeError("membership insert dropped")
+        self._members.update(int(k) for k in ins[okh[:ins.size]])
+        self._members.difference_update(
+            int(k) for k in dels[okh[ins.size:]])
+
+    def add(self, keys: Iterable[int]) -> None:
+        self.update(add_keys=keys)
+
+    def remove(self, keys: Iterable[int]) -> None:
+        """Logical batched delete; a later re-add resurrects the node."""
+        self.update(remove_keys=keys)
+
+    def contains(self, keys: Sequence[int]) -> np.ndarray:
+        keys = [int(k) for k in keys]
+        out = np.zeros(len(keys), np.bool_)
+        in_range = [(i, k) for i, k in enumerate(keys)
+                    if self._in_range(k)]
+        if in_range:
+            pos, ks = zip(*in_range)
+            ks = np.asarray(ks, np.int32)
+            out[list(pos)] = self._backend.lookup(ks + 1)
+        for i, k in enumerate(keys):
+            if not self._in_range(k):
+                out[i] = k in self._oob
+        return out

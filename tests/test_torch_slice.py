@@ -1,0 +1,135 @@
+"""The slice as a whole: chip_smoke.py's map flow at small size on the CPU
+against the JAX package end to end, the port's import hygiene, and the
+no-card behaviour of its entry points and of chip_smoke.py."""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import batched as JB
+from repro.kernels.nvt_probe import ref as jref
+from repro.kernels.nvt_probe.ops import nvt_probe as jax_probe
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
+
+
+def test_map_flow_matches_jax_end_to_end():
+    sz = chip_smoke.SMALL
+    stream = chip_smoke.make_stream(sz, seed=3)
+    out = chip_smoke.run_map(sz, stream, "cpu")
+    js = JB.make_state(sz.capacity, sz.n_buckets)
+    pre = jnp.asarray(stream["prefill"])
+    js, jok, _ = JB.update_parallel(js, jnp.zeros_like(pre), pre, pre,
+                                    sz.n_buckets)
+    np.testing.assert_array_equal(out["prefill_ok"].numpy(), np.asarray(jok))
+    for i, (ops, ks, vs, look) in enumerate(stream["rounds"]):
+        js, jok, _ = JB.update_parallel(js, jnp.asarray(ops),
+                                        jnp.asarray(ks), jnp.asarray(vs),
+                                        sz.n_buckets)
+        np.testing.assert_array_equal(out["ok"][i].numpy(), np.asarray(jok))
+        for a, b in zip(JB.lookup(js, jnp.asarray(look), sz.n_buckets),
+                        out["lookups"][i]):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    for f in JB.HashMapState._fields:
+        np.testing.assert_array_equal(getattr(out["state"], f).numpy(),
+                                      np.asarray(getattr(js, f)), err_msg=f)
+    jk, jv = jref.tiles_from_hashmap(js, sz.n_buckets, sz.cap)
+    np.testing.assert_array_equal(out["tiles"][0].numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(out["tiles"][1].numpy(), np.asarray(jv))
+    jf, jv2 = jax_probe(jk, jv, jnp.asarray(stream["queries"]), impl="xla")
+    np.testing.assert_array_equal(out["probe"][0].numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(out["probe"][1].numpy(), np.asarray(jv2))
+    # and the script's own checks (dict replay, kernel vs plain, oracle)
+    checks = chip_smoke.check_map(sz, stream, out)
+    assert checks["max_abs_err"] == 0
+
+
+def test_serve_phase_holds_exactly_once_on_the_cpu():
+    got = chip_smoke.run_serve(chip_smoke.SMALL, "cpu")
+    assert got["dedup_migrations"] >= 1 and got["evicted"] > 0
+
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.path.insert(0, sys.argv[1])
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 16 else 0)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL, str(ROOT)],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from repro_torch.core import batched as TB
+    from repro_torch.persistence.index import MembershipIndex
+    from repro_torch.serving.engine import RequestLog
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TB.make_state(8, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MembershipIndex(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RequestLog(tmp_path)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.batched", "repro_torch.core.pmem",
+    "repro_torch.obs.metrics"])
+def test_port_doctests(module):
+    import doctest
+    import importlib
+    res = doctest.testmod(importlib.import_module(module))
+    assert res.attempted > 0 and res.failed == 0
+
+
+def test_first_call_tracker_times_each_new_signature_once():
+    """The port's tracker (no JAX): one event per fresh argument shape,
+    attributed to the active reason, and the migrate seam records the
+    capacity ladder."""
+    from repro_torch.obs.compile import CompileTracker
+    from repro_torch.obs.metrics import MetricsRegistry
+    trk = CompileTracker(registry=MetricsRegistry())
+    fn = trk.instrument("t.sum", "k", lambda x: x.sum())
+    fn(torch.ones(4))
+    fn(torch.ones(4))
+    with trk.reason("capacity_ladder"):
+        fn(torch.ones(8))
+    assert [e.trigger for e in trk.events] == ["steady", "capacity_ladder"]
+    assert trk.stats()["steady"]["events"] == 1
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card_or_alone(tmp_path, alone):
+    """No card (or no repo beside the script): non-zero exit, no result."""
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script = tmp_path / "chip_smoke.py"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
