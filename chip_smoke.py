@@ -19,7 +19,10 @@ Four phases, each of which fails the run when it fails:
    and ``update_parallel`` against the ``apply`` oracle on a 4096-op batch;
 3. ``serve``  -- a ``RequestLog`` whose dedup map lives on the card
    commits and evicts past its seed capacity (so ``migrate_state`` runs
-   on the card), snapshots, crashes and reopens: exactly-once must hold;
+   on the card), snapshots, crashes and reopens: exactly-once must hold.
+   The log's spans must bill every flush and fence to its commit or
+   snapshot; their times, the restart's phases and the first-call stalls
+   of the growth rounds are printed;
 4. ``timing`` -- each kernel's time (CUDA events), its plain version's,
    and its bound from the bytes it must move.
 
@@ -48,6 +51,8 @@ from repro_torch.kernels.nvt_probe import kernel as probe_kernel  # noqa: E402
 from repro_torch.kernels.nvt_probe.ops import nvt_probe  # noqa: E402
 from repro_torch.kernels.nvt_probe.ref import (  # noqa: E402
     mix32, probe_ref, tiles_from_hashmap)
+from repro_torch.obs.compile import get_tracker  # noqa: E402
+from repro_torch.obs.metrics import get_registry  # noqa: E402
 from repro_torch.serving.engine import RequestLog  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
@@ -252,8 +257,11 @@ def check_map(sz: Sizes, stream: dict, out: dict) -> dict:
 
 
 def run_serve(sz: Sizes, device) -> dict:
-    """Exactly-once across growth, snapshot, crash and restart."""
+    """Exactly-once across growth, snapshot, crash and restart, with what
+    the log's own instrumentation saw (:func:`serve_trace`)."""
     dev = B.resolve_device(device)
+    get_registry().reset()
+    get_tracker().reset()
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         rlog = RequestLog(d, capacity=sz.serve_capacity, device=dev)
@@ -288,7 +296,55 @@ def run_serve(sz: Sizes, device) -> dict:
             raise AssertionError("restart replayed more than the suffix")
         return {"rids": rid, "kept": len(kept), "evicted": len(evicted),
                 "dedup_migrations": rlog.dedup_migrations,
-                "commit_s": t1 - t0, "restart_s": t2 - t1}
+                "commit_s": t1 - t0, "restart_s": t2 - t1,
+                **serve_trace(rlog, again, sz.serve_batches + 1, 1)}
+
+
+def serve_trace(rlog, again, n_commits: int, n_snaps: int) -> dict:
+    """Read the request log's spans, counters and first-call events, and
+    check them against the flush -> fence -> publish discipline: each
+    commit stages one record outside its flush/fence, every flush and
+    fence falls inside a ``flush_fence`` span (one of each per commit
+    and per snapshot), the snapshot publishes once, and the tracer's
+    totals equal ``StagedIO``'s own counters."""
+    reg = get_registry()
+    n, bill = {}, {}
+    for r in rlog.tracer.records():
+        n[r["span"]] = n.get(r["span"], 0) + 1
+        b = bill.setdefault(r["span"], {})
+        for k, c in r["counts"].items():
+            b[k] = b.get(k, 0) + c
+    want = {"commit": {"write": n_commits},
+            "flush_fence": {"flush": n_commits + n_snaps,
+                            "fence": n_commits + n_snaps},
+            "publish": {"publish": n_snaps}}
+    for phase, counts in want.items():
+        if bill.get(phase) != counts:
+            raise AssertionError(f"span {phase!r} bill {bill.get(phase)} "
+                                 f"!= {counts}")
+    if bill["snapshot"].get("write") != n_snaps or {"flush", "fence"} & \
+            set(bill["snapshot"]):
+        raise AssertionError(f"snapshot span bill {bill['snapshot']}")
+    io = rlog.io.counters
+    if (rlog.tracer.totals.get("flush"), rlog.tracer.totals.get("fence")) \
+            != (io.flushes, io.fences):
+        raise AssertionError("span totals disagree with StagedIO counters")
+    counters = {e.name + ("{%s}" % ",".join(
+        f"{k}={v}" for k, v in sorted(e.labels.items())) if e.labels
+        else ""): e.obj.value for e in reg.entries() if e.kind == "counter"}
+    if counters.get("serving_commits_total") != n_commits or \
+            counters.get("dedup_migrations_total") != \
+            rlog.dedup_migrations + again.dedup_migrations:
+        raise AssertionError(f"registry counters {counters}")
+    first = get_tracker().stats()
+    if first.get("capacity_ladder", {}).get("events", 0) < 1:
+        raise AssertionError("no first-call event on the capacity ladder")
+    span_us = {ph: {"n": n[ph], **{q: reg.histogram(
+        "span_us", lo=0.1, hi=1e8, growth=1.25, phase=ph).quantile(v)
+        for q, v in (("p50", 0.5), ("p99", 0.99))}} for ph in sorted(n)}
+    return {"span_us": span_us, "span_bill": bill,
+            "restart_phase_us": again.restart_timing,
+            "counters": counters, "first_calls": first}
 
 
 def cuda_ms(fn, iters: int = 20) -> float:

@@ -96,18 +96,16 @@ def _run_batch(state, ops, ks, vs, n_buckets: int):
     (po, pk, pv), valid = _pad_pow2(ops, ks, vs, device=state.key.device)
     trk = get_tracker()
     sig = (int(state.key.shape[0]), n_buckets, int(po.shape[0]))
-    if trk.enabled and trk.first_seen("migrate.update_parallel", sig):
-        t0 = time.perf_counter()
-        state, ok, stats = B.update_parallel(state, po, pk, pv, n_buckets,
-                                             valid=valid)
-        ok = ok.cpu()                      # waits for the card
+    first = trk.enabled and trk.first_seen("migrate.update_parallel", sig)
+    t0 = time.perf_counter()
+    state, ok, stats = B.update_parallel(state, po, pk, pv, n_buckets,
+                                         valid=valid)
+    ok = ok.cpu().numpy()[:n]              # waits for the card
+    if first:
         trk.record("migrate.update_parallel",
                    f"cap={sig[0]},nb={n_buckets},n={sig[2]}",
                    (time.perf_counter() - t0) * 1e6)
-    else:
-        state, ok, stats = B.update_parallel(state, po, pk, pv, n_buckets,
-                                             valid=valid)
-    return state, ok.cpu().numpy()[:n], stats
+    return state, ok, stats
 
 
 def migrate_state(state, n_buckets: int, new_capacity: int,

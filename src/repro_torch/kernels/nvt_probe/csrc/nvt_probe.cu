@@ -15,11 +15,15 @@
 //     at the hit slots, read only on a hit and accumulated in `unsigned`
 //     so that it wraps like the reference's int32 sum.
 //
-// Bound on this card: bytes.  A query moves its 4-byte key, one
-// `cap * 4`-byte key row, the values of its hit slots and two 4-byte
-// results, and does a handful of integer operations per byte, so the
-// kernel can at best run at the HBM rate (3.35 TB/s): 2^20 queries over
-// 32-wide rows move about 150 MB, some 44 us.  Rows are scattered at
+// Bound on this card: bytes, the figure chip_smoke.py reports as
+// `bound_ms`.  The probe must read each distinct row its queries touch
+// (`cap * 4` bytes), each 4-byte query and the values of the hit slots
+// once, and write two 4-byte results per query; it does a handful of
+// integer operations per byte, so it can at best run at the HBM rate
+// (3.35 TB/s).  For 2^20 uniform queries over 2^20 rows of 32 that is
+// about 96.5 MB (some 639k distinct rows), 28.8 us.  This kernel reads
+// one row per query, repeats included (about 150 MB, 44 us at the same
+// rate); a row read twice may come from L2.  Rows are scattered at
 // random, so the design keeps each row read to one full line and keeps
 // many independent rows in flight (8 warps per block, one row each);
 // batching rows through shared memory with cp.async or TMA is later work.

@@ -23,10 +23,10 @@ from dataclasses import dataclass
 
 @dataclass
 class CompileEvent:
-    """One first-call stall on a fresh jit/shard_map signature."""
-    site: str          # e.g. "sharded.update", "migrate.update_parallel"
+    """One first-call stall on a fresh signature."""
+    site: str          # e.g. "migrate.update_parallel"
     key: str           # static config part of the signature
-    trigger: str       # "resplit_width_change" | "capacity_ladder" | ...
+    trigger: str       # "capacity_ladder" | "steady" | ...
     stall_us: float
 
     def to_dict(self) -> dict:
@@ -107,7 +107,7 @@ class CompileTracker:
                                   int(stall_us))
 
     def instrument(self, site: str, key, fn):
-        """Wrap a jitted callable: the first call on each fresh
+        """Wrap a callable: the first call on each fresh
         ``(site, key, arg-shapes)`` signature is timed to a blocking
         result and recorded; warm calls pass straight through."""
         tracker = self

@@ -3,21 +3,18 @@ persistence-instruction bill of each phase (the port's own copy of
 ``repro.obs.spans``).
 
 A :class:`Tracer` maintains a stack of nested :class:`Span`s
-(``route -> plan -> commit -> flush/fence -> publish -> snapshot`` in
-the serving loop) and a bounded ring buffer of finished-span records
-(JSONL via `Tracer.dump_jsonl`).  Every span reports wall time *and*
-how many flush/fence/publish/write/trim instructions executed while it
-was the innermost open span — and those counts come **free**: a
-:class:`PersistListener` rides the same ``faults`` attach surface that
-``CrashPlan``/``PersistTrace`` use (the ``on_event`` hooks on
-``StagedIO``), so no durable-layer code grows a single new
-instrumentation site.  A traversal-phase span showing
+(``commit -> flush_fence`` and ``snapshot -> flush_fence / publish`` in
+the request log) and a bounded ring buffer of finished spans.  Every
+span reports wall time *and* how many flush/fence/publish/write/trim
+instructions executed while it was the innermost open span — and those
+counts come **free**: a :class:`PersistListener` rides the ``faults``
+attach surface of ``StagedIO`` (its ``on_event`` hooks), so no
+durable-layer code grows a single new instrumentation site.  A traversal-phase span showing
 ``counts == {}`` next to a commit-phase span paying all the fences is
 the paper's asymmetry, live.
 """
 from __future__ import annotations
 
-import json
 import time
 from collections import deque
 
@@ -47,8 +44,6 @@ class Span:
         tr._stack.pop()
         self.dur_us = (time.perf_counter_ns() - self.t0_ns) / 1e3
         tr._ring.append(self)        # record dicts are built lazily
-        if tr.on_span is not None:   # flight-recorder feed (rare)
-            tr.on_span(self.to_record(tr.epoch_ns))
         cached = tr._hists.get(self.phase)
         if cached is None or cached[0] != tr.registry.gen:
             cached = (tr.registry.gen, tr.registry.histogram(
@@ -69,21 +64,6 @@ class Span:
                 **({"meta": self.meta} if self.meta else {})}
 
 
-class _DisabledSpan:
-    """Shared no-op context manager for ``enabled=False`` tracers."""
-
-    __slots__ = ()
-
-    def __enter__(self):
-        return None
-
-    def __exit__(self, *exc) -> bool:
-        return False
-
-
-_DISABLED = _DisabledSpan()
-
-
 class Tracer:
     """Nested phase spans + ring-buffer trace sink.
 
@@ -99,13 +79,11 @@ class Tracer:
       ordinary metrics path.
     """
 
-    def __init__(self, registry=None, ring: int = 2048,
-                 enabled: bool = True):
+    def __init__(self, registry=None, ring: int = 2048):
         if registry is None:
             from .metrics import get_registry
             registry = get_registry()
         self.registry = registry
-        self.enabled = enabled
         self.epoch_ns = time.perf_counter_ns()
         self._ring = deque(maxlen=ring)
         self._stack = []
@@ -114,22 +92,12 @@ class Tracer:
                                 # span exit, invalidated by reset()
         self.totals = {}
         self.span_counts = {}   # per-kind sums over *finished* spans
-        self.on_span = None     # optional callback(record) on span
-                                # close — the FlightRecorder feed
-                                # (`repro.obs.timeline`); one attr
-                                # check per exit when unset
 
     # -- spans --------------------------------------------------------
-    @property
-    def current(self):
-        return self._stack[-1] if self._stack else None
-
     def span(self, phase: str, **meta):
-        """Open a phase span (use as ``with tracer.span("commit") as s``;
-        ``s`` is None on a disabled tracer).  The span closes — and is
-        recorded — when the ``with`` block exits."""
-        if not self.enabled:
-            return _DISABLED
+        """Open a phase span (use as ``with tracer.span("commit") as s``).
+        The span closes — and is recorded — when the ``with`` block
+        exits."""
         s = Span(self, phase, len(self._stack),
                  time.perf_counter_ns(), meta)
         self._stack.append(s)
@@ -142,22 +110,16 @@ class Tracer:
             s = self._stack[-1]
             s.counts[kind] = s.counts.get(kind, 0) + n
 
-    # -- sinks --------------------------------------------------------
+    # -- sink ---------------------------------------------------------
     def records(self) -> list:
         return [s.to_record(self.epoch_ns) for s in self._ring]
-
-    def dump_jsonl(self, path) -> None:
-        with open(path, "w") as f:
-            for s in self._ring:
-                f.write(json.dumps(s.to_record(self.epoch_ns)) + "\n")
 
 
 class PersistListener:
     """Metrics-emitting ``faults`` attachment for ``PMem``/``StagedIO``.
 
-    Implements the crash-plan surface (``on_site`` — a no-op, it never
-    fires — and ``on_event``) so it can sit in the ``faults`` slot that
-    ``CrashPlan.attach`` uses.  Every persistence instruction becomes a
+    Implements the ``faults`` surface of ``StagedIO`` (``on_site`` — a
+    no-op, it never fires — and ``on_event``).  Every persistence instruction becomes a
     registry counter ``persist_events_total{kind=...}`` and is charged
     to the tracer's innermost open span.
     """
@@ -170,7 +132,6 @@ class PersistListener:
             registry = get_registry()
         self.tracer = tracer
         self.registry = registry
-        self.totals = {}
         self._counters = {}   # kind -> (registry gen, counter) hot cache
 
     def attach(self, *objs) -> "PersistListener":
@@ -182,7 +143,6 @@ class PersistListener:
         return None
 
     def on_event(self, kind: str, target: str = "", **meta) -> None:
-        self.totals[kind] = self.totals.get(kind, 0) + 1
         cached = self._counters.get(kind)
         if cached is None or cached[0] != self.registry.gen:
             cached = (self.registry.gen, self.registry.counter(

@@ -62,9 +62,7 @@ class RequestLog:
 
     def __init__(self, root, seed: int = 0, capacity: int = 1 << 15,
                  shards: Optional[int] = None, rebalance: bool = False,
-                 ordered_dedup: bool = False,
-                 registry=None, tracer: Optional[Tracer] = None,
-                 timeline=None, obs: bool = True, device=None):
+                 ordered_dedup: bool = False, device=None):
         """``capacity`` is only the *seed* pool size of the dedup map: under
         live traffic it grows itself via the bounded migration rounds of
         :mod:`repro_torch.core.migrate` (:attr:`dedup_migrations` counts
@@ -73,24 +71,17 @@ class RequestLog:
         backends that are not ported yet and raise
         ``NotImplementedError``.
 
-        ``registry``/``tracer`` plug the log into an explicit metrics
-        registry and span tracer (default: the process-wide ones);
-        ``timeline`` (any object with ``annotate(kind, **fields)``) gets
-        snapshot/truncate, dedup-migration and open annotations;
-        ``obs=False`` disables the span tracer and the persistence-event
-        listener."""
+        Counters and histograms go to the process-wide metrics registry;
+        ``tracer`` records one span per commit/snapshot phase, charged
+        with the persistence instructions it executed (a
+        :class:`PersistListener` on ``io``)."""
         if shards is not None or rebalance or ordered_dedup:
             raise NotImplementedError("later slice")
         self.io = StagedIO(Path(root), seed=seed)
-        self.metrics = registry if registry is not None else get_registry()
-        self.tracer = tracer if tracer is not None else Tracer(
-            registry=self.metrics, enabled=obs)
-        if obs and self.io.faults is None:
-            # persistence-instruction counts per span ride the same
-            # `faults` hook surface CrashPlan uses; a crash plan attached
-            # later simply replaces the listener for that run
-            PersistListener(tracer=self.tracer,
-                            registry=self.metrics).attach(self.io)
+        self.metrics = get_registry()
+        self.tracer = Tracer(registry=self.metrics)
+        PersistListener(tracer=self.tracer,
+                        registry=self.metrics).attach(self.io)
         self._rng = random.Random(0x5eed ^ seed)
         self._dedup = MembershipIndex(capacity, n_buckets=256,
                                       device=device)
@@ -106,7 +97,6 @@ class RequestLog:
                                    # mid-truncation): trimmed at restart
         self.records_parsed = 0    # log records read+parsed by this
                                    # instance (restart-replay observability)
-        self.timeline = timeline
         t0 = time.perf_counter_ns()
         self._load_snapshot()
         t1 = time.perf_counter_ns()
@@ -126,9 +116,8 @@ class RequestLog:
             self._unlink_quiet(name)
         self._stale.clear()
         t3 = time.perf_counter_ns()
-        # per-phase restart breakdown — the flight recorder dumps this
-        # on a post-crash reload so recovery cost is explainable, not
-        # just a total (see docs/observability.md)
+        # per-phase restart breakdown, so recovery cost is explainable,
+        # not just a total (chip_smoke.py's serve phase prints it)
         self.restart_timing = {
             "load_snapshot_us": (t1 - t0) / 1e3,
             "replay_us": (t2 - t1) / 1e3,
@@ -141,10 +130,6 @@ class RequestLog:
             self.metrics.histogram(
                 "restart_phase_us", lo=1.0, hi=1e8, growth=1.25,
                 phase=ph).record(self.restart_timing[ph + "_us"])
-        if timeline is not None:
-            timeline.annotate("log_open",
-                              total_us=self.restart_timing["total_us"],
-                              records_parsed=self.records_parsed)
 
     @staticmethod
     def _log_index(name: str) -> Optional[int]:
@@ -429,14 +414,7 @@ class RequestLog:
                 self.io.flush(rel)
                 self.io.fence()
             self._folded.add(rel)
-            m0 = self._dedup.migrations
             self._apply_record(rec, evict)
-            if self.timeline is not None and self._dedup.migrations > m0:
-                # annotate live-traffic dedup growth only (a restart
-                # replay folds records through _apply_record directly and
-                # stays silent)
-                self.timeline.annotate("dedup_migration",
-                                       rounds=self._dedup.migrations - m0)
         self.metrics.counter("serving_commits_total").inc()
         self.metrics.counter("serving_committed_rids_total").inc(len(rec))
         self.metrics.counter("serving_evicted_rids_total").inc(len(evict))
@@ -497,37 +475,25 @@ class RequestLog:
                 self.io.publish("snap.tmp", final)
             old_snap, self._snap_name = self._snap_name, final
             self._snap_horizon = horizon
-            if self.timeline is not None:
-                self.timeline.annotate("snapshot", horizon=horizon,
-                                       n_results=len(self._results))
             if truncate:
-                n_trimmed = self._truncate(horizon, old_snap)
-                if self.timeline is not None:
-                    self.timeline.annotate("truncate", horizon=horizon,
-                                           n_trimmed=n_trimmed)
+                self._truncate(horizon, old_snap)
         self.metrics.counter("serving_snapshots_total").inc()
         return final
 
-    def _truncate(self, horizon: int, old_snap: Optional[str]) -> int:
+    def _truncate(self, horizon: int, old_snap: Optional[str]) -> None:
         """Unlink everything the just-published snapshot supersedes.
         Crash-safe by construction: every leftover is either below the
         published horizon (restart re-collects and trims it) or an older
-        snapshot shadowed by the newer one.  Returns the number of
-        files trimmed (timeline observability)."""
-        n = 0
+        snapshot shadowed by the newer one."""
         for name in sorted(self._folded):
             idx = self._log_index(name)
             if idx is not None and idx < horizon:
                 self._unlink_quiet(name)
-                n += 1
         for name in sorted(self._stale):
             self._unlink_quiet(name)
-            n += 1
         self._stale.clear()
         if old_snap is not None:
             self._unlink_quiet(old_snap)
-            n += 1
-        return n
 
     def took_effect(self, rids: Sequence[int]) -> np.ndarray:
         """Per-op detectable recovery ("Tracking in Order to Recover"):

@@ -128,3 +128,23 @@ def test_pad_pow2_pads_with_the_last_op():
 def test_unported_backends_raise(kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         MembershipIndex(capacity=8, device="cpu", **kw)
+
+
+def test_growth_first_call_events_match_jax():
+    """Index growth records one capacity-ladder event per fresh
+    (pool, buckets, padded width) signature of the migrate seam, the same
+    events as the reference's tracker."""
+    from repro.obs.compile import get_tracker as jax_tracker
+    from repro_torch.obs.compile import get_tracker
+    jt, tt = jax_tracker(), get_tracker()
+    jt.reset()
+    tt.reset()
+    ji, ti = JaxIndex(capacity=8), MembershipIndex(capacity=8, device="cpu")
+    for i in range(6):
+        ks = list(range(10 * i, 10 * i + 10))
+        ji.add(ks)
+        ti.add(ks)
+    assert ti.migrations == ji.migrations >= 2
+    key = lambda trk: [(e.site, e.key, e.trigger) for e in trk.events]
+    assert key(tt) == key(jt)
+    assert {e.trigger for e in tt.events} == {"capacity_ladder"}

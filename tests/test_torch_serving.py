@@ -325,3 +325,29 @@ def test_staged_io_crash_images_match_jax(tmp_path, evict):
         assert io.counters.snapshot()["fences"] == 1
     assert images[0] == images[1]
     assert digest(b"xyz") == jax_digest(b"xyz")
+
+
+def test_spans_and_counters_match_jax(tmp_path):
+    """The same history bills the same persistence instructions to the
+    same spans in both packages, and moves the same registry counters;
+    every flush and fence falls inside a flush_fence span."""
+    from repro.obs.metrics import get_registry as jax_registry
+    from repro_torch.obs.metrics import get_registry
+    seen = []
+    for make, reg in ((JaxLog, jax_registry()), (Log, get_registry())):
+        reg.reset()
+        log = make(tmp_path / reg.__module__, capacity=16)
+        _history(log)
+        spans = [(r["span"], r["depth"], r["counts"], r.get("meta"))
+                 for r in log.tracer.records()]
+        counters = {(e.name, tuple(sorted(e.labels.items()))): e.obj.value
+                    for e in reg.entries() if e.kind == "counter"
+                    and not e.name.startswith("compile_")}
+        seen.append((spans, log.tracer.totals, counters))
+        io = log.io.counters
+        assert (log.tracer.totals["flush"], log.tracer.totals["fence"]) == \
+            (io.flushes, io.fences)
+        for phase, _, counts, _ in spans:
+            assert phase == "flush_fence" or not {"flush", "fence"} & set(
+                counts)
+    assert seen[0] == seen[1]
