@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the NVTraverse map on the card.
+"""Drive the PyTorch/CUDA port of the NVTraverse map and its zamba2-7b
+serving path on the card.
 
     python3 chip_smoke.py                 # on the card, at full size
     python3 chip_smoke.py --device cpu    # rehearsal on the host, small
 
-Four phases, each of which fails the run when it fails:
+Six phases, each of which fails the run when it fails:
 
-1. ``build``  -- compile the hand-written kernels from ``src/`` with nvcc
-   and print their register/spill report;
+1. ``build``  -- compile the three hand-written kernels from ``src/`` with
+   nvcc, all at once, and print their register/spill reports;
 2. ``map``    -- the main path at card scale: a durable index of 2^22
    keys (2^23-node pool, 2^20 buckets) takes the repo's mixed workload
    (uniform keys in ``[1, 2*prefill)``, updates split between inserts
@@ -23,18 +24,32 @@ Four phases, each of which fails the run when it fails:
    The log's spans must bill every flush and fence to its commit or
    snapshot; their times, the restart's phases and the first-call stalls
    of the growth rounds are printed;
-4. ``timing`` -- each kernel's time (CUDA events), its plain version's,
-   and its bound from the bytes it must move.
+4. ``model``  -- the serving path at full width: zamba2-7b (bf16, 81
+   layers, random weights from ``--seed``) behind a ``ServeEngine`` serves
+   8 requests (4 prompts of 512 tokens, 4 of 500; 16 new tokens, batches
+   of 4), crashes after the first batch and is served again by a new
+   engine on the same log: exactly-once must hold, and every prefill must
+   launch ``flash_attention`` 13 times and ``ssd_scan`` 81 times.  Its
+   prefill and decode-step times, tokens/s and peak memory are printed;
+5. ``checks`` -- each new kernel against its plain versions at the serve
+   shapes and on the reference's sweep, and prefill (kernels) against
+   prefill + one decode step (plain recurrent and attention steps) in f32
+   at full width and depth 12;
+6. ``timing`` -- each kernel's time (CUDA events), its plain version's,
+   one PyTorch library call's where one computes the same function, and
+   its bound from the bytes it must move and the operations it must do.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card (and without
-``--device cpu``) it exits non-zero and prints no result.
+``--device cpu``, which rehearses every phase but timing on small shapes
+and on ``tiny(zamba2-7b)``) it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -46,16 +61,28 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs.registry import get_arch, tiny  # noqa: E402
 from repro_torch.core import batched as B  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.nvt_probe import kernel as probe_kernel  # noqa: E402
 from repro_torch.kernels.nvt_probe.ops import nvt_probe  # noqa: E402
 from repro_torch.kernels.nvt_probe.ref import (  # noqa: E402
     mix32, probe_ref, tiles_from_hashmap)
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref  # noqa
+from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.obs.compile import get_tracker  # noqa: E402
 from repro_torch.obs.metrics import get_registry  # noqa: E402
-from repro_torch.serving.engine import RequestLog  # noqa: E402
+from repro_torch.serving.engine import RequestLog, ServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
+BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
+KERNELS = (probe_kernel, fa_kernel, ssd_kernel)
+WRAPPERS = (nvt_probe, flash_attention, ssd_scan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,13 +99,23 @@ class Sizes:
     serve_batches: int = 40
     serve_batch: int = 1024
     serve_retain: int = 8192
+    # model phase: zamba2-7b served through a crash and a restart
+    model_tiny: bool = False     # tiny(zamba2-7b) instead of the full arch
+    prompt_lens: tuple = (512, 500)   # rids 0-3, rids 4-7
+    new_tokens: int = 16
+    model_batch: int = 4
+    # checks phase: serve shapes of the kernels, and the depth of the f32
+    # prefill/decode consistency model
+    check_lens: tuple = (512, 500)
+    consistency_layers: int = 12
 
 
 FULL = Sizes()
 SMALL = Sizes(capacity=2**12, n_buckets=2**8, prefill=2**10,
               round_ops=2**9, queries=2**9, check_ops=256,
               serve_capacity=64, serve_batches=6, serve_batch=32,
-              serve_retain=64)
+              serve_retain=64, model_tiny=True, prompt_lens=(24, 20),
+              new_tokens=4, check_lens=(40, 37), consistency_layers=7)
 
 
 def log(obj) -> None:
@@ -347,6 +384,300 @@ def serve_trace(rlog, again, n_commits: int, n_snaps: int) -> dict:
             "counters": counters, "first_calls": first}
 
 
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def model_config(sz: Sizes, **overrides):
+    cfg = get_arch("zamba2-7b")
+    return tiny(cfg, **overrides) if sz.model_tiny else \
+        dataclasses.replace(cfg, **overrides)
+
+
+def model_requests(sz: Sizes, vocab: int, seed: int) -> dict:
+    """rids 0-3 with prompts of ``prompt_lens[0]`` tokens, rids 4-7 of
+    ``prompt_lens[1]``, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return {rid: rng.integers(0, vocab, size=sz.prompt_lens[rid // 4])
+            .astype(np.int32) for rid in range(8)}
+
+
+def run_model(sz: Sizes, dev, seed: int) -> dict:
+    """The slice's main path: zamba2-7b behind a ServeEngine serves 8
+    requests, crashes after its first batch, and a new engine on the same
+    log serves all 8 again.  Checks exactly-once, the dedup hits and the
+    kernels' launch counts per prefill; returns the phase's numbers."""
+    cfg = model_config(sz)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    requests = model_requests(sz, cfg.vocab, seed)
+    max_len = max(sz.prompt_lens) + sz.new_tokens
+    reg = get_registry()
+    hits = reg.counter("serving_dedup_hits_total")
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(max_len=max_len, log_dir=d, batch_size=sz.model_batch,
+                  device=dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        first_eng = ServeEngine(model, params, **kw)
+        first = first_eng.serve(requests, n_new=sz.new_tokens,
+                                crash_after_batches=1)
+        hits0 = hits.value
+        again = ServeEngine(model, params, **kw)
+        out = again.serve(requests, n_new=sz.new_tokens)
+        launches = {"flash_attention": flash_attention.launches,
+                    "ssd_scan": ssd_scan.launches,
+                    "nvt_probe": nvt_probe.launches}
+        dedup_hits = hits.value - hits0
+        records = sorted(n for n in os.listdir(d) if n.startswith("log_"))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    short = sorted(r for r in requests
+                   if len(requests[r]) == min(sz.prompt_lens))
+    if sorted(first) != short[:sz.model_batch]:
+        raise AssertionError(f"first batch committed {sorted(first)}")
+    if any(out.get(r) != first[r] for r in first):
+        raise AssertionError("the first batch's results changed across "
+                             "the crash")
+    if sorted(out) != sorted(requests) or any(
+            len(v) != sz.new_tokens or not all(0 <= t < cfg.vocab
+                                               for t in v)
+            for v in out.values()):
+        raise AssertionError("not every request was served in full")
+    if len(records) != -(-len(requests) // sz.model_batch):
+        raise AssertionError(f"{len(records)} log records for "
+                             f"{len(requests)} requests: not exactly once")
+    if dedup_hits != len(first):
+        raise AssertionError(f"the second serve counted {dedup_hits} "
+                             f"dedup hits, not {len(first)}")
+    prefills = len(first_eng.step_times["prefill_s"]) + \
+        len(again.step_times["prefill_s"])
+    n_inv = cfg.n_layers // cfg.shared_attn_every
+    if dev.type == "cuda" and (
+            launches["flash_attention"] != n_inv * prefills
+            or launches["ssd_scan"] != cfg.n_layers * prefills):
+        raise AssertionError(f"launches {launches} for {prefills} "
+                             f"prefills of {cfg.n_layers} layers")
+    times = {k: first_eng.step_times[k] + again.step_times[k]
+             for k in first_eng.step_times}
+    profiled = profile_model(model, params, requests, sz, dev) \
+        if dev.type == "cuda" else None
+    decode = times["decode_step_s"]
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.compute_dtype,
+            "n_params": n_params, "init_s": init_s,
+            "prompt_lens": list(sz.prompt_lens),
+            "new_tokens": sz.new_tokens, "batch": sz.model_batch,
+            "max_len": max_len, "prefills": prefills,
+            "launches": launches, "dedup_hits": dedup_hits,
+            "records": len(records), "prefill_s": times["prefill_s"],
+            "decode_step_s_median": float(np.median(decode)),
+            "decode_step_s": decode,
+            "prefill_tokens_per_s": sz.model_batch * sum(sz.prompt_lens)
+            / sum(times["prefill_s"]),
+            "decode_tokens_per_s": sz.model_batch / float(np.median(decode)),
+            "peak_bytes": peak, "profile": profiled, "reduced": []}
+
+
+def profile_step(fn, dev, top: int = 8) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its host-clock wall
+    time (device synced), the device time of every kernel and copy it
+    ran, the share of the wall the device was busy, and the kernels that
+    took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0)
+    # the kernels and copies themselves, not the host ops that launched
+    # them (those carry the same device time again)
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    device_ms = sum(dev_us(e) for e in events) / 1e3
+    events.sort(key=dev_us, reverse=True)
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "busy_share": device_ms / (wall * 1e3),
+            "device_kernels": sum(e.count for e in events),
+            "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
+                     "calls": e.count} for e in events[:top]]}
+
+
+def profile_model(model, params, requests: dict, sz: Sizes, dev) -> dict:
+    """Where one prefill (the prompts of rids 0-3) and one decode step
+    spend their time on the card (run after the launch counts are read)."""
+    prompts = np.stack([requests[r]
+                        for r in sorted(requests)[:sz.model_batch]])
+    tokens = torch.as_tensor(prompts, device=dev)
+    max_len = max(sz.prompt_lens) + sz.new_tokens
+    out = {}
+    with torch.no_grad():
+        model.prefill(params, {"tokens": tokens}, max_len)   # warm
+        out["prefill"] = profile_step(lambda: model.prefill(
+            params, {"tokens": tokens}, max_len), dev)
+        _, caches = model.prefill(params, {"tokens": tokens}, max_len)
+        S = tokens.shape[1]
+        model.decode_step(params, tokens[:, -1], caches, S)  # warm
+        out["decode_step"] = profile_step(lambda: model.decode_step(
+            params, tokens[:, -1], caches, S + 1), dev)
+    return out
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _check_close(name: str, got, want, tol: float) -> float:
+    err = max_err(got, want)
+    bad = (got.float() - want.float()).abs() > tol + tol * want.float().abs()
+    if not torch.isfinite(got.float()).all() or bool(bad.any()):
+        raise AssertionError(f"{name}: max abs error {err} beyond {tol}")
+    return err
+
+
+def flash_inputs(dev, B, S, H, d, dtype, seed, K=None, Sk=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    K, Sk = K or H, Sk or S
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((B, S, H, d), (B, Sk, K, d), (B, Sk, K, d)))
+
+
+def check_flash(sz: Sizes, dev) -> dict:
+    """flash_attention against attention_ref: at the serve shapes in bf16
+    (reference in f32, 2e-2), and the tests/test_kernels.py sweep in f32
+    (2e-5: f32 sums in another order)."""
+    errs = {}
+    B, H, d = 4, 32, 112
+    for S in sz.check_lens:
+        q, k, v = flash_inputs(dev, B, S, H, d, torch.bfloat16, S)
+        got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_plain(q.float(), k.float(), v.float(),
+                                     causal=True)
+        errs[f"bf16_S{S}"] = _check_close(f"flash bf16 S={S}", got, want,
+                                          2e-2)
+    sweep = [(1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64),
+             (1, 256, 256, 8, 2, 32), (2, 64, 192, 2, 1, 128)]
+    for i, (B, Sq, Sk, H, K, d) in enumerate(sweep):
+        q, k, v = flash_inputs(dev, B, Sq, H, d, torch.float32, i, K, Sk)
+        for causal in (True, False):
+            errs[f"f32_{B}x{Sq}x{Sk}x{H}x{K}x{d}_{'c' if causal else 'f'}"] \
+                = _check_close("flash f32 sweep", flash_attention(
+                    q, k, v, causal=causal), flash_attention_plain(
+                    q, k, v, causal=causal), 2e-5)
+    for window in (32, 64, 128):
+        q, k, v = flash_inputs(dev, 2, 256, 4, 64, torch.float32, window)
+        errs[f"f32_window{window}"] = _check_close(
+            "flash f32 window", flash_attention(q, k, v, window=window),
+            flash_attention_plain(q, k, v, window=window), 2e-5)
+    return errs
+
+
+def ssd_inputs(dev, B, S, H, P, N, dtype, seed):
+    """Model-like inputs (tests/test_kernels.py's distributions)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    xh = rnd(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, S, H))
+    A = -torch.exp(rnd(H) * 0.3)
+    return xh, dt, A, (rnd(B, S, N) * 0.5).to(dtype), \
+        (rnd(B, S, N) * 0.5).to(dtype)
+
+
+def check_ssd(sz: Sizes, dev) -> dict:
+    """ssd_scan's y and final state at the serve shapes against the plain
+    chunked version computed in f32 on the same values and against the
+    sequential ssd_ref (f32 arithmetic, y rounded to the input dtype):
+    bf16 at 5e-2, f32 at 1e-4.  The reference's own bf16 chunked form
+    rounds its scores, partial sums and carried state to bf16 where the
+    kernel keeps f32; its distance to ssd_ref is reported beside the
+    kernel's (``chunked_bf16_vs_ref``), not held to the tolerance."""
+    errs = {}
+    B, H, P, N, Q = 4, 112, 64, 64, 128
+    if sz.model_tiny:
+        H, P, N, Q = 4, 16, 16, 16
+    for S in sz.check_lens:
+        for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
+            tag = f"{str(dtype)[6:]}_S{S}"
+            xh, dt, A, Bm, Cm = ssd_inputs(dev, B, S, H, P, N, dtype, S)
+            y, final = ssd_scan(xh, dt, A, Bm, Cm, chunk=Q)
+            cy, cfin = ssd_chunked(xh.float(), dt, A, Bm.float(),
+                                   Cm.float(), Q)
+            errs[f"{tag}_y_vs_chunked"] = _check_close(
+                f"ssd {tag} y", y, cy, tol)
+            errs[f"{tag}_state_vs_chunked"] = _check_close(
+                f"ssd {tag} state", final, cfin, tol)
+            # the sequential oracle on the kernel layout (padded chunks)
+            pad = (-S) % Q
+            C = (S + pad) // Q
+
+            def lay(t):
+                t = torch.nn.functional.pad(
+                    t, (0, 0) * (t.dim() - 2) + (0, pad))
+                return t.movedim(2, 1).reshape((B * H, C, Q) + t.shape[3:])
+            dtk = lay(dt)
+            bc = [t[:, :, None].expand(B, S, H, N) for t in (Bm, Cm)]
+            ry, rstate = ssd_ref(lay(xh), dtk, dtk * A.repeat(B)[:, None,
+                                                                  None],
+                                 lay(bc[0]), lay(bc[1]))
+            ry = ry.reshape(B, H, C * Q, P).movedim(1, 2)[:, :S]
+            errs[f"{tag}_y_vs_ref"] = _check_close(f"ssd {tag} y vs ref", y,
+                                                   ry, tol)
+            errs[f"{tag}_state_vs_ref"] = _check_close(
+                f"ssd {tag} state vs ref", final,
+                rstate.reshape(B, H, P, N), tol)
+            if dtype == torch.bfloat16:
+                by, bfin = ssd_chunked(xh, dt, A, Bm, Cm, Q)
+                errs[f"{tag}_chunked_bf16_vs_ref"] = max_err(by, ry)
+                errs[f"{tag}_chunked_bf16_vs_kernel"] = max_err(by, y)
+    return errs
+
+
+CONSISTENCY_TOL = 2e-3
+
+
+def check_consistency(sz: Sizes, dev, seed: int) -> dict:
+    """prefill(prompt[:S]) + decode_step(token S) -- the plain recurrent
+    SSD step and decode attention -- against the last logits of
+    prefill(prompt[:S+1]), which runs the kernels on a ragged length, in
+    f32 at full width and ``consistency_layers`` deep.  Tolerance
+    CONSISTENCY_TOL (abs and rel): the two sides sum in other orders
+    (chunked scan against recurrence, blocked softmax against one softmax)
+    and the differences grow through the layers, far below this bound in
+    f32; a wrong mask, state or cache would move logits by O(1)."""
+    cfg = model_config(sz, n_layers=sz.consistency_layers,
+                       param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed + 1))
+    S = max(sz.prompt_lens)
+    toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, size=(2, S + 1)), device=dev)
+    with torch.no_grad():
+        _, caches = model.prefill(params, {"tokens": toks[:, :S]}, S + 1)
+        dec, _ = model.decode_step(params, toks[:, S], caches, S)
+        full, _ = model.prefill(params, {"tokens": toks}, S + 1)
+    err = _check_close("prefill/decode consistency", dec[:, 0], full[:, 0],
+                       CONSISTENCY_TOL)
+    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "S": S,
+            "max_abs_err": err, "tol": CONSISTENCY_TOL,
+            "max_abs_logit": float(full.abs().max()),
+            "shared_attn_calls": cfg.n_layers // cfg.shared_attn_every}
+
+
 def cuda_ms(fn, iters: int = 20) -> float:
     """Mean time of ``fn`` on the card (CUDA events, after warm-up)."""
     for _ in range(3):
@@ -425,6 +756,76 @@ def time_probe(sz: Sizes, out: dict, launches: int, err: int) -> dict:
             "bound_ms_row_per_query": per_query / HBM_BYTES_PER_S * 1e3}
 
 
+def time_flash(dev, launches: int, err: float) -> dict:
+    """flash_attention at the serve shape (B=4, S=512, H=K=32, d=112,
+    bf16, causal).  The bound: q, k, v read once and o written once, or
+    2 * 2 * d flops per visible (query, key) pair at the bf16 peak,
+    whichever is longer."""
+    B, S, H, d = 4, 512, 32, 112
+    q, k, v = flash_inputs(dev, B, S, H, d, torch.bfloat16, 0)
+    ms = cuda_ms(lambda: fa_kernel.flash_attention_kernel(q, k, v))
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = cuda_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True))
+    nbytes = 4 * q.numel() * q.element_size()
+    flops = 4 * d * B * H * (S * (S + 1) // 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
+            "launches": launches, "max_abs_err": err, "max_abs_diff": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "bytes": nbytes, "flops": flops,
+            "shape": [B, S, H, d], "dtype": "bfloat16"}
+
+
+def ssd_flops(B: int, S: int, H: int, P: int, N: int, Q: int) -> int:
+    """The chunk GEMMs the scan needs: C B^T on the lower triangle once
+    per batch row and chunk (B/C are shared by the heads), and per head
+    the lower-triangular scores times x, C times the carried state, and
+    the state update."""
+    total = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        tri = q * (q + 1) // 2
+        total += B * 2 * N * tri
+        total += B * H * (2 * P * tri + 2 * q * N * P + 2 * q * P * N)
+    return total
+
+
+def time_ssd(dev, launches: int, err: float) -> dict:
+    """ssd_scan at the serve shape (B=4, S=512, H=112, P=N=64, chunk 128,
+    bf16), from a zero f32 state as prefill into a cache passes it.  The
+    bound: x, dt, B, C and the state read once, y and the final state
+    written once, or :func:`ssd_flops` at the bf16 peak."""
+    B, S, H, P, N, Q = 4, 512, 112, 64, 64, 128
+    xh, dt, A, Bm, Cm = ssd_inputs(dev, B, S, H, P, N, torch.bfloat16, 0)
+    init = torch.zeros((B, H, P, N), dtype=torch.float32, device=dev)
+    ms = cuda_ms(lambda: ssd_kernel.ssd_scan_kernel(
+        xh, dt, A, Bm, Cm, chunk=Q, init_state=init))
+    plain_ms = cuda_ms(lambda: ssd_chunked(xh, dt, A, Bm, Cm, Q,
+                                           init_state=init))
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (xh, dt, A, Bm, Cm, init)) \
+        + xh.numel() * xh.element_size() + init.numel() * 4
+    flops = ssd_flops(B, S, H, P, N, Q)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:34",
+            "launches": launches, "max_abs_err": err, "max_abs_diff": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "bytes": nbytes, "flops": flops,
+            "shape": [B, S, H, P, N, Q], "dtype": "bfloat16"}
+
+
 def card_name_and_limit() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -444,21 +845,27 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device(args.device)
     sz = FULL if on_card else SMALL
+    # every f32 check runs in full f32 on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-    # 1. build
+    # 1. build: one nvcc per kernel source, all started together
     if on_card:
         t0 = time.perf_counter()
-        so, report = probe_kernel.build()
-        print(report.strip(), flush=True)
-        log({"phase": "build", "ok": True, "kernels": ["nvt_probe"],
-             "library": so.name, "build_s": time.perf_counter() - t0})
+        built = _build.build_all([k.SOURCE for k in KERNELS])
+        for so, report in built:
+            print(report.strip(), flush=True)
+        log({"phase": "build", "ok": True,
+             "kernels": [k.SOURCE.stem for k in KERNELS],
+             "libraries": [so.name for so, _ in built],
+             "build_s": time.perf_counter() - t0})
     else:
         log({"phase": "build", "skipped": "no card: --device cpu runs "
              "the plain versions"})
 
-    # 2. map: the main path, with every kernel's launch count from 0
+    # 2. map: the map's main path, with every kernel's launch count from 0
     stream = make_stream(sz, args.seed)
-    nvt_probe.launches = 0
+    reset_launches()
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     out = run_map(sz, stream, dev)
@@ -477,17 +884,38 @@ def main(argv=None) -> int:
     # 3. serve
     log({"phase": "serve", "ok": True, **run_serve(sz, dev)})
 
-    # 4. timing
+    # 4. model: the serving path, launch counts from 0 (inside run_model)
+    model = run_model(sz, dev, args.seed)
+    log({"phase": "model", "ok": True, "device": str(dev), **model})
+
+    # 5. checks: kernels against their plain versions, and consistency
+    t0 = time.perf_counter()
+    fa_errs = check_flash(sz, dev)
+    ssd_errs = check_ssd(sz, dev)
+    cons = check_consistency(sz, dev, args.seed)
+    log({"phase": "checks", "ok": True, "flash_attention": fa_errs,
+         "ssd_scan": ssd_errs, "consistency": cons,
+         "check_s": time.perf_counter() - t0})
+
+    # 6. timing
     if not on_card:
         log({"phase": "timing", "skipped": "no card"})
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
     kern = time_probe(sz, out, launches, checks["max_abs_err"])
+    # each kernel against its plain versions at the serve shape (the
+    # reference's own bf16 rounding, chunked_bf16_*, is not the kernel's)
+    fa_err = fa_errs["bf16_S512"]
+    ssd_err = max(v for k, v in ssd_errs.items()
+                  if k.startswith("bfloat16_S512") and "chunked_bf16" not in k)
+    kernels = [kern,
+               time_flash(dev, model["launches"]["flash_attention"], fa_err),
+               time_ssd(dev, model["launches"]["ssd_scan"], ssd_err)]
     log({"phase": "timing", "ok": True, "warm_s": warm_stages(sz, stream,
                                                              out, dev),
          "walk_step_sync_us": sync_step_us(dev),
          "max_chain": checks["max_chain"], "peak_map_bytes": peak})
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,94 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one CUDA source under ``kernels/<name>/csrc/`` with a plain
+C interface.  It is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library at first use, into ``build/repro_torch_kernels/`` at the root of
+the checkout, and loaded with ctypes.  The library's name carries a hash of
+the source and flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is.  Nothing is compiled or loaded when this module is
+imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Sequence, Tuple
+
+ROOT = Path(__file__).resolve().parents[3]          # the checkout
+BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: Dict[Path, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + \
+            [Path("/usr/local/cuda/bin/nvcc")]:
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
+                           "PATH")
+    return found
+
+
+def _target(source: Path) -> Path:
+    tag = hashlib.sha1(source.read_bytes()
+                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{source.stem}_{tag}.so"
+
+
+def build_all(sources: Sequence[Path]) -> List[Tuple[Path, str]]:
+    """Compile every source not built yet, one ``nvcc`` per source, all
+    started together.  Returns ``(library path, ptxas report)`` per source
+    in order; the report (registers, shared memory, spills) is what
+    ``nvcc -Xptxas -v`` printed for the build.  Raises if any build
+    fails, after every started build has ended."""
+    jobs = []
+    for src in sources:
+        so = _target(Path(src))
+        report = so.with_suffix(".ptxas.txt")
+        if so.exists() and report.exists():
+            jobs.append((so, report, None, None, None))
+            continue
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f".{so.name}.{os.getpid()}")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((so, report, tmp, proc, src))
+    failed = []
+    for so, report, tmp, proc, src in jobs:
+        if proc is None:
+            continue
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {src} failed with code {proc.returncode}:"
+                          f"\n{out}")
+            continue
+        tmp_report = report.with_name(f".{report.name}.{os.getpid()}")
+        tmp_report.write_text(out)
+        os.replace(tmp, so)
+        os.replace(tmp_report, report)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [(so, report.read_text()) for so, report, *_ in jobs]
+
+
+def load(source: Path) -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if need be.  Each
+    source is loaded once per process; the caller declares the argtypes
+    of the functions it calls."""
+    source = Path(source)
+    lib = _LOADED.get(source)
+    if lib is None:
+        (so, _), = build_all([source])
+        lib = _LOADED[source] = ctypes.CDLL(str(so))
+    return lib

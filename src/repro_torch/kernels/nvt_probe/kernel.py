@@ -1,74 +1,23 @@
-"""Build and ctypes binding of the hand-written Hopper ``nvt_probe``
-kernel (``csrc/nvt_probe.cu``).
-
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into ``build/repro_torch_kernels/``
-at the root of the checkout.  The library's name carries a hash of the
-source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  Nothing is compiled or loaded when this module is
-imported.
-"""
+"""ctypes binding of the hand-written Hopper ``nvt_probe`` kernel
+(``csrc/nvt_probe.cu``), built at first use by
+:mod:`repro_torch.kernels._build`."""
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from .. import _build
+
 SOURCE = Path(__file__).parent / "csrc" / "nvt_probe.cu"
-ROOT = Path(__file__).resolve().parents[4]          # the checkout
-BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 QUERIES_PER_BLOCK = 8      # kWarpsPerBlock in the source: one warp a query
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + \
-            [Path("/usr/local/cuda/bin/nvcc")]:
-        if cand.exists():
-            return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
-                           "PATH")
-    return found
-
-
-def build():
-    """Compile the kernel unless this source is already built.  Returns
-    ``(library path, ptxas report)``; the report (registers, spills) is
-    what ``nvcc -Xptxas -v`` printed for the build."""
-    tag = hashlib.sha1(SOURCE.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"nvt_probe_{tag}.so"
-    report = so.with_suffix(".ptxas.txt")
-    if so.exists() and report.exists():
-        return so, report.read_text()
-    so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".{so.name}.{os.getpid()}")
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {r.returncode}:\n"
-                           f"{r.stdout}{r.stderr}")
-    tmp_report = report.with_name(f".{report.name}.{os.getpid()}")
-    tmp_report.write_text(r.stdout + r.stderr)
-    os.replace(tmp, so)
-    os.replace(tmp_report, report)
-    return so, report.read_text()
 
 
 @functools.cache
 def _library():
-    so, _ = build()
-    lib = ctypes.CDLL(str(so))
+    lib = _build.load(SOURCE)
     lib.nvt_probe_launch.argtypes = [ctypes.c_void_p] * 5 + \
         [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.nvt_probe_launch.restype = ctypes.c_int

@@ -1,0 +1,51 @@
+"""User-facing SSD chunk scan in the model layout (port of
+``repro.kernels.ssd_scan.ops.ssd_scan``).
+
+A CUDA tensor launches the hand-written kernel (``kernel.py``); a CPU
+tensor takes the plain version, the model's chunked SSD
+(``ref.ssd_chunked``).  There is no fallback from one to the other.
+Unlike the TPU wrapper, which returned y only, both return the final
+carried state as well, which prefill with a cache needs; and the kernel
+reads the one group's B/C rows itself instead of a copy per head.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .kernel import ssd_scan_kernel
+from .ref import ssd_chunked
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xh [B,S,H,P]; dt [B,S,H] (post-softplus); A [H] (< 0); Bm/Cm
+    [B,S,N] (one group, shared by all heads); init_state [B,H,P,N] or
+    None (zeros).  Returns (y [B,S,H,P] in the xh dtype, final state
+    [B,H,P,N]): f32 from the kernel, the carry dtype of
+    :func:`ref.ssd_chunked` from the plain version.
+    ``ssd_scan.launches`` counts the kernel launches made through this
+    wrapper."""
+    if xh.is_cuda:
+        f32 = torch.float32
+        y, final = ssd_scan_kernel(
+            xh.contiguous(), dt.to(f32).contiguous(), A.to(f32).contiguous(),
+            Bm.contiguous(), Cm.contiguous(), chunk=chunk,
+            init_state=None if init_state is None
+            else init_state.to(f32).contiguous())
+        if xh.shape[0] * xh.shape[2]:
+            ssd_scan.launches += 1
+        return y, final
+    devices = {t.device.type for t in (xh, dt, A, Bm, Cm)}
+    if init_state is not None:
+        devices.add(init_state.device.type)
+    if devices != {"cpu"}:
+        raise ValueError("all inputs must be on one device (CUDA for the "
+                         "kernel, CPU for the plain version)")
+    return ssd_chunked(xh, dt, A, Bm, Cm, chunk, init_state=init_state)
+
+
+ssd_scan.launches = 0

@@ -1,5 +1,6 @@
-"""Durable request log with exactly-once dedup (port of
-``repro.serving.engine.RequestLog``).
+"""Durable request log with exactly-once dedup, and the batched serving
+engine on top of it (port of ``repro.serving.engine.RequestLog`` and
+``ServeEngine``).
 
 A finished request's result is the **destination**: it is committed to the
 durable request log with flush(record) -> fence -> publish, and only then
@@ -10,7 +11,9 @@ recovery reads the newest snapshot plus the committed record suffix.  The
 on-disk records and snapshots are byte-compatible with the JAX package's,
 so a log directory written by either reopens in the other.
 
-``ServeEngine`` and the sharded/ordered dedup backends are not ported yet.
+:class:`ServeEngine` serves batches of prompts greedily through a model's
+prefill and decode steps and commits each batch's results to the log.
+The sharded/ordered dedup backends are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from ..core.batched import resolve_device
 from ..obs.metrics import get_registry
 from ..obs.spans import PersistListener, Tracer
 from ..persistence.index import MembershipIndex
@@ -513,3 +518,155 @@ class RequestLog:
         res = self._results.get(int(rid))
         return {"rid": int(rid), "took_effect": took,
                 "result": list(res) if took and res is not None else None}
+
+
+def _stack_batch(prompts: List[np.ndarray]) -> np.ndarray:
+    """Stack one equal-length batch of 1-D prompt token arrays.  The
+    length uniformity is checked, not papered over: a shorter row
+    right-padded into a longer batch would attend over the pad tokens
+    and its generation would change with batch composition -- serve()
+    groups requests by prompt length precisely so this never happens."""
+    S = int(prompts[0].shape[0])
+    if not all(int(p.shape[0]) == S for p in prompts):
+        raise ValueError("serve() must batch equal-length prompts")
+    return np.stack(prompts).astype(np.int32)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class ServeEngine:
+    def __init__(self, model, params, *, max_len: int, log_dir,
+                 batch_size: int = 4, retain: Optional[int] = None,
+                 log_shards: Optional[int] = None,
+                 log_rebalance: bool = False,
+                 ordered_dedup: bool = False,
+                 snapshot_every: Optional[int] = None, device=None):
+        """``retain`` bounds the exactly-once window: when set, each
+        commit also evicts all but the newest ``retain`` committed rids
+        from the durable dedup index (one mixed insert/delete round).
+        ``snapshot_every`` publishes a truncating
+        :meth:`RequestLog.snapshot` after that many commits, keeping a
+        restart O(retention window).  ``device`` (``None`` = the card)
+        holds the model's parameters and the log's dedup map.
+        ``log_shards``, ``log_rebalance`` and ``ordered_dedup`` select
+        request-log backends that are not ported yet and raise
+        ``NotImplementedError``.  Counters and the per-request latency
+        histogram (``serve_request_us``) go to the process registry;
+        :attr:`step_times` keeps each batch's prefill and decode-step
+        seconds, each ended by a device sync."""
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"not on {self.device}")
+        self.model = model
+        self.params = params
+        self.max_len = max_len
+        self.batch = batch_size
+        self.retain = retain
+        self.snapshot_every = snapshot_every
+        self._commits_since_snap = 0
+        self.log = RequestLog(log_dir, shards=log_shards,
+                              rebalance=log_rebalance,
+                              ordered_dedup=ordered_dedup,
+                              device=self.device)
+        self.metrics = self.log.metrics
+        self.tracer = self.log.tracer
+        self.step_times: Dict[str, List[float]] = {"prefill_s": [],
+                                                   "decode_step_s": []}
+
+    def _timed(self, key: str, fn):
+        """Run ``fn`` and record its seconds, the device synced at both
+        ends."""
+        _sync(self.device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(self.device)
+        self.step_times[key].append(time.perf_counter() - t0)
+        return out
+
+    @torch.no_grad()
+    def _greedy_batch(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
+        B, S = prompts.shape
+        tokens = torch.as_tensor(prompts, device=self.device)
+        logits, caches = self._timed("prefill_s", lambda: self.model.prefill(
+            self.params, {"tokens": tokens}, self.max_len))
+        out = []
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        for i in range(n_new):
+            out.append(tok)
+            logits, caches = self._timed(
+                "decode_step_s", lambda: self.model.decode_step(
+                    self.params, tok, caches, S + i))
+            tok = torch.argmax(logits[:, 0], dim=-1)
+        return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+
+    def serve(self, requests: Dict[int, np.ndarray], n_new: int = 8,
+              *, crash_after_batches: Optional[int] = None) -> Dict[int, list]:
+        """Serve a request dict {rid: prompt tokens[S]} and return the
+        committed results for exactly the requested rids.  Ragged prompt
+        lengths are handled by grouping requests into equal-length
+        batches (shortest first, rid order within a group): a causal
+        model's generation for a prompt is then independent of which
+        other requests share its batch.  Already-committed rids are
+        skipped (exactly-once) and answered from the log."""
+        with self.tracer.span("route", n_requests=len(requests)):
+            self.log.refresh()  # pick up other engine instances' commits
+            rids = sorted(requests)
+            todo = [rid for rid, done
+                    in zip(rids, self.log.is_committed(rids)) if not done]
+            groups: Dict[int, List[int]] = {}
+            for rid in todo:
+                groups.setdefault(int(requests[rid].shape[0]), []).append(rid)
+        self.metrics.counter("serving_requests_total").inc(len(rids))
+        self.metrics.counter("serving_dedup_hits_total").inc(
+            len(rids) - len(todo))
+        lat_hist = self.metrics.histogram("serve_request_us",
+                                          lo=1.0, hi=1e8, growth=1.25)
+        batches = 0
+        for length in sorted(groups):
+            for i in range(0, len(groups[length]), self.batch):
+                t_batch = time.perf_counter_ns()
+                batch_rids = groups[length][i:i + self.batch]
+                with self.tracer.span("plan", n=len(batch_rids),
+                                      prompt_len=length):
+                    prompts = _stack_batch(
+                        [requests[r] for r in batch_rids])
+                    gen = self._greedy_batch(prompts, n_new)  # traversal
+                # never evict a rid this call is serving: its result was
+                # just paid for and belongs in this call's return value
+                expired = ([r for r in self.log.expired_rids(self.retain)
+                            if r not in requests]
+                           if self.retain is not None else ())
+                self.log.commit({int(r): gen[j].tolist()  # the destination
+                                 for j, r in enumerate(batch_rids)},
+                                evict=expired)
+                self._commits_since_snap += 1
+                # every request in a (synchronous) batch experiences the
+                # batch's wall time: that is its serve latency
+                dur_us = (time.perf_counter_ns() - t_batch) / 1e3
+                for _ in batch_rids:
+                    lat_hist.record(dur_us)
+                self.metrics.counter("serving_batches_total").inc()
+                if self.snapshot_every is not None and \
+                        self._commits_since_snap >= self.snapshot_every:
+                    self.log.snapshot()
+                    self._commits_since_snap = 0
+                batches += 1
+                if crash_after_batches is not None and \
+                        batches >= crash_after_batches:
+                    self.log.io.crash(evict="none")
+                    committed = self.log.committed()
+                    return {rid: committed[rid] for rid in requests
+                            if rid in committed}
+        committed = self.log.committed()
+        return {rid: committed[rid] for rid in requests if rid in committed}
+
+    def took_effect(self, rids: Sequence[int]) -> np.ndarray:
+        """Recovering-client probe: which of ``rids`` durably took
+        effect (see :meth:`RequestLog.took_effect`), answered without
+        log replay."""
+        self.log.refresh()
+        return self.log.took_effect(rids)

@@ -1,0 +1,162 @@
+"""The port's flash attention (plain version and CPU wrapper) against the
+JAX reference on the CPU, and the Hopper kernel against its plain version
+on the card (``gpu``-marked: skipped without a card).
+
+The JAX side runs as its own tests run it: the Pallas kernel in interpret
+mode and the plain ``impl="xla"`` path.  Tolerance 2e-5 in f32 (the
+tests/test_kernels.py tolerance: f32 sums in another order), 2e-2 in bf16.
+JAX is imported by the tests that compare with it, so the card's test run
+(``-m gpu``), on a machine without JAX, can import this file.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as tkernel
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, flash_attention_plain)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+
+@pytest.fixture(scope="module")
+def jx():
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.flash_attention.ops import flash_attention as jfa
+    from repro.kernels.flash_attention.ref import attention_ref as jref
+    return types.SimpleNamespace(jnp=jnp, fa=jfa, ref=jref)
+
+
+def _qkv(seed, B, Sq, Sk, H, K, dh):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, dh)).astype(np.float32),
+            rng.standard_normal((B, Sk, K, dh)).astype(np.float32),
+            rng.standard_normal((B, Sk, K, dh)).astype(np.float32))
+
+
+# tests/test_kernels.py's sweep, cut small: MHA, GQA 2:1 and 4:1, MQA
+# rectangular, with TPU blocks that divide each length
+@pytest.mark.parametrize("B,Sq,Sk,H,K,dh,bq,bk", [
+    (1, 64, 64, 2, 2, 32, 32, 32),
+    (2, 64, 64, 4, 2, 16, 32, 16),
+    (1, 32, 32, 8, 2, 8, 16, 32),
+    (2, 32, 96, 2, 1, 64, 32, 32),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_port_matches_jax_pallas_and_xla(jx, B, Sq, Sk, H, K, dh, bq, bk,
+                                         causal):
+    q, k, v = _qkv(0, B, Sq, Sk, H, K, dh)
+    jq, jk, jv = (jx.jnp.asarray(a) for a in (q, k, v))
+    pallas = np.asarray(jx.fa(jq, jk, jv, causal=causal, impl="pallas",
+                              interpret=True, block_q=bq, block_k=bk))
+    xla = np.asarray(jx.fa(jq, jk, jv, causal=causal, impl="xla"))
+    got = flash_attention(*(torch.as_tensor(a) for a in (q, k, v)),
+                          causal=causal)
+    assert got.shape == (B, Sq, H, dh) and got.dtype == torch.float32
+    for want in (pallas, xla):
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("window", [8, 16, 32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sliding_window_matches_jax(jx, window, causal):
+    q, k, v = _qkv(1, 2, 64, 64, 4, 2, 16)
+    jq, jk, jv = (jx.jnp.asarray(a) for a in (q, k, v))
+    want = np.asarray(jx.fa(jq, jk, jv, causal=causal, window=window,
+                            impl="xla"))
+    if causal:
+        pallas = np.asarray(jx.fa(jq, jk, jv, causal=True, window=window,
+                                  impl="pallas", interpret=True,
+                                  block_q=16, block_k=16))
+        np.testing.assert_allclose(pallas, want, atol=2e-5, rtol=2e-5)
+    got = flash_attention(*(torch.as_tensor(a) for a in (q, k, v)),
+                          causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_rows_with_no_visible_key_give_zero(jx):
+    """Non-causal window, more queries than keys: rows past the window
+    see nothing and give exactly 0, in the port and in the reference's
+    plain version.  The reference's Pallas kernel gives such a row the
+    mean of v when it shares a visible KV tile with rows that do see keys
+    (rows 23-31 here at 16-row blocks); the port follows the plain
+    version and the kernel's own finalize (``l == 0`` -> 0)."""
+    q, k, v = _qkv(2, 1, 48, 16, 2, 2, 8)
+    want = np.asarray(jx.ref(*(jx.jnp.asarray(a.transpose(0, 2, 1, 3)
+                                              .reshape(-1, a.shape[1], 8))
+                               for a in (q, k, v)),
+                             causal=False, window=8))
+    got = attention_ref(*(torch.as_tensor(a).transpose(1, 2)
+                          .reshape(-1, a.shape[1], 8) for a in (q, k, v)),
+                        causal=False, window=8)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    assert not got[:, 23:].any() and bool((got[:, :23] != 0).any(-1).all())
+    pallas = np.asarray(jx.fa(*(jx.jnp.asarray(a) for a in (q, k, v)),
+                              causal=False, window=8, impl="pallas",
+                              interpret=True, block_q=16, block_k=16))
+    assert (pallas[:, 23:32] != 0).any(-1).all() and not pallas[:, 32:].any()
+
+
+def test_bf16_plain_version_matches_jax(jx):
+    q, k, v = _qkv(3, 2, 64, 64, 4, 2, 32)
+    jb = [jx.jnp.asarray(a).astype(jx.jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(jx.fa(*jb, causal=True, impl="xla"), np.float32)
+    got = flash_attention(*(torch.as_tensor(a).to(torch.bfloat16)
+                            for a in (q, k, v)), causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """Input checks run before the library is built or loaded."""
+    q = torch.zeros((1, 8, 4, 16))
+    k = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.flash_attention_kernel(q, k, k)
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention(q, k.to("meta"), k)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        flash_attention(q, torch.zeros((1, 8, 3, 16)),
+                        torch.zeros((1, 8, 3, 16)))
+    launches = flash_attention.launches
+    flash_attention(q, k, k)
+    assert flash_attention.launches == launches    # the CPU launches nothing
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_version_on_card(cuda_device):
+    """The Hopper kernel against attention_ref on the card: the sweep in
+    f32 (2e-5), ragged lengths and windows, and bf16 (2e-2)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    cases = [(1, 128, 128, 2, 2, 64, True, 0), (2, 256, 256, 4, 2, 64,
+                                                False, 0),
+             (1, 256, 256, 8, 2, 32, True, 0), (2, 64, 192, 2, 1, 128,
+                                                True, 0),
+             (2, 256, 256, 4, 4, 64, True, 32), (1, 100, 77, 4, 2, 112,
+                                                 True, 0),
+             (1, 70, 70, 2, 1, 48, False, 16), (1, 48, 16, 2, 2, 8,
+                                                False, 8)]
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for B, Sq, Sk, H, K, dh, causal, window in cases:
+            q = torch.randn((B, Sq, H, dh), generator=g, device=cuda_device)
+            k = torch.randn((B, Sk, K, dh), generator=g, device=cuda_device)
+            v = torch.randn((B, Sk, K, dh), generator=g, device=cuda_device)
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            before = flash_attention.launches
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            assert flash_attention.launches == before + 1
+            ref = flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal=causal, window=window)
+            torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)

@@ -1,6 +1,7 @@
-"""The slice as a whole: chip_smoke.py's map flow at small size on the CPU
-against the JAX package end to end, the port's import hygiene, and the
-no-card behaviour of its entry points and of chip_smoke.py."""
+"""The slices as a whole: chip_smoke.py's map flow at small size on the
+CPU against the JAX package end to end, its serve, model and checks phases
+on the CPU, the port's import hygiene, and the no-card behaviour of its
+entry points and of chip_smoke.py."""
 import os
 import shutil
 import subprocess
@@ -69,7 +70,12 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 16 else 0)
+want = {"repro_torch.kernels._build", "repro_torch.models.model",
+        "repro_torch.models.convert", "repro_torch.launch.serve",
+        "repro_torch.kernels.flash_attention.kernel",
+        "repro_torch.kernels.ssd_scan.kernel", "repro_torch.configs.registry"}
+print(sorted(want - set(names)))
+sys.exit(1 if bad or len(names) < 37 or want - set(names) else 0)
 """
 
 
@@ -81,10 +87,46 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_model_phase_serves_exactly_once_on_the_cpu():
+    """chip_smoke.py's model phase on tiny(zamba2-7b): two prefills (one
+    per engine), four dedup hits after the crash, one record a batch."""
+    got = chip_smoke.run_model(chip_smoke.SMALL, torch.device("cpu"), 3)
+    assert (got["prefills"], got["dedup_hits"], got["records"]) == (2, 4, 2)
+    assert got["launches"] == {"flash_attention": 0, "ssd_scan": 0,
+                               "nvt_probe": 0}      # the CPU launches none
+    assert len(got["decode_step_s"]) == 2 * chip_smoke.SMALL.new_tokens
+
+
+def test_checks_phase_runs_on_the_cpu():
+    sz, cpu = chip_smoke.SMALL, torch.device("cpu")
+    assert set(chip_smoke.check_flash(sz, cpu)) >= {"bf16_S40", "bf16_S37"}
+    ssd = chip_smoke.check_ssd(sz, cpu)
+    assert {"bfloat16_S37_y_vs_ref", "float32_S40_state_vs_chunked",
+            "bfloat16_S40_chunked_bf16_vs_ref"} <= set(ssd)
+    cons = chip_smoke.check_consistency(sz, cpu, 1)
+    assert cons["max_abs_err"] < cons["tol"] and cons["shared_attn_calls"]
+
+
+def test_ssd_flop_count_matches_the_chunk_gemms():
+    # one full chunk: C B^T and scores x on the lower triangle, C S^T and
+    # the state update in full
+    B, H, P, N, Q = 1, 1, 4, 2, 8
+    tri = Q * (Q + 1) // 2
+    assert chip_smoke.ssd_flops(B, Q, H, P, N, Q) == \
+        2 * N * tri + 2 * P * tri + 4 * Q * N * P
+    # a ragged last chunk counts only its own tokens
+    assert chip_smoke.ssd_flops(B, Q + 3, H, P, N, Q) == \
+        chip_smoke.ssd_flops(B, Q, H, P, N, Q) + \
+        chip_smoke.ssd_flops(B, 3, H, P, N, Q)
+
+
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from repro_torch.configs.registry import get_arch, tiny
     from repro_torch.core import batched as TB
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
     from repro_torch.persistence.index import MembershipIndex
-    from repro_torch.serving.engine import RequestLog
+    from repro_torch.serving.engine import RequestLog, ServeEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TB.make_state(8, 4)
@@ -92,6 +134,22 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         MembershipIndex(8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RequestLog(tmp_path)
+    model = Model(tiny(get_arch("zamba2-7b")))
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params, max_len=8, log_dir=tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--log-dir", str(tmp_path)])
+
+
+def test_serve_cli_recovers_after_a_crash_on_the_cpu(tmp_path, capsys):
+    from repro_torch.launch import serve
+    args = ["--device", "cpu", "--log-dir", str(tmp_path), "--requests",
+            "6", "--prompt-len", "10", "--new-tokens", "3"]
+    serve.main(args + ["--crash-after", "1"])
+    assert '"committed": 4' in capsys.readouterr().out
+    serve.main(args)
+    assert '"committed": 6' in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("module", [

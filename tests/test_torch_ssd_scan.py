@@ -1,0 +1,209 @@
+"""The port's SSD scan (sequential oracle, chunked plain version, CPU
+wrapper) against the JAX reference on the CPU, and the Hopper kernel
+against its plain versions on the card (``gpu``-marked: skipped without a
+card).
+
+The JAX side runs as its own tests run it: the Pallas kernel in interpret
+mode, the ``impl="xla"`` oracle and ``models/mamba2.py:ssd_chunked``.
+Tolerance 1e-4 in f32 and 5e-2 in bf16 (the tests/test_kernels.py
+tolerances: f32 sums in another order; the reference's chunked form
+rounds its scores to bf16 where the kernel keeps f32).  JAX is imported
+by the tests that compare with it, so the card's test run (``-m gpu``),
+on a machine without JAX, can import this file.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.ssd_scan import kernel as tkernel
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref
+
+
+@pytest.fixture(scope="module")
+def jx():
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.ssd_scan.ops import ssd_scan as jscan
+    from repro.kernels.ssd_scan.ref import ssd_ref as jref
+    from repro.models.mamba2 import ssd_chunked as jchunked
+    return types.SimpleNamespace(jax=jax, jnp=jnp, scan=jscan, ref=jref,
+                                 chunked=jchunked)
+
+
+def _inputs(seed, B, S, H, P, N):
+    """Model-like inputs (tests/test_kernels.py's distributions)."""
+    rng = np.random.default_rng(seed)
+    xh = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32)
+    Bm = (rng.standard_normal((B, S, N)) * 0.5).astype(np.float32)
+    Cm = (rng.standard_normal((B, S, N)) * 0.5).astype(np.float32)
+    return xh, dt, A, Bm, Cm
+
+
+def _t(*arrays):
+    return tuple(torch.as_tensor(a) for a in arrays)
+
+
+# tests/test_kernels.py's sweep: padded and uneven final chunks included
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 64, 2, 16, 8, 16),
+    (2, 64, 4, 32, 16, 32),
+    (1, 96, 2, 64, 32, 32),
+    (2, 80, 2, 16, 16, 32),
+])
+def test_chunked_and_wrapper_match_jax(jx, B, S, H, P, N, chunk):
+    xh, dt, A, Bm, Cm = ins = _inputs(0, B, S, H, P, N)
+    j = [jx.jnp.asarray(a) for a in ins]
+    pallas = np.asarray(jx.scan(*j, chunk=chunk, impl="pallas",
+                                interpret=True))
+    xla = np.asarray(jx.scan(*j, chunk=chunk, impl="xla"))
+    jy, jfinal = (np.asarray(a) for a in jx.chunked(*j, chunk))
+    y, final = ssd_scan(*_t(*ins), chunk=chunk)
+    y2, final2 = ssd_chunked(*_t(*ins), chunk)
+    assert torch.equal(y, y2) and torch.equal(final, final2)
+    assert y.shape == (B, S, H, P) and final.shape == (B, H, P, N)
+    for want in (pallas, xla, jy):
+        np.testing.assert_allclose(y.numpy(), want, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(final.numpy(), jfinal, atol=1e-4, rtol=1e-4)
+
+
+def test_init_state_carries_in_like_jax(jx):
+    B, S, H, P, N, chunk = 2, 48, 3, 16, 8, 16
+    ins = _inputs(1, B, S, H, P, N)
+    init = np.random.default_rng(9).standard_normal(
+        (B, H, P, N)).astype(np.float32)
+    j = [jx.jnp.asarray(a) for a in ins]
+    jy, jfinal = jx.chunked(*j, chunk, init_state=jx.jnp.asarray(init))
+    y, final = ssd_scan(*_t(*ins), chunk=chunk,
+                        init_state=torch.as_tensor(init))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), atol=1e-4,
+                               rtol=1e-4)
+    # splitting the sequence and carrying the state gives the whole scan
+    ya, sa = ssd_chunked(*_t(*(a[:, :32] for a in ins[:2])), _t(ins[2])[0],
+                         *_t(*(a[:, :32] for a in ins[3:])), chunk,
+                         init_state=torch.as_tensor(init))
+    yb, sb = ssd_chunked(*_t(*(a[:, 32:] for a in ins[:2])), _t(ins[2])[0],
+                         *_t(*(a[:, 32:] for a in ins[3:])), chunk,
+                         init_state=sa)
+    torch.testing.assert_close(torch.cat([ya, yb], 1), y, atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(sb, final, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 16), (40, 16)])
+def test_sequential_oracle_matches_jax(jx, S, chunk):
+    """ssd_ref on the kernel layout; the pad path pads to whole chunks
+    with dt = 0, which leaves the final state as it was."""
+    B, H, P, N = 2, 2, 8, 4
+    xh, dt, A, Bm, Cm = _inputs(2, B, S, H, P, N)
+    pad = (-S) % chunk
+    C = (S + pad) // chunk
+
+    def lay(a, tail):      # [B,S,H,...] -> [B*H, C, Q, ...], zero-padded
+        a = np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+        return np.moveaxis(a, 2, 1).reshape((B * H, C, chunk) + tail)
+
+    xk, dtk = lay(xh, (P,)), lay(dt, ())
+    dAk = dtk * np.tile(A, B)[:, None, None]
+    bk = np.repeat(np.pad(Bm, [(0, 0), (0, pad), (0, 0)])[:, None], H,
+                   1).reshape(B * H, C, chunk, N)
+    ck = np.repeat(np.pad(Cm, [(0, 0), (0, pad), (0, 0)])[:, None], H,
+                   1).reshape(B * H, C, chunk, N)
+    want = np.asarray(jx.ref(*(jx.jnp.asarray(a)
+                               for a in (xk, dtk, dAk, bk, ck))))
+    y, state = ssd_ref(*_t(xk, dtk, dAk, bk, ck))
+    np.testing.assert_allclose(y.numpy(), want, atol=1e-4, rtol=1e-4)
+    _, final = ssd_chunked(*_t(xh, dt, A, Bm, Cm), chunk)
+    np.testing.assert_allclose(state.numpy(),
+                               final.numpy().reshape(B * H, P, N),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_bf16_plain_version_matches_jax(jx):
+    """The reference's bf16 casts (scores and decays rounded to the input
+    dtype) are kept: the port's chunked bf16 scan against JAX's at the
+    bf16 tolerance."""
+    ins = _inputs(3, 2, 64, 2, 16, 8)
+    j = [jx.jnp.asarray(a) for a in ins]
+    jb = [a.astype(jx.jnp.bfloat16) for a in j[:2]] + [j[2]] + \
+        [a.astype(jx.jnp.bfloat16) for a in j[3:]]
+    jy, jfinal = jx.chunked(*jb, 16)
+    tb = [torch.as_tensor(a).to(torch.bfloat16) for a in ins]
+    tb[2] = torch.as_tensor(ins[2])
+    y, final = ssd_scan(*tb, chunk=16)
+    assert y.dtype == final.dtype == torch.bfloat16
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(jy, np.float32), atol=5e-2,
+                               rtol=5e-2)
+    np.testing.assert_allclose(final.float().numpy(),
+                               np.asarray(jfinal, np.float32), atol=5e-2,
+                               rtol=5e-2)
+    # an f32 state carried under bf16 activations promotes as in JAX
+    init = np.random.default_rng(8).standard_normal(
+        (2, 2, 16, 8)).astype(np.float32)
+    jy, jfinal = jx.chunked(*jb, 16, init_state=jx.jnp.asarray(init))
+    y, final = ssd_scan(*tb, chunk=16, init_state=torch.as_tensor(init))
+    assert y.dtype == final.dtype == torch.float32
+    assert str(jy.dtype) == str(jfinal.dtype) == "float32"
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=5e-2,
+                               rtol=5e-2)
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal), atol=5e-2,
+                               rtol=5e-2)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """Input checks run before the library is built or loaded."""
+    xh, dt, A, Bm, Cm = _t(*_inputs(4, 1, 16, 2, 8, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.ssd_scan_kernel(xh, dt, A, Bm, Cm, chunk=16)
+    with pytest.raises(ValueError, match="one device"):
+        ssd_scan(xh, dt, A, Bm.to("meta"), Cm, chunk=16)
+    assert tkernel.smem_bytes(128, 64, 64) <= tkernel.SMEM_LIMIT
+    assert tkernel.smem_bytes(128, 128, 128) > tkernel.SMEM_LIMIT
+    launches = ssd_scan.launches
+    ssd_scan(xh, dt, A, Bm, Cm, chunk=16)
+    assert ssd_scan.launches == launches      # the CPU launches nothing
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_versions_on_card(cuda_device):
+    """y and the final state of the Hopper kernel against ssd_chunked on
+    the card: f32 at 1e-4, bf16 at 5e-2, with ragged last chunks and a
+    carried-in state."""
+    for (B, S, H, P, N, chunk) in [(1, 64, 2, 16, 8, 16),
+                                   (2, 80, 2, 16, 16, 32),
+                                   (2, 300, 4, 64, 64, 128),
+                                   (1, 96, 3, 32, 16, 32)]:
+        ins = [torch.as_tensor(a, device=cuda_device)
+               for a in _inputs(5, B, S, H, P, N)]
+        init = torch.randn((B, H, P, N), device=cuda_device) * 0.5
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            xh, dt, A, Bm, Cm = ins
+            xh, Bm, Cm = (t.to(dtype) for t in (xh, Bm, Cm))
+            before = ssd_scan.launches
+            y, final = ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk,
+                                init_state=init)
+            torch.cuda.synchronize()
+            assert ssd_scan.launches == before + 1
+            assert y.dtype == dtype and final.dtype == torch.float32
+            # the plain version in f32 on the same values: its bf16 form
+            # rounds scores and state to bf16 where the kernel keeps f32
+            ry, rf = ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(),
+                                 chunk, init_state=init)
+            torch.testing.assert_close(y.float(), ry, atol=tol, rtol=tol)
+            torch.testing.assert_close(final, rf, atol=tol, rtol=tol)
