@@ -8,7 +8,10 @@ serving path on the card.
 Six phases, each of which fails the run when it fails:
 
 1. ``build``  -- compile the three hand-written kernels from ``src/`` with
-   nvcc, all at once, and print their register/spill reports;
+   nvcc, all at once, and report each compiled function's registers and
+   spills (``ptxas -v``) and tensor-core instructions (``HMMA``/``HGMMA``
+   in ``cuobjdump --dump-sass``); ``flash_attention`` and ``ssd_scan``
+   must have some (their bf16 kernels run on ``mma.sync``);
 2. ``map``    -- the main path at card scale: a durable index of 2^22
    keys (2^23-node pool, 2^20 buckets) takes the repo's mixed workload
    (uniform keys in ``[1, 2*prefill)``, updates split between inserts
@@ -30,7 +33,9 @@ Six phases, each of which fails the run when it fails:
    of 4), crashes after the first batch and is served again by a new
    engine on the same log: exactly-once must hold, and every prefill must
    launch ``flash_attention`` 13 times and ``ssd_scan`` 81 times.  Its
-   prefill and decode-step times, tokens/s and peak memory are printed;
+   prefill and decode-step times, tokens/s and peak memory are printed,
+   and one profiled prefill and decode step: device time, busy share,
+   the top kernels and the share of each of the port's own kernels;
 5. ``checks`` -- each new kernel against its plain versions at the serve
    shapes and on the reference's sweep, and prefill (kernels) against
    prefill + one decode step (plain recurrent and attention steps) in f32
@@ -50,6 +55,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -83,6 +89,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 KERNELS = (probe_kernel, fa_kernel, ssd_kernel)
 WRAPPERS = (nvt_probe, flash_attention, ssd_scan)
+TENSOR_CORE_SOURCES = ("flash_attention", "ssd_scan")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -486,11 +493,15 @@ def run_model(sz: Sizes, dev, seed: int) -> dict:
             "peak_bytes": peak, "profile": profiled, "reduced": []}
 
 
+PORT_KERNELS = ("nvt_probe", "flash_fwd", "ssd_scan_tc", "ssd_chunk_scan")
+
+
 def profile_step(fn, dev, top: int = 8) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its host-clock wall
     time (device synced), the device time of every kernel and copy it
-    ran, the share of the wall the device was busy, and the kernels that
-    took the most device time."""
+    ran, the share of the wall the device was busy, the kernels that took
+    the most device time, and the port's own kernels wherever they rank
+    (``port``: each one's device time and share of the step's)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
@@ -513,7 +524,12 @@ def profile_step(fn, dev, top: int = 8) -> dict:
             "busy_share": device_ms / (wall * 1e3),
             "device_kernels": sum(e.count for e in events),
             "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
-                     "calls": e.count} for e in events[:top]]}
+                     "calls": e.count} for e in events[:top]],
+            "port": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
+                      "calls": e.count,
+                      "share": dev_us(e) / 1e3 / device_ms}
+                     for e in events
+                     if any(k in e.key for k in PORT_KERNELS)]}
 
 
 def profile_model(model, params, requests: dict, sz: Sizes, dev) -> dict:
@@ -748,6 +764,7 @@ def time_probe(sz: Sizes, out: dict, launches: int, err: int) -> dict:
     return {"name": "nvt_probe", "route": "cuda",
             "source": "src/repro_torch/kernels/nvt_probe/csrc/nvt_probe.cu",
             "replaces": "src/repro/kernels/nvt_probe/kernel.py:48",
+            "design": "scalar",
             "launches": launches, "max_abs_err": err, "max_abs_diff": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": need / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -776,7 +793,8 @@ def time_flash(dev, launches: int, err: float) -> dict:
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-            "launches": launches, "max_abs_err": err, "max_abs_diff": err,
+            "design": "mma.sync bf16", "launches": launches,
+            "max_abs_err": err, "max_abs_diff": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -818,12 +836,37 @@ def time_ssd(dev, launches: int, err: float) -> dict:
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:34",
-            "launches": launches, "max_abs_err": err, "max_abs_diff": err,
+            "design": "mma.sync bf16", "launches": launches,
+            "max_abs_err": err, "max_abs_diff": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "bytes": nbytes, "flops": flops,
             "shape": [B, S, H, P, N, Q], "dtype": "bfloat16"}
+
+
+def build_report(so: Path, ptxas: str) -> list:
+    """Per compiled function of one library: registers and spill bytes
+    (from the ``ptxas -v`` report) and the count of tensor-core
+    instructions in its SASS (``HMMA`` from ``mma.sync``, ``HGMMA`` from
+    ``wgmma``)."""
+    funcs = _build.ptxas_functions(ptxas)
+    for f in funcs.values():
+        f["tensor_core_instr"] = 0
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "--dump-sass",
+         str(so)], capture_output=True, text=True, check=True).stdout
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {
+                "kernel": _build.readable_name(m.group(1)),
+                "registers": None, "spill_bytes": None,
+                "tensor_core_instr": 0})
+        elif cur is not None and re.search(r"\bH(G)?MMA\b", line):
+            cur["tensor_core_instr"] += 1
+    return sorted(funcs.values(), key=lambda f: f["kernel"])
 
 
 def card_name_and_limit() -> str:
@@ -853,12 +896,16 @@ def main(argv=None) -> int:
     if on_card:
         t0 = time.perf_counter()
         built = _build.build_all([k.SOURCE for k in KERNELS])
-        for so, report in built:
-            print(report.strip(), flush=True)
+        build_s = time.perf_counter() - t0
+        functions = {k.SOURCE.stem: build_report(so, report)
+                     for k, (so, report) in zip(KERNELS, built)}
+        for src in TENSOR_CORE_SOURCES:
+            if not sum(f["tensor_core_instr"] for f in functions[src]):
+                raise AssertionError(f"{src} has no HMMA/HGMMA instruction")
         log({"phase": "build", "ok": True,
              "kernels": [k.SOURCE.stem for k in KERNELS],
              "libraries": [so.name for so, _ in built],
-             "build_s": time.perf_counter() - t0})
+             "build_s": build_s, "functions": functions})
     else:
         log({"phase": "build", "skipped": "no card: --device cpu runs "
              "the plain versions"})

@@ -1,18 +1,20 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one CUDA source under ``kernels/<name>/csrc/`` with a plain
-C interface.  It is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library at first use, into ``build/repro_torch_kernels/`` at the root of
-the checkout, and loaded with ctypes.  The library's name carries a hash of
-the source and flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  Nothing is compiled or loaded when this module is
-imported.
+C interface; the headers they share live in ``kernels/csrc/``.  A source is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library at first use,
+into ``build/repro_torch_kernels/`` at the root of the checkout, and loaded
+with ctypes.  The library's name carries a hash of the source, the shared
+headers and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.  Nothing is compiled or loaded when this
+module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,6 +22,7 @@ from typing import Dict, List, Sequence, Tuple
 
 ROOT = Path(__file__).resolve().parents[3]          # the checkout
 BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"   # shared headers
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,8 +43,10 @@ def _nvcc() -> str:
 
 
 def _target(source: Path) -> Path:
-    tag = hashlib.sha1(source.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    tag = h.hexdigest()[:12]
     return BUILD_DIR / f"{source.stem}_{tag}.so"
 
 
@@ -61,7 +66,8 @@ def build_all(sources: Sequence[Path]) -> List[Tuple[Path, str]]:
         so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f".{so.name}.{os.getpid()}")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+             str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((so, report, tmp, proc, src))
     failed = []
@@ -92,3 +98,41 @@ def load(source: Path) -> ctypes.CDLL:
         (so, _), = build_all([source])
         lib = _LOADED[source] = ctypes.CDLL(str(so))
     return lib
+
+
+def readable_name(mangled: str) -> str:
+    """``flash_fwd_tc<112>`` from a kernel's mangled name (a namespace,
+    the name, then one int or float template argument); the name as
+    given where it does not parse so."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    name = rest[m.end():m.end() + int(m.group(1))]
+    arg = re.match(r"I(?:Li(\d+)E|(f))E", rest[m.end() + len(name):])
+    return f"{name}<{arg.group(1) or 'float'}>" if arg else name
+
+
+def ptxas_functions(report: str) -> Dict[str, dict]:
+    """Registers and spill bytes (stores plus loads) of every function in
+    a ``ptxas -v`` report, keyed by mangled name."""
+    funcs: Dict[str, dict] = {}
+    cur = None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {
+                "kernel": readable_name(m.group(1)), "registers": None,
+                "spill_bytes": 0})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return funcs

@@ -1,6 +1,6 @@
-"""ctypes binding of the hand-written Hopper flash-attention kernel
-(``csrc/flash_attention.cu``), built at first use by
-:mod:`repro_torch.kernels._build`."""
+"""ctypes binding of the hand-written Hopper flash-attention kernels
+(``csrc/flash_attention.cu``: bf16 on the tensor cores, f32 scalar), built
+at first use by :mod:`repro_torch.kernels._build`."""
 from __future__ import annotations
 
 import ctypes
@@ -59,15 +59,17 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q heads {H} are not a multiple of kv heads {K}")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
-    if B * H >= 65536 or max(B * Sq * H * d, B * Sk * K * d) >= 2**62:
+    if max(B * H, -(-Sq // 64)) >= 65536 or \
+            max(B * Sq * H * d, B * Sk * K * d) >= 2**62:
         raise ValueError("shape too large for the kernel's grid")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            window: int = 0) -> torch.Tensor:
-    """Launch the kernel on PyTorch's current stream: ``o [B,Sq,H,d]`` in
-    the q dtype.  Layout and semantics as ``ops.flash_attention``."""
+    """Launch the kernel on PyTorch's current stream (the tensor-core
+    kernel for bf16, the scalar one for f32): ``o [B,Sq,H,d]`` in the q
+    dtype.  Layout and semantics as ``ops.flash_attention``."""
     _check_inputs(q, k, v)
     B, Sq, H, d = q.shape
     Sk, K = k.shape[1], k.shape[2]

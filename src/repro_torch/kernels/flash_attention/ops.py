@@ -1,8 +1,9 @@
 """User-facing flash attention in the model layout (port of
 ``repro.kernels.flash_attention.ops.flash_attention``).
 
-A CUDA tensor launches the hand-written kernel (``kernel.py``), which reads
-the model layout itself; a CPU tensor takes the plain version
+A CUDA tensor launches a hand-written kernel (``kernel.py``), which reads
+the model layout itself: the tensor-core kernel for bf16, the scalar one
+for f32.  A CPU tensor takes the plain version
 (``ref.attention_ref``) on the kernel layout ``[B*H, S, d]``.  There is no
 fallback from one to the other.  The TPU version's ``impl``,
 ``interpret``, ``block_q`` and ``block_k`` have no counterpart: the Hopper

@@ -1,6 +1,6 @@
-"""ctypes binding of the hand-written Hopper SSD chunk-scan kernel
-(``csrc/ssd_scan.cu``), built at first use by
-:mod:`repro_torch.kernels._build`."""
+"""ctypes binding of the hand-written Hopper SSD chunk-scan kernels
+(``csrc/ssd_scan.cu``: bf16 on the tensor cores, f32 scalar), built at
+first use by :mod:`repro_torch.kernels._build`."""
 from __future__ import annotations
 
 import ctypes
@@ -14,74 +14,123 @@ from .. import _build
 
 SOURCE = Path(__file__).parent / "csrc" / "ssd_scan.cu"
 SMEM_LIMIT = 232_448         # dynamic shared memory one block may use
+TC_MAX_STATE = 128           # N the bf16 (tensor-core) kernel takes
+TC_SLICE_P = 64              # P columns per block of the bf16 kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def smem_bytes(Q: int, P: int, N: int) -> int:
-    """The kernel's dynamic shared memory (``smem_bytes`` in the
+    """The f32 kernel's dynamic shared memory (``smem_bytes`` in the
     source)."""
     return 4 * (Q * (P + 1) + 2 * Q * (N + 1) + Q * (Q + 1) + P * (N + 1)
                 + 3 * Q)
+
+
+def tc_smem_bytes(Q: int, P: int, N: int) -> int:
+    """The bf16 kernel's dynamic shared memory (``tc_layout`` in the
+    source): two stages of the chunk's x slice and B in bf16 (widths
+    padded to 16, rows of 64 or 128 swizzled, others padded by 8) and dt
+    in f32, one C tile, the state's bf16 high and low parts, cum and four
+    scan totals."""
+    def r16(n):
+        return -(-n // 16) * 16
+
+    def pitch(w):
+        return w if w % 64 == 0 else w + 8
+    Qp, Np, XW = r16(Q), r16(N), min(TC_SLICE_P, r16(P))
+    stage = 2 * Qp * (pitch(XW) + pitch(Np)) + 4 * Qp
+    return 2 * stage + 2 * Qp * pitch(Np) + 4 * XW * pitch(Np) + \
+        4 * (Qp + 4)
 
 
 @functools.cache
 def _library():
     lib = _build.load(SOURCE)
     lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 8 + \
-        [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     lib.ssd_scan_launch.restype = ctypes.c_int
-    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
-    if lib.ssd_scan_smem_bytes(128, 64, 64) != smem_bytes(128, 64, 64):
-        raise RuntimeError("ssd_scan library and smem_bytes disagree")
+    for shape in ((128, 64, 64), (32, 16, 8), (100, 200, 72)):
+        if (lib.ssd_scan_smem_bytes(*shape, 0), lib.ssd_scan_smem_bytes(
+                *shape, 1)) != (smem_bytes(*shape), tc_smem_bytes(*shape)):
+            raise RuntimeError("ssd_scan library and smem_bytes disagree")
     return lib
 
 
-def _check(t: torch.Tensor, name: str, shape: tuple, dtype) -> None:
+def _check(t: torch.Tensor, name: str, shape: tuple, dtype,
+           contiguous: bool = True) -> None:
     if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def token_strides(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor
+                  ) -> Tuple[int, ...]:
+    """The batch and token strides (elements) of xh, Bm and Cm, which the
+    kernel reads in place: ``(xsb, xst, bsb, bst, csb, cst)``.  Raises on
+    a layout it does not take: xh's heads must lie ``P`` apart and its
+    columns, like B's and C's, next to each other (the model's slices of
+    its fused ``xBC`` activation do)."""
+    _, _, H, P = xh.shape
+    N = Bm.shape[-1]
+    if (P > 1 and xh.stride(3) != 1) or (H > 1 and xh.stride(2) != P):
+        raise ValueError(f"xh strides {xh.stride()}: heads must be {P} "
+                         f"apart and columns adjacent")
+    for name, t in (("Bm", Bm), ("Cm", Cm)):
+        if N > 1 and t.stride(2) != 1:
+            raise ValueError(f"{name} strides {t.stride()}: columns must "
+                             f"be adjacent")
+    return (xh.stride(0), xh.stride(1), Bm.stride(0), Bm.stride(1),
+            Cm.stride(0), Cm.stride(1))
 
 
 def ssd_scan_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
                     init_state: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on PyTorch's current stream.  xh [B,S,H,P] and
-    Bm/Cm [B,S,N] in f32 or bf16 (one dtype); dt [B,S,H], A [H] and
-    init_state [B,H,P,N] (None for zeros) in f32; all contiguous on one
-    device.  Returns (y [B,S,H,P] in the xh dtype, final state
-    [B,H,P,N] in f32)."""
+    """Launch the kernel on PyTorch's current stream: the tensor-core
+    kernel for bf16, the scalar one for f32.  xh [B,S,H,P] and Bm/Cm
+    [B,S,N] in f32 or bf16 (one dtype), read through their batch and token
+    strides (:func:`token_strides`); dt [B,S,H], A [H] and init_state
+    [B,H,P,N] (None for zeros) in f32 and contiguous; all on one device.
+    Returns (y [B,S,H,P] in the xh dtype, final state [B,H,P,N] in
+    f32)."""
     if not isinstance(xh, torch.Tensor) or xh.dim() != 4:
         raise ValueError("xh must be a [B, S, H, P] tensor")
     B, S, H, P = xh.shape
     if xh.dtype not in _DTYPES:
         raise ValueError(f"xh must be float32 or bfloat16, got {xh.dtype}")
     N = Bm.shape[-1] if isinstance(Bm, torch.Tensor) else -1
-    _check(xh, "xh", (B, S, H, P), xh.dtype)
+    _check(xh, "xh", (B, S, H, P), xh.dtype, contiguous=False)
     _check(dt, "dt", (B, S, H), torch.float32)
     _check(A, "A", (H,), torch.float32)
-    _check(Bm, "Bm", (B, S, N), xh.dtype)
-    _check(Cm, "Cm", (B, S, N), xh.dtype)
+    _check(Bm, "Bm", (B, S, N), xh.dtype, contiguous=False)
+    _check(Cm, "Cm", (B, S, N), xh.dtype, contiguous=False)
     if init_state is not None:
         _check(init_state, "init_state", (B, H, P, N), torch.float32)
     if len({t.device for t in (xh, dt, A, Bm, Cm)}) != 1 or (
             init_state is not None and init_state.device != xh.device):
         raise ValueError("all inputs must be on one device")
+    strides = token_strides(xh, Bm, Cm)
     if not 1 <= chunk <= 1024 or min(P, N) < 1:
         raise ValueError(f"unsupported chunk {chunk} or P={P}, N={N}")
-    if smem_bytes(chunk, P, N) > SMEM_LIMIT:
-        raise ValueError(f"chunk {chunk} with P={P}, N={N} needs "
-                         f"{smem_bytes(chunk, P, N)} bytes of shared memory, "
-                         f"more than {SMEM_LIMIT}")
-    if B * H >= 2**31 or B * S * H * P >= 2**62:
+    tc = xh.dtype == torch.bfloat16
+    if tc and N > TC_MAX_STATE:
+        raise ValueError(f"state size N={N} above {TC_MAX_STATE}, which "
+                         f"the bf16 kernel holds in registers")
+    need = (tc_smem_bytes if tc else smem_bytes)(chunk, P, N)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"chunk {chunk} with P={P}, N={N} needs {need} "
+                         f"bytes of shared memory, more than {SMEM_LIMIT}")
+    if B * H * -(-P // TC_SLICE_P) >= 2**31 or B * S * H * P >= 2**62:
         raise ValueError("shape too large for the kernel's grid")
-    y = torch.empty_like(xh)
+    y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
     if B * H == 0:
         return y, final
@@ -91,7 +140,7 @@ def ssd_scan_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), None if init_state is None else
             init_state.data_ptr(), y.data_ptr(), final.data_ptr(),
-            _DTYPES[xh.dtype], B, S, H, P, N, chunk,
+            _DTYPES[xh.dtype], B, S, H, P, N, chunk, *strides,
             torch.cuda.current_stream(xh.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")

@@ -1,12 +1,13 @@
 """User-facing SSD chunk scan in the model layout (port of
 ``repro.kernels.ssd_scan.ops.ssd_scan``).
 
-A CUDA tensor launches the hand-written kernel (``kernel.py``); a CPU
-tensor takes the plain version, the model's chunked SSD
-(``ref.ssd_chunked``).  There is no fallback from one to the other.
-Unlike the TPU wrapper, which returned y only, both return the final
-carried state as well, which prefill with a cache needs; and the kernel
-reads the one group's B/C rows itself instead of a copy per head.
+A CUDA tensor launches a hand-written kernel (``kernel.py``): the
+tensor-core kernel for bf16, the scalar one for f32.  A CPU tensor takes
+the plain version, the model's chunked SSD (``ref.ssd_chunked``).  There
+is no fallback from one to the other.  Unlike the TPU wrapper, which
+returned y only, both return the final carried state as well, which
+prefill with a cache needs; and the kernel reads x and the one group's
+B/C rows in place, through their strides, instead of a copy per head.
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if xh.is_cuda:
         f32 = torch.float32
         y, final = ssd_scan_kernel(
-            xh.contiguous(), dt.to(f32).contiguous(), A.to(f32).contiguous(),
-            Bm.contiguous(), Cm.contiguous(), chunk=chunk,
+            xh, dt.to(f32).contiguous(), A.to(f32).contiguous(), Bm, Cm,
+            chunk=chunk,
             init_state=None if init_state is None
             else init_state.to(f32).contiguous())
         if xh.shape[0] * xh.shape[2]:

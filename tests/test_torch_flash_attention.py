@@ -160,3 +160,67 @@ def test_kernel_matches_plain_version_on_card(cuda_device):
             ref = flash_attention_plain(q.float(), k.float(), v.float(),
                                         causal=causal, window=window)
             torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [512, 500])
+def test_bf16_tensor_core_kernel_at_the_serve_shape(cuda_device, S):
+    """The bf16 tensor-core kernel at the zamba2-7b prefill shape (B = 4,
+    H = K = 32, d = 112, causal), ragged at S = 500, against the plain
+    version in f32 on the same values: 2e-2 abs + rel."""
+    g = torch.Generator(device=cuda_device).manual_seed(S)
+    q, k, v = (torch.randn((4, S, 32, 112), generator=g, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_f32_and_bf16_both_launch(cuda_device):
+    """The dtype alone picks the kernel: f32 runs the scalar kernel, bf16
+    the tensor-core kernel; the wrapper counts a launch of each, and each
+    agrees with the plain version at its own tolerance."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn((2, 96, 4, 64), generator=g, device=cuda_device)
+               for _ in range(3))
+    ref = flash_attention_plain(q, k, v, causal=True)
+    before = flash_attention.launches
+    o32 = flash_attention(q, k, v, causal=True)
+    o16 = flash_attention(*(t.to(torch.bfloat16) for t in (q, k, v)),
+                          causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert (o32.dtype, o16.dtype) == (torch.float32, torch.bfloat16)
+    torch.testing.assert_close(o32, ref, atol=2e-5, rtol=2e-5)
+    ref16 = flash_attention_plain(*(t.to(torch.bfloat16).float()
+                                    for t in (q, k, v)), causal=True)
+    torch.testing.assert_close(o16.float(), ref16, atol=2e-2, rtol=2e-2)
+    # the two paths do not share their arithmetic: bf16 rounds P
+    assert not torch.equal(o16.float(), o32)
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_takes_any_head_dim(cuda_device):
+    """Every bf16 shape the wrapper takes runs the tensor-core kernel:
+    head dims that are not a multiple of 8 (element loads, zero-padded to
+    16 in shared memory) and odd ones (element stores), with GQA, ragged
+    lengths, windows and rectangular non-causal attention: 2e-2 of the
+    plain version in f32 on the same values."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    for B, Sq, Sk, H, K, dh, causal, window in [
+            (1, 100, 100, 4, 2, 12, True, 0),
+            (2, 70, 70, 2, 1, 100, True, 24),
+            (1, 33, 90, 2, 2, 1, False, 0),
+            (1, 130, 130, 4, 4, 120, False, 40)]:
+        q = torch.randn((B, Sq, H, dh), generator=g, device=cuda_device)
+        k = torch.randn((B, Sk, K, dh), generator=g, device=cuda_device)
+        v = torch.randn((B, Sk, K, dh), generator=g, device=cuda_device)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window)
+        torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)

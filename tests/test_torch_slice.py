@@ -191,3 +191,38 @@ def test_chip_smoke_fails_without_a_card_or_alone(tmp_path, alone):
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__c275b1f3_11_ssd_scan_cu_18d893fe11ssd_scan_tcILi8EEEvPK13__nv_bfloat16PKfS5_S3_S3_S5_PS1_Pfiiiiixxxxxxi' for 'sm_90a'
+    16 bytes stack frame, 12 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__c275b1f3_11_ssd_scan_cu_18d893fe14ssd_chunk_scanIfEEvPKT_PKfS5_S3_S3_S5_PS1_Pfiiiiixxxxxx' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 60 registers, used 1 barriers
+"""
+_SASS = """\
+\t\tFunction : _ZN44_GLOBAL__N__c275b1f3_11_ssd_scan_cu_18d893fe14ssd_chunk_scanIfEEvPKT_PKfS5_S3_S3_S5_PS1_Pfiiiiixxxxxx
+        /*0070*/                   FFMA R1, R2, R3, R1 ;
+\t\tFunction : _ZN44_GLOBAL__N__c275b1f3_11_ssd_scan_cu_18d893fe11ssd_scan_tcILi8EEEvPK13__nv_bfloat16PKfS5_S3_S3_S5_PS1_Pfiiiiixxxxxxi
+        /*0a70*/                   HMMA.16816.F32.BF16 R40, R12, R20, R40 ;
+        /*0a80*/                   HMMA.16816.F32.BF16 R44, R12, R22, R44 ;
+        /*0a90*/                   LDSM.16.MT88.4 R4, [R2] ;
+"""
+
+
+def test_build_report_reads_registers_spills_and_tensor_core_instructions(
+        monkeypatch):
+    """The build phase's per-function report from a ptxas -v report and
+    cuobjdump's SASS (neither tool runs here: the SASS is given)."""
+    monkeypatch.setattr(chip_smoke._build, "_nvcc",
+                        lambda: "/usr/local/cuda/bin/nvcc")
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda cmd, **kw: subprocess.CompletedProcess(
+                            cmd, 0, stdout=_SASS))
+    got = chip_smoke.build_report(Path("ssd_scan.so"), _PTXAS)
+    assert got == [
+        {"kernel": "ssd_chunk_scan<float>", "registers": 60,
+         "spill_bytes": 0, "tensor_core_instr": 0},
+        {"kernel": "ssd_scan_tc<8>", "registers": 168, "spill_bytes": 16,
+         "tensor_core_instr": 2}]

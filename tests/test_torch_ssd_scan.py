@@ -207,3 +207,114 @@ def test_kernel_matches_plain_versions_on_card(cuda_device):
                                  chunk, init_state=init)
             torch.testing.assert_close(y.float(), ry, atol=tol, rtol=tol)
             torch.testing.assert_close(final, rf, atol=tol, rtol=tol)
+
+
+def test_strided_inputs_give_their_contiguous_result():
+    """x, B and C as the model slices them out of its fused xBC
+    activation (token stride conv_dim, no copy) give the result of their
+    contiguous copies; the kernel's binding reads those strides and
+    raises on a layout it does not take."""
+    B, S, H, P, N = 2, 40, 3, 8, 4
+    xh, dt, A, Bm, Cm = _t(*_inputs(6, B, S, H, P, N))
+    xbc = torch.cat([xh.reshape(B, S, H * P), Bm, Cm], dim=-1)
+    xs = xbc[..., :H * P].reshape(B, S, H, P)
+    bs, cs = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    assert not (xs.is_contiguous() or bs.is_contiguous()
+                or cs.is_contiguous())
+    y, final = ssd_scan(xs, dt, A, bs, cs, chunk=16)
+    y2, final2 = ssd_scan(xs.contiguous(), dt, A, bs.contiguous(),
+                          cs.contiguous(), chunk=16)
+    assert torch.equal(y, y2) and torch.equal(final, final2)
+    cd = H * P + 2 * N
+    assert tkernel.token_strides(xs, bs, cs) == (S * cd, cd) * 3
+    with pytest.raises(ValueError, match="heads must be"):
+        tkernel.token_strides(xh.transpose(2, 3).contiguous()
+                              .transpose(2, 3), bs, cs)
+    with pytest.raises(ValueError, match="Bm strides"):
+        tkernel.token_strides(xs, torch.zeros((B, N, S)).transpose(1, 2),
+                              cs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [512, 500])
+def test_bf16_tensor_core_kernel_at_the_serve_shape(cuda_device, S):
+    """The bf16 tensor-core kernel at the zamba2-7b SSD shape (P = N = 64,
+    chunk 128) with B = 2, H = 8 and a carried-in f32 state, ragged at
+    S = 500: y and the final state within 5e-2 of the plain chunked
+    version in f32 on the same values and of the sequential ssd_ref."""
+    B, H, P, N, Q = 2, 8, 64, 64, 128
+    xh, dt, A, Bm, Cm = (torch.as_tensor(a, device=cuda_device)
+                         for a in _inputs(S, B, S, H, P, N))
+    xh, Bm, Cm = (t.to(torch.bfloat16) for t in (xh, Bm, Cm))
+    init = torch.as_tensor(np.random.default_rng(S).standard_normal(
+        (B, H, P, N)).astype(np.float32) * 0.5, device=cuda_device)
+    y, final = ssd_scan(xh, dt, A, Bm, Cm, chunk=Q, init_state=init)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and final.dtype == torch.float32
+    ry, rf = ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(), Q,
+                         init_state=init)
+    torch.testing.assert_close(y.float(), ry, atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(final, rf, atol=5e-2, rtol=5e-2)
+    pad = (-S) % Q
+    C = (S + pad) // Q
+
+    def lay(t):
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.movedim(2, 1).reshape((B * H, C, Q) + t.shape[3:])
+    dtk = lay(dt)
+    bc = [t[:, :, None].expand(B, S, H, N).float() for t in (Bm, Cm)]
+    sy, sf = ssd_ref(lay(xh.float()), dtk,
+                     dtk * A.repeat(B)[:, None, None], lay(bc[0]),
+                     lay(bc[1]), init_state=init.reshape(B * H, P, N))
+    sy = sy.reshape(B, H, C * Q, P).movedim(1, 2)[:, :S]
+    torch.testing.assert_close(y.float(), sy, atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(final, sf.reshape(B, H, P, N), atol=5e-2,
+                               rtol=5e-2)
+
+
+@pytest.mark.gpu
+def test_f32_and_bf16_both_launch_and_read_strides(cuda_device):
+    """The dtype alone picks the kernel (scalar f32, tensor-core bf16);
+    the wrapper counts a launch of each.  Both read the model's strided
+    slices of xBC in place and give what their contiguous copies give."""
+    B, S, H, P, N, Q = 2, 200, 4, 32, 16, 64
+    ins = [torch.as_tensor(a, device=cuda_device)
+           for a in _inputs(7, B, S, H, P, N)]
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        xh, dt, A, Bm, Cm = ins
+        xbc = torch.cat([xh.reshape(B, S, H * P), Bm, Cm], -1).to(dtype)
+        xs = xbc[..., :H * P].reshape(B, S, H, P)
+        bs, cs = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        before = ssd_scan.launches
+        y, final = ssd_scan(xs, dt, A, bs, cs, chunk=Q)
+        y2, final2 = ssd_scan(xs.contiguous(), dt, A, bs.contiguous(),
+                              cs.contiguous(), chunk=Q)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == before + 2
+        assert torch.equal(y, y2) and torch.equal(final, final2)
+        ry, rf = ssd_chunked(xs.float(), dt, A, bs.float(), cs.float(), Q)
+        torch.testing.assert_close(y.float(), ry, atol=tol, rtol=tol)
+        torch.testing.assert_close(final, rf, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_takes_any_shape(cuda_device):
+    """Every bf16 shape the wrapper takes runs the tensor-core kernel: P
+    above 64 (split over blocks), P, N or chunk not a multiple of 16 or of
+    8 (zero padding, element loads), odd P (element stores), N up to 128
+    (the wider register tile), with a carried-in state: y and the final
+    state within 5e-2 of the plain chunked version in f32."""
+    for B, S, H, P, N, chunk in [(1, 100, 2, 80, 16, 32),
+                                 (1, 70, 3, 24, 20, 40),
+                                 (2, 130, 2, 16, 96, 64),
+                                 (1, 50, 2, 7, 128, 16)]:
+        xh, dt, A, Bm, Cm = (torch.as_tensor(a, device=cuda_device)
+                             for a in _inputs(8, B, S, H, P, N))
+        xh, Bm, Cm = (t.to(torch.bfloat16) for t in (xh, Bm, Cm))
+        init = torch.randn((B, H, P, N), device=cuda_device) * 0.5
+        y, final = ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk, init_state=init)
+        torch.cuda.synchronize()
+        ry, rf = ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(),
+                             chunk, init_state=init)
+        torch.testing.assert_close(y.float(), ry, atol=5e-2, rtol=5e-2)
+        torch.testing.assert_close(final, rf, atol=5e-2, rtol=5e-2)
