@@ -101,9 +101,9 @@ def load(source: Path) -> ctypes.CDLL:
 
 
 def readable_name(mangled: str) -> str:
-    """``flash_fwd_tc<112>`` from a kernel's mangled name (a namespace,
-    the name, then one int or float template argument); the name as
-    given where it does not parse so."""
+    """``flash_fwd_tc<112>`` or ``nvt_probe_batch<4,8>`` from a kernel's
+    mangled name (a namespace, the name, then int or float template
+    arguments); the name as given where it does not parse so."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -112,8 +112,11 @@ def readable_name(mangled: str) -> str:
     if not m:
         return mangled
     name = rest[m.end():m.end() + int(m.group(1))]
-    arg = re.match(r"I(?:Li(\d+)E|(f))E", rest[m.end() + len(name):])
-    return f"{name}<{arg.group(1) or 'float'}>" if arg else name
+    args = re.match(r"I((?:Li\d+E|f)+)E", rest[m.end() + len(name):])
+    if not args:
+        return name
+    vals = re.findall(r"Li(\d+)E|(f)", args.group(1))
+    return f"{name}<{','.join(i or 'float' for i, _ in vals)}>"
 
 
 def ptxas_functions(report: str) -> Dict[str, dict]:

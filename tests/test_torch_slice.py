@@ -120,6 +120,38 @@ def test_ssd_flop_count_matches_the_chunk_gemms():
         chip_smoke.ssd_flops(B, 3, H, P, N, Q)
 
 
+def _keys_in_buckets(nb):
+    """The first few positive keys of each bucket of ``nb``."""
+    out = {}
+    for k in range(1, 200):
+        out.setdefault(int(jref.mix32_np(k) % np.uint32(nb)), []).append(k)
+    return out
+
+
+@pytest.mark.parametrize("cap", [8, 12])
+def test_probe_bytes_counts_a_hand_made_tile(cap):
+    """Rows 0 and 1 touched (row 0 by three queries), four hit slots of
+    which two are one key stored twice, five queries.  At cap 8 a row is
+    one 32-byte sector; at cap 12 rows 0 and 1 share their middle one."""
+    nb = 4
+    by = _keys_in_buckets(nb)
+    a, b = by[0][:2]
+    c = by[1][0]
+    kt = torch.zeros((nb, cap), dtype=torch.int32)
+    vt = torch.arange(nb * cap, dtype=torch.int32).view(nb, cap)
+    kt[0, 0], kt[0, 5], kt[0, 6] = a, b, b
+    q = torch.tensor([a, a, b, c, c], dtype=torch.int32)
+    for t in (kt, vt, q):
+        assert t.data_ptr() % 64 == 0     # the host allocator's alignment
+    got = chip_smoke.probe_bytes(kt, vt, q)
+    assert got["distinct_rows"] == 2 and got["hit_slots"] == 4
+    assert got["bytes"] == 2 * cap * 4 + 5 * 4 + 4 * 4 + 2 * 5 * 4
+    assert got["bytes_row_per_query"] == 5 * cap * 4 + 3 * 5 * 4 + 4 * 4
+    assert got["row_sectors"] == (2 if cap == 8 else 3)
+    assert got["hit_sectors"] == 1        # slots 0, 5, 6 of row 0
+    assert got["bytes_sectors"] == 32 * (got["row_sectors"] + 1 + 3)
+
+
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from repro_torch.configs.registry import get_arch, tiny
     from repro_torch.core import batched as TB
