@@ -5,7 +5,7 @@ serving path on the card.
     python3 chip_smoke.py                 # on the card, at full size
     python3 chip_smoke.py --device cpu    # rehearsal on the host, small
 
-Six phases, each of which fails the run when it fails:
+Nine phases, each of which fails the run when it fails:
 
 1. ``build``  -- compile the three hand-written kernels from ``src/`` with
    nvcc, all at once, and report each compiled function's registers and
@@ -43,7 +43,31 @@ Six phases, each of which fails the run when it fails:
    shapes and on the reference's sweep, and prefill (kernels) against
    prefill + one decode step (plain recurrent and attention steps) in f32
    at full width and depth 12;
-6. ``timing`` -- each kernel's time (CUDA events), its plain version's,
+6. ``ordered`` -- the map phase's stream on the ordered map at the same
+   scale (2^22 keys in a 2^23-node pool) through
+   ``update_parallel_ordered``, the towers rebuilt after every batch,
+   then 1024 zipf-placed ``range_query`` spans (``max_items`` 1024, one
+   batch), a ``scan`` and a ``top_k`` of 128.  Checked against
+   ``oracle_apply`` (ok flags, lookups, every node), the accounting law,
+   the sorted live keys (and ``oracle_range``), ``check_sorted``, and
+   ``update_parallel_ordered`` against ``apply_ordered`` on 4096 ops.
+   Then a ``DurableOrderedMap`` of 2^20 keys in a 2^21-node pool (cut
+   from 2^22: its snapshot is JSON) journals a prefill and 8 mixed
+   batches of 2^16 ops, snapshots after the 4th, crashes at the publish
+   of the 7th (``evict="random"``) and recovers: exactly the acked
+   batches, arrays and towers equal to an uncrashed twin;
+7. ``migrate`` -- a journaled ``MigratingMap`` of 3 * 2^20 keys in a
+   2^22-node pool with 2^19 buckets takes a batch of 2^20 fresh keys that
+   does not fit, grows to 2^23 nodes and 2^20 buckets in drain rounds of
+   2^15 buckets between mixed rounds of 2^16 ops, and crashes
+   (``evict="random"``) at the publish of its 9th journaled round;
+   ``recover`` must equal an uncrashed twin at that boundary and finish
+   equal to it and to a host dict replay;
+8. ``crash`` -- ``sweep`` of each ported crash scenario (``log``,
+   ``log2``, ``migrate``, ``ordered``) at every site under the ``none``,
+   ``random`` and ``torn`` adversaries, with the site counts the CPU
+   tests pin; any failure fails the run;
+9. ``timing`` -- each kernel's time (CUDA events), its plain version's,
    one PyTorch library call's where one computes the same function, and
    its bound from the bytes it must move and the operations it must do;
    ``nvt_probe`` also with L2 flushed before each launch, and in turns
@@ -76,6 +100,9 @@ import torch  # noqa: E402
 
 from repro_torch.configs.registry import get_arch, tiny  # noqa: E402
 from repro_torch.core import batched as B  # noqa: E402
+from repro_torch.core import ordered as O  # noqa: E402
+from repro_torch.core.migrate import (MigratingMap,  # noqa: E402
+                                      live_chain_nodes)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -90,6 +117,8 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref  # noqa
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.obs.compile import get_tracker  # noqa: E402
 from repro_torch.obs.metrics import get_registry  # noqa: E402
+from repro_torch.robustness.faultinject import (  # noqa: E402
+    SCENARIOS, CrashPlan, CrashPoint, sweep)
 from repro_torch.serving.engine import RequestLog, ServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
@@ -126,6 +155,23 @@ class Sizes:
     # prefill/decode consistency model
     check_lens: tuple = (512, 500)
     consistency_layers: int = 12
+    # ordered phase: the map phase's stream on the ordered map, then reads
+    ranges: int = 1024           # range_query bounds, one batch
+    max_items: int = 1024
+    top_k: int = 128
+    # ... and the journaled DurableOrderedMap (cut: its JSON snapshot)
+    dur_capacity: int = 2**21
+    dur_keys: int = 2**20
+    dur_batches: int = 8         # mixed batches after the prefill batch
+    dur_batch: int = 2**16
+    # migrate phase: a journaled MigratingMap grows through a crash
+    mig_capacity: int = 2**22
+    mig_buckets: int = 2**19
+    mig_prefill: int = 3 * 2**20
+    mig_fresh: int = 2**20       # the batch that does not fit
+    mig_bpr: int = 2**15         # old buckets a drain round
+    mig_round_ops: int = 2**16   # mixed user rounds, 50% updates
+    mig_crash_round: int = 8     # the 9th journaled round's publish
 
 
 FULL = Sizes()
@@ -133,7 +179,14 @@ SMALL = Sizes(capacity=2**12, n_buckets=2**8, prefill=2**10,
               round_ops=2**9, queries=2**9, check_ops=256,
               serve_capacity=64, serve_batches=6, serve_batch=32,
               serve_retain=64, model_tiny=True, prompt_lens=(24, 20),
-              new_tokens=4, check_lens=(40, 37), consistency_layers=7)
+              new_tokens=4, check_lens=(40, 37), consistency_layers=7,
+              ranges=64, max_items=64, top_k=16, dur_capacity=2**11,
+              dur_keys=2**10, dur_batch=2**6, mig_capacity=2**12,
+              mig_buckets=2**9, mig_prefill=3 * 2**10, mig_fresh=2**10,
+              mig_bpr=2**5, mig_round_ops=2**6)
+# crash sites of each ported scenario (tests/test_torch_faultinject.py
+# pins the same counts against the JAX scenarios)
+CRASH_SITES = {"log": 29, "log2": 31, "migrate": 25, "ordered": 25}
 
 
 def log(obj) -> None:
@@ -168,11 +221,17 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_map(sz: Sizes, stream: dict, device) -> dict:
-    """The main path, timed per stage on the host clock (each stage ends
-    in a device sync).  Returns every result the checks read."""
-    dev = B.resolve_device(device)
-    times, out = {}, {"ok": [], "lookups": []}
+def same_arrays(a, b, what: str) -> None:
+    """Raise unless two states (or tower indexes) hold equal tensors."""
+    for f in a._fields:
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: field {f} differs")
+
+
+def _timer(dev):
+    """``stage(name, fn)``: run ``fn`` with the device synced at both
+    ends, keep its host-clock seconds in the returned dict."""
+    times = {}
 
     def stage(name, fn):
         _sync(dev)
@@ -181,7 +240,15 @@ def run_map(sz: Sizes, stream: dict, device) -> dict:
         _sync(dev)
         times[name] = time.perf_counter() - t0
         return r
+    return stage, times
 
+
+def run_map(sz: Sizes, stream: dict, device) -> dict:
+    """The main path, timed per stage on the host clock (each stage ends
+    in a device sync).  Returns every result the checks read."""
+    dev = B.resolve_device(device)
+    stage, times = _timer(dev)
+    out = {"ok": [], "lookups": []}
     st = stage("make_state", lambda: B.make_state(sz.capacity, sz.n_buckets,
                                                   dev))
     pre = torch.as_tensor(stream["prefill"], device=dev)
@@ -299,10 +366,7 @@ def check_map(sz: Sizes, stream: dict, out: dict) -> dict:
     st_o, ok_o = B.apply(out["state"], ops, ks, vs, sz.n_buckets)
     if not torch.equal(ok_p, ok_o):
         raise AssertionError("update_parallel ok flags differ from apply")
-    for fld in B.HashMapState._fields:
-        if not torch.equal(getattr(st_p, fld), getattr(st_o, fld)):
-            raise AssertionError(f"update_parallel field {fld} differs "
-                                 f"from apply")
+    same_arrays(st_p, st_o, "update_parallel vs apply")
     max_chain, mean_chain = B.chain_stats(out["state"], sz.n_buckets)
     return {"max_abs_err": err, "element_loads": element_loads,
             "live_keys": len(want["live"]),
@@ -733,6 +797,412 @@ def check_consistency(sz: Sizes, dev, seed: int) -> dict:
             "shared_attn_calls": cfg.n_layers // cfg.shared_attn_every}
 
 
+# --------------------------------------------------------------------- #
+# ordered, migrate and crash phases (no kernel of their own: plain torch  #
+# on the card, held against host oracles)                                #
+# --------------------------------------------------------------------- #
+class CrashAtPublish(CrashPlan):
+    """A crash plan that fires at the publish of one named file."""
+
+    def __init__(self, target: str, **kw):
+        super().__init__(**kw)
+        self.target = target
+
+    def on_site(self, kind: str, target: str = "") -> None:
+        if self.fired_at is None and (kind, target) == ("publish",
+                                                        self.target):
+            self.crash_at = len(self.sites)
+        super().on_site(kind, target)
+
+
+def plan_steps() -> int:
+    """Frontier-walk steps the ordered plan has taken so far."""
+    return get_registry().counter("ordered_plan_steps_total").value
+
+
+def range_bounds(sz: Sizes, seed: int):
+    """``sz.ranges`` zipf-placed spans over ``[1, 2*prefill)``, as in the
+    reference's ordered bench (lo from a zipf draw, widths 50-2000)."""
+    rng = np.random.default_rng(seed + 7)
+    span = 2 * sz.prefill
+    lo = ((rng.zipf(1.3, sz.ranges) * 37) % span).astype(np.int64)
+    hi = lo + rng.integers(50, 2000, sz.ranges)
+    return lo.astype(np.int32), np.minimum(hi, O.KEY_PAD - 1).astype(
+        np.int32)
+
+
+def run_ordered(sz: Sizes, stream: dict, dev, seed: int) -> dict:
+    """The map phase's stream on the ordered map at the same scale: the
+    prefill and the mixed rounds through ``update_parallel_ordered`` (the
+    towers rebuilt after every batch, as the durable map does), the
+    rounds' lookups, then one batch of range reads, a scan and a top-k.
+    Returns every result the checks read and the stage times."""
+    dev = B.resolve_device(dev)
+    stage, times = _timer(dev)
+    out = {"ok": [], "lookups": [], "steps": {}}
+    st = stage("make_state", lambda: O.make_ordered(sz.capacity, dev))
+    tw = stage("towers_empty", lambda: O.build_towers(st))
+    pre = stream["prefill"]
+    s0 = plan_steps()
+    st, ok, _ = stage("prefill", lambda: O.update_parallel_ordered(
+        st, np.zeros_like(pre), pre, pre, towers=tw))
+    out["steps"]["prefill"] = plan_steps() - s0
+    out["prefill_ok"] = ok
+    tw = stage("towers_prefill", lambda: O.build_towers(st))
+    for ratio, (ops, ks, vs, look) in zip(sz.ratios, stream["rounds"]):
+        out["before_last"] = (st, tw)
+        s0 = plan_steps()
+        st, ok, _ = stage(f"update_{ratio}", lambda: O.update_parallel_ordered(
+            st, ops, ks, vs, towers=tw))
+        out["steps"][f"update_{ratio}"] = plan_steps() - s0
+        out["ok"].append(ok)
+        tw = stage(f"towers_{ratio}", lambda: O.build_towers(st))
+        s0 = plan_steps()
+        out["lookups"].append(stage(f"lookup_{ratio}", lambda:
+                                    O.lookup_ordered(st, look, tw)))
+        out["steps"][f"lookup_{ratio}"] = plan_steps() - s0
+    lo, hi = range_bounds(sz, seed)
+    s0 = plan_steps()
+    out["ranges"] = stage("range", lambda: O.range_query(
+        st, lo, hi, sz.max_items, tw))
+    out["steps"]["range"] = plan_steps() - s0
+    out["scan"] = stage("scan", lambda: O.scan(st, sz.max_items, tw))
+    out["top_k"] = stage("top_k", lambda: O.top_k(st, sz.top_k))
+    # the last round again, warm, from the same state and towers
+    st0, tw0 = out.pop("before_last")
+    ops, ks, vs, _ = stream["rounds"][-1]
+    again = stage(f"update_{sz.ratios[-1]}_warm",
+                  lambda: O.update_parallel_ordered(st0, ops, ks, vs,
+                                                    towers=tw0))
+    same_arrays(again[0], st, "the warm round")
+    out.update(state=st, towers=tw, bounds=(lo, hi), times=times)
+    return out
+
+
+def check_ordered(sz: Sizes, stream: dict, out: dict) -> dict:
+    """The ordered phase against the host oracles: ``oracle_apply`` for
+    the ok flags, the lookups and every node (live and dead), the per-op
+    law for the accounting, the sorted live keys for every range read
+    (``oracle_range`` literally on two of them), ``check_sorted``, and
+    ``update_parallel_ordered`` against ``apply_ordered`` on a 4096-op
+    batch, field by field.  Raises on the first failure."""
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    items: dict = {}
+    n_ok = 0
+    pre = stream["prefill"]
+    want = O.oracle_apply(items, np.zeros_like(pre), pre, pre, sz.capacity)
+    if host(out["prefill_ok"]).tolist() != want:
+        raise AssertionError("ordered prefill ok flags differ")
+    n_ok += sum(want)
+    for i, (ops, ks, vs, look) in enumerate(stream["rounds"]):
+        want = O.oracle_apply(items, ops, ks, vs, sz.capacity)
+        if host(out["ok"][i]).tolist() != want:
+            raise AssertionError(f"ordered round {i}: ok flags differ")
+        n_ok += sum(want)
+        cells = [items.get(k, (False, 0)) for k in look.tolist()]
+        found, vals = out["lookups"][i]
+        if host(found).tolist() != [c[0] for c in cells] or \
+                host(vals).tolist() != [c[1] if c[0] else 0 for c in cells]:
+            raise AssertionError(f"ordered round {i}: lookups differ")
+    st = out["state"]
+    if O.items_host(st) != items:
+        raise AssertionError("ordered chain differs from oracle_apply")
+    O.check_sorted(st)
+    # fresh 2 flushes, resurrect/delete 1, 2 fences: one node per key
+    if (int(st.flushes), int(st.fences)) != (len(items) + n_ok, 2 * n_ok):
+        raise AssertionError("ordered flush/fence accounting differs")
+
+    live = sorted((k, v) for k, (lv, v) in items.items() if lv)
+    lk = np.asarray([k for k, _ in live], np.int64)
+    lv = np.asarray([v for _, v in live], np.int64)
+
+    def expect(lo, hi, m):
+        a, b = np.searchsorted(lk, lo), np.searchsorted(lk, hi, "right")
+        n = min(b - a, m)
+        keys = np.full(m, O.KEY_PAD, np.int64)
+        vals = np.zeros(m, np.int64)
+        keys[:n], vals[:n] = lk[a:a + n], lv[a:a + n]
+        return b - a, keys, vals
+
+    lo, hi = out["bounds"]
+    total, keys, vals = (host(t) for t in out["ranges"])
+    for i in range(sz.ranges):
+        t, k, v = expect(int(lo[i]), int(hi[i]), sz.max_items)
+        if total[i] != t or not (np.array_equal(keys[i], k)
+                                 and np.array_equal(vals[i], v)):
+            raise AssertionError(f"range [{lo[i]}, {hi[i]}] differs")
+    for i in (0, sz.ranges - 1):
+        lit = O.oracle_range(items, int(lo[i]), int(hi[i]))
+        if lit[:sz.max_items] != list(zip(keys[i][:len(lit)].tolist(),
+                                          vals[i][:len(lit)].tolist())):
+            raise AssertionError("range differs from oracle_range")
+    t, k, v = expect(O.KEY_MIN + 1, O.KEY_PAD - 1, sz.max_items)
+    st_t, st_k, st_v = (host(x) for x in out["scan"])
+    if st_t != t or not (np.array_equal(st_k, k) and np.array_equal(st_v, v)):
+        raise AssertionError("scan differs from the sorted live set")
+    cnt, tk, tv = (host(x) for x in out["top_k"])
+    if cnt != min(sz.top_k, len(live)) or \
+            tk[:cnt].tolist() != lk[-sz.top_k:].tolist() or \
+            tv[:cnt].tolist() != lv[-sz.top_k:].tolist():
+        raise AssertionError("top_k differs from the largest live keys")
+
+    # the plan/commit engine against the sequential oracle
+    ops, ks, vs = (np.asarray(a) for a in stream["check"])
+    ks = ks * (2 * sz.prefill // (sz.check_ops // 2))   # across the map
+    t0 = time.perf_counter()
+    st_p, ok_p, stats = O.update_parallel_ordered(st, ops, ks, vs,
+                                                  towers=out["towers"])
+    st_o, ok_o = O.apply_ordered(st, ops, ks, vs)
+    if not torch.equal(ok_p, ok_o):
+        raise AssertionError("update_parallel_ordered ok flags differ "
+                             "from apply_ordered")
+    same_arrays(st_p, st_o, "update_parallel_ordered vs apply_ordered")
+    return {"live_keys": len(live), "nodes": len(items),
+            "flushes": int(st.flushes), "fences": int(st.fences),
+            "range_hits": int(total.sum()),
+            "check_ops_committed": int(stats.ops_committed),
+            "check_max_group": int(stats.max_group),
+            "engine_vs_oracle_s": time.perf_counter() - t0}
+
+
+def dur_batches(sz: Sizes, seed: int) -> list:
+    """The durable map's input: a prefill batch of ``dur_keys`` inserts,
+    then ``dur_batches`` mixed batches (half inserts, half deletes, keys
+    uniform in ``[1, 2*dur_keys)``)."""
+    rng = np.random.default_rng(seed + 11)
+    pre = np.arange(1, sz.dur_keys + 1, dtype=np.int32)
+    out = [(np.zeros_like(pre), pre, pre * 3)]
+    for _ in range(sz.dur_batches):
+        out.append((rng.integers(0, 2, sz.dur_batch).astype(np.int32),
+                    rng.integers(1, 2 * sz.dur_keys,
+                                 sz.dur_batch).astype(np.int32),
+                    rng.integers(0, 1 << 20, sz.dur_batch).astype(
+                        np.int32)))
+    return out
+
+
+def run_durable_ordered(sz: Sizes, dev, seed: int) -> dict:
+    """``DurableOrderedMap``: the batches journaled, a snapshot after the
+    4th mixed batch, a crash (``evict="random"``) at the publish of the
+    7th mixed batch, recovery, and the rest of the batches.  The
+    recovered map must hold exactly the acknowledged batches, equal an
+    uncrashed twin at that boundary array for array (towers included),
+    and finish equal to the twin and to ``oracle_apply``."""
+    dev = B.resolve_device(dev)
+    batches = dur_batches(sz, seed)
+    crash_at, snap_after = 7, 4        # batch indices; 0 is the prefill
+    stage, times = _timer(dev)
+    with tempfile.TemporaryDirectory() as d:
+        root = Path(d) / "map"
+        m = O.DurableOrderedMap(root, capacity=sz.dur_capacity, device=dev)
+        twin = O.DurableOrderedMap(Path(d) / "twin",
+                                   capacity=sz.dur_capacity, device=dev)
+        plan = CrashAtPublish(f"ord_{crash_at:06d}.json", evict="random",
+                              seed=seed).attach(m.io)
+        acked = []
+        for b, (ops, ks, vs) in enumerate(batches[:crash_at + 1]):
+            if b < crash_at:
+                twin.update(ops, ks, vs)
+            try:
+                stage(f"batch_{b}", lambda: m.update(ops, ks, vs))
+            except CrashPoint:
+                break
+            acked.append(b)
+            if b == snap_after:
+                stage("snapshot", m.snapshot)
+        boundary = (twin.state, twin.towers)
+        if plan.fired_at is None or acked != list(range(crash_at)):
+            raise AssertionError(f"the crash did not fire at batch "
+                                 f"{crash_at}: acked {acked}")
+        # exactly once: the durable batches are the acked ones, verbatim
+        horizon, durable = 0, []
+        for p in sorted(root.glob("osnap_*.json")):
+            horizon = max(horizon, int(json.loads(p.read_text())["horizon"]))
+        for p in sorted(root.glob("ord_*.json")):
+            if int(p.name[4:-5]) >= horizon:
+                durable.append(json.loads(p.read_text()))
+        want = [{"ops": o.tolist(), "ks": k.tolist(), "vs": v.tolist()}
+                for o, k, v in batches[horizon:crash_at]]
+        if horizon + len(durable) != crash_at or durable != want:
+            raise AssertionError("durable batches differ from the acked "
+                                 "ones")
+        journal_bytes = sum(p.stat().st_size for p in root.iterdir())
+        rec = stage("recover", lambda: O.DurableOrderedMap(
+            root, capacity=sz.dur_capacity, device=dev))
+        if rec._n != crash_at:
+            raise AssertionError(f"recovered {rec._n} batches, "
+                                 f"{crash_at} acked")
+        same_arrays(rec.state, boundary[0], "recovered map vs the twin")
+        same_arrays(rec.towers, boundary[1], "recovered towers vs the twin")
+        for b in range(crash_at, len(batches)):
+            twin.update(*batches[b])
+            stage(f"batch_{b}_after", lambda: rec.update(*batches[b]))
+        items: dict = {}
+        for ops, ks, vs in batches:
+            O.oracle_apply(items, ops, ks, vs, sz.dur_capacity)
+        same_arrays(rec.state, twin.state, "finished map vs the twin")
+        if rec.items() != items:
+            raise AssertionError("durable map differs from oracle_apply")
+        O.check_sorted(rec.state)
+        return {"capacity": sz.dur_capacity, "keys": sz.dur_keys,
+                "batches": len(batches), "crash_batch": crash_at,
+                "crash_site": dataclasses.asdict(plan.fired_at),
+                "snapshot_horizon": horizon, "journal_bytes": journal_bytes,
+                "live_keys": len(O.live_items(rec.state)),
+                "stage_s": times}
+
+
+def mig_stream(sz: Sizes, seed: int) -> dict:
+    """The migrate phase's input: the prefill, a mixed round on the
+    prefilled keys (so some are deleted), the batch of fresh keys that
+    does not fit, and mixed rounds over old and fresh keys (half of each
+    round updates, inserts and deletes alike; the other half lookups)."""
+    rng = np.random.default_rng(seed + 13)
+    top = sz.mig_prefill + sz.mig_fresh
+    n_upd = sz.mig_round_ops // 2
+
+    def mixed(hi):
+        return (rng.integers(0, 2, n_upd).astype(np.int32),
+                rng.integers(1, hi + 1, n_upd).astype(np.int32),
+                rng.integers(0, 1 << 20, n_upd).astype(np.int32),
+                rng.integers(1, hi + 1, n_upd).astype(np.int32))
+
+    pre = np.arange(1, sz.mig_prefill + 1, dtype=np.int32)
+    fresh = np.arange(sz.mig_prefill + 1, top + 1, dtype=np.int32)
+    return {"prefill": pre, "before": mixed(sz.mig_prefill),
+            "fresh": fresh,
+            "rounds": [mixed(top) for _ in range(sz.mig_crash_round // 2
+                                                 + 1)]}
+
+
+def _replay_map(cells: dict, ops, ks, vs) -> list:
+    """Host dict replay of one batch ({key: [live, val]}); per-op ok."""
+    ok = []
+    for op, k, v in zip(ops.tolist(), ks.tolist(), vs.tolist()):
+        c = cells.get(k)
+        if op == B.OP_INSERT:
+            ok.append(c is None or not c[0])
+            if ok[-1]:
+                cells[k] = [True, v]
+        else:
+            ok.append(c is not None and c[0])
+            if ok[-1]:
+                c[0] = False
+    return ok
+
+
+def run_migrate(sz: Sizes, dev, seed: int) -> dict:
+    """A journaled ``MigratingMap`` grows under live traffic and crashes
+    (``evict="random"``) at the publish of its 9th journaled round.
+    ``MigratingMap.recover`` must equal an uncrashed twin at that round
+    boundary, array for array; it then finishes the migration equal to
+    the twin and to a host dict replay of every acknowledged op.  Every
+    user op's ok flag and every lookup is held against the replay too."""
+    if sz.mig_crash_round % 2:
+        raise ValueError("the crash round must be a drain round: each "
+                         "update journals a drain round, then its own")
+    dev = B.resolve_device(dev)
+    s = mig_stream(sz, seed)
+    stage, times = _timer(dev)
+    cells: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        root = Path(d)
+        kw = dict(capacity=sz.mig_capacity, n_buckets=sz.mig_buckets,
+                  buckets_per_round=sz.mig_bpr, device=dev)
+        m = MigratingMap(root=root, **kw)
+        twin = MigratingMap(**kw)
+        crash_name = f"mig_0001/round_{sz.mig_crash_round:06d}.npz"
+        plan = CrashAtPublish(crash_name, evict="random",
+                              seed=seed).attach(m.io)
+
+        def step(name, ops, ks, vs, look=None):
+            """One user batch through the twin and the map (the map's
+            call timed), ok flags and lookups held against the replay."""
+            want = _replay_map(cells, ops, ks, vs)
+            got = (twin.update(ops, ks, vs),
+                   stage(name, lambda: m.update(ops, ks, vs)))
+            if any(g.tolist() != want for g in got):
+                raise AssertionError(f"{name}: ok flags differ from the "
+                                     f"replay")
+            if look is None:
+                return
+            c = [cells.get(k, [False, 0]) for k in look.tolist()]
+            want = ([x[0] for x in c], [x[1] if x[0] else 0 for x in c])
+            for mm in (twin, m):
+                if tuple(r.tolist() for r in mm.lookup(look)) != want:
+                    raise AssertionError(f"{name}: lookups differ")
+
+        pre, fresh = s["prefill"], s["fresh"]
+        step("prefill", np.zeros_like(pre), pre, pre)
+        step("mixed_before", *s["before"])
+        step("grow", np.zeros_like(fresh), fresh, fresh * 3)
+        if not m.migrating or m._mig["cap_new"] != 2 * sz.mig_capacity:
+            raise AssertionError("the fresh batch did not open growth to "
+                                 "twice the pool")
+        crashed = None
+        for i, (ops, ks, vs, look) in enumerate(s["rounds"]):
+            if m._mig["n_rounds"] + 2 <= sz.mig_crash_round:
+                step(f"round_{i}", ops, ks, vs, look)
+                continue
+            try:                             # this update's drain round
+                m.update(ops, ks, vs)        # is the crash round
+            except CrashPoint as e:
+                crashed = e.site
+                break
+            raise AssertionError("the crash did not fire")
+        if crashed is None:
+            raise AssertionError("the rounds ended before the crash round")
+        pulls = m.pulls_total
+        journal_bytes = sum(p.stat().st_size for p in root.rglob("*")
+                            if p.is_file())
+        rec = stage("recover", lambda: MigratingMap.recover(root,
+                                                           device=dev))
+        mg, tm = rec._mig, twin._mig
+        at_crash = {k: mg[k] for k in ("frontier", "n_rounds",
+                                       "remaining_live")}
+        t0 = time.perf_counter()
+        drained = live_chain_nodes(mg["old_host"], 0, mg["frontier"]).size
+        times["drained_count"] = time.perf_counter() - t0
+        if at_crash != {k: tm[k] for k in at_crash}:
+            raise AssertionError("recovered frontier/rounds/reserve differ "
+                                 "from the twin")
+        same_arrays(mg["new"], tm["new"], "recovered new table vs the twin")
+        same_arrays(rec.state, twin.state, "recovered old table vs the twin")
+        rep = stage("finish", rec.run_migration)
+        twin.run_migration()
+        same_arrays(rec.state, twin.state, "finished table vs the twin")
+        live = {k: v for k, (lv, v) in rec.items().items() if lv}
+        if live != {k: c[1] for k, c in cells.items() if c[0]}:
+            raise AssertionError("finished map differs from the replay")
+        return {"old": [sz.mig_capacity, sz.mig_buckets],
+                "new": [rec.capacity, rec.n_buckets],
+                "crash_site": dataclasses.asdict(crashed),
+                "recovered": at_crash,
+                "journal_bytes": journal_bytes, "pulls": pulls,
+                "drained_keys": int(drained), "live_keys": len(live),
+                "finish_rounds": rep.rounds, "stage_s": times}
+
+
+def run_crash(dev) -> dict:
+    """Every ported crash scenario swept at every site under each
+    eviction adversary on ``dev``; any failure fails the phase."""
+    out = {}
+    for layer, cls in SCENARIOS.items():
+        t0 = time.perf_counter()
+        rep = sweep(cls, evict_modes=("none", "random", "torn"),
+                    scenario_kw={"device": dev})
+        if rep["n_sites"] != CRASH_SITES[layer]:
+            raise AssertionError(f"{layer}: {rep['n_sites']} crash sites, "
+                                 f"{CRASH_SITES[layer]} expected")
+        if rep["failures"] or rep["runs"] != 3 * rep["n_sites"]:
+            raise AssertionError(f"{layer}: {rep['failures'][:3]}")
+        out[layer] = {"n_sites": rep["n_sites"], "runs": rep["runs"],
+                      "failures": len(rep["failures"]),
+                      "kinds": sorted({x["kind"] for x in rep["sites"]}),
+                      "s": time.perf_counter() - t0}
+    return out
+
+
 def cuda_ms(fn, iters: int = 20) -> float:
     """Mean time of ``fn`` on the card (CUDA events, after warm-up)."""
     for _ in range(3):
@@ -1096,7 +1566,30 @@ def main(argv=None) -> int:
          "ssd_scan": ssd_errs, "consistency": cons,
          "check_s": time.perf_counter() - t0})
 
-    # 6. timing
+    # 6. ordered: the map's stream on the ordered map, its reads, and the
+    # journaled durable ordered map through a crash (no kernel launches)
+    reset_launches()
+    ordered = run_ordered(sz, stream, dev, args.seed)
+    t0 = time.perf_counter()
+    ord_checks = check_ordered(sz, stream, ordered)
+    ord_checks["check_s"] = time.perf_counter() - t0
+    durable = run_durable_ordered(sz, dev, args.seed)
+    log({"phase": "ordered", "ok": True, "stage_s": ordered["times"],
+         "plan_steps": ordered["steps"], **ord_checks, "durable": durable,
+         "launches": {w.__name__: w.launches for w in WRAPPERS}})
+    del ordered
+
+    # 7. migrate: journaled growth through a crash and a recovery
+    reset_launches()
+    log({"phase": "migrate", "ok": True, **run_migrate(sz, dev, args.seed),
+         "launches": {w.__name__: w.launches for w in WRAPPERS}})
+
+    # 8. crash: every ported crash scenario at every site x adversary
+    t0 = time.perf_counter()
+    log({"phase": "crash", "ok": True, "scenarios": run_crash(dev),
+         "crash_s": time.perf_counter() - t0})
+
+    # 9. timing
     if not on_card:
         log({"phase": "timing", "skipped": "no card"})
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))

@@ -1,13 +1,16 @@
 """Set-membership index on the PyTorch durable map (port of
-``repro.persistence.index``, single-device backend).
+``repro.persistence.index``, single-device backends).
 
 One mixed ``update_parallel`` round keeps the index current (new members
 insert, removed members delete), one batched
 :func:`repro_torch.core.batched.lookup` answers membership (the journey:
 zero persistence work), and the map grows online through
 :func:`repro_torch.core.migrate.migrate_state` before a batch that would
-not fit, so the index never drops a member.  The sharded and
-auto-rebalancing backends are not ported yet.
+not fit, so the index never drops a member.
+:class:`OrderedMembershipIndex` keeps the same set on the ordered map
+(:mod:`repro_torch.core.ordered`) and adds the ordered reads a retention
+policy wants.  The sharded and auto-rebalancing backends are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core import batched
+from ..core import batched, ordered
 from ..obs.metrics import get_registry
 
 N_BUCKETS = 128
@@ -188,3 +191,139 @@ class MembershipIndex:
             if not self._in_range(k):
                 out[i] = k in self._oob
         return out
+
+
+class OrderedMembershipIndex:
+    """Membership index on the batch-parallel ordered map: the same
+    ``update``/``contains``/``members`` surface as
+    :class:`MembershipIndex`, plus :meth:`expired` (which members fall
+    below a retention horizon, from one top-k walk and one
+    tower-descended range read) and :meth:`range_members`.  The serving
+    :class:`~repro_torch.serving.engine.RequestLog` uses it in its
+    ``ordered_dedup`` mode.
+
+    Same int32 key envelope as the hash index: in-range keys are stored
+    shifted by +1 (node 0 is the ordered map's head sentinel), others
+    fall back to a side set, which the ordered reads do not cover.
+    Growth doubles the node pool and rebuilds it from the live member set
+    (:attr:`migrations` counts the rebuilds)."""
+
+    def __init__(self, capacity: int = 4096, max_level: int = 8,
+                 device=None):
+        self.device = batched.resolve_device(device)
+        self.capacity = capacity
+        self.max_level = max_level
+        self.state = ordered.make_ordered(capacity, self.device)
+        self._towers = ordered.build_towers(self.state, max_level)
+        self._members: set = set()
+        self._oob: set = set()
+        self.migrations = 0
+        self.last_stats = None
+
+    _in_range = staticmethod(MembershipIndex._in_range)
+
+    @property
+    def members(self) -> set:
+        return self._members | self._oob
+
+    def _grow_for(self, n_fresh: int) -> None:
+        need = int(self.state.cursor) + n_fresh
+        while self.capacity < need:
+            self.capacity *= 2
+        self.state = ordered.make_ordered(self.capacity, self.device)
+        live = np.asarray(sorted(self._members), np.int32)
+        if live.size:
+            self.state, ok, _ = ordered.update_parallel_ordered(
+                self.state, np.zeros(live.size, np.int32), live + 1,
+                live + 1, max_level=self.max_level)
+            if not bool(ok.all()):
+                raise RuntimeError("ordered membership rebuild dropped keys")
+        self._towers = ordered.build_towers(self.state, self.max_level)
+        self.migrations += 1
+
+    def update(self, add_keys: Iterable[int] = (),
+               remove_keys: Iterable[int] = ()) -> None:
+        """One mixed plan/commit round; a key named in both leaves (adds
+        batch first, removes last)."""
+        adds = {int(k) for k in add_keys}
+        rems = {int(k) for k in remove_keys}
+        self._oob.update(k for k in adds if not self._in_range(k))
+        self._oob.difference_update(k for k in rems
+                                    if not self._in_range(k))
+        ins_set = {k for k in adds
+                   if self._in_range(k) and k not in self._members}
+        del_set = {k for k in rems if self._in_range(k)
+                   and (k in self._members or k in ins_set)}
+        ins = np.asarray(sorted(ins_set), np.int32)
+        dels = np.asarray(sorted(del_set), np.int32)
+        if ins.size + dels.size == 0:
+            return
+        if int(self.state.cursor) + ins.size > self.capacity:
+            # the bound is exact here: every planned insert is a
+            # non-member, and dead nodes resurrect without allocating
+            n_dead = len(self._dead_keys() & ins_set)
+            if int(self.state.cursor) + ins.size - n_dead > self.capacity:
+                self._grow_for(ins.size - n_dead)
+        ks = np.concatenate([ins, dels]) + 1
+        ops = np.concatenate([
+            np.full(ins.size, batched.OP_INSERT, np.int32),
+            np.full(dels.size, batched.OP_DELETE, np.int32)])
+        self.state, ok, self.last_stats = \
+            ordered.update_parallel_ordered(
+                self.state, ops, ks, ks, towers=self._towers,
+                max_level=self.max_level)
+        ok = ok.cpu().numpy()
+        if not ok[:ins.size].all():
+            raise RuntimeError("ordered membership insert dropped")
+        self._towers = ordered.build_towers(self.state, self.max_level)
+        self._members.update(int(k) for k in ins[ok[:ins.size]])
+        self._members.difference_update(
+            int(k) for k in dels[ok[ins.size:]])
+
+    def _dead_keys(self) -> set:
+        return {k - 1 for k, (lv, _) in
+                ordered.items_host(self.state).items() if not lv}
+
+    def add(self, keys: Iterable[int]) -> None:
+        self.update(add_keys=keys)
+
+    def remove(self, keys: Iterable[int]) -> None:
+        self.update(remove_keys=keys)
+
+    def contains(self, keys: Sequence[int]) -> np.ndarray:
+        keys = [int(k) for k in keys]
+        out = np.zeros(len(keys), np.bool_)
+        in_range = [(i, k) for i, k in enumerate(keys)
+                    if self._in_range(k)]
+        if in_range:
+            pos, ks = zip(*in_range)
+            found, _ = ordered.lookup_ordered(
+                self.state, np.asarray(ks, np.int32) + 1, self._towers)
+            out[list(pos)] = found.cpu().numpy()
+        for i, k in enumerate(keys):
+            if not self._in_range(k):
+                out[i] = k in self._oob
+        return out
+
+    def range_members(self, lo: int, hi: int, max_items: int) -> list:
+        """Ascending live members in ``[lo, hi]`` (an ordered read: a
+        pure journey)."""
+        total, ks, _ = ordered.range_query(
+            self.state, lo + 1, hi + 1, max_items, self._towers)
+        m = min(int(total), max_items)
+        return [int(k) - 1 for k in ks[:m].tolist()]
+
+    def expired(self, retain: int) -> list:
+        """Members below the retention horizon, ascending: all but the
+        ``retain`` largest (in-range) members."""
+        n_live = len(self._members)
+        n_evict = n_live - retain
+        if n_evict <= 0:
+            return []
+        cnt, tk, _ = ordered.top_k(self.state, retain + 1)
+        if int(cnt) <= retain:               # fewer live than retain+1
+            return []
+        # tk is ascending: tk[0] is the (retain+1)-th largest stored key,
+        # the largest member to evict (inclusive)
+        horizon = int(tk[0])
+        return self.range_members(ordered.KEY_MIN, horizon - 1, n_evict)

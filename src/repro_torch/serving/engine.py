@@ -13,7 +13,8 @@ so a log directory written by either reopens in the other.
 
 :class:`ServeEngine` serves batches of prompts greedily through a model's
 prefill and decode steps and commits each batch's results to the log.
-The sharded/ordered dedup backends are not ported yet.
+The dedup set lives on the hash map or, with ``ordered_dedup``, on the
+ordered map; the sharded backends are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 from ..core.batched import resolve_device
 from ..obs.metrics import get_registry
 from ..obs.spans import PersistListener, Tracer
-from ..persistence.index import MembershipIndex
+from ..persistence.index import MembershipIndex, OrderedMembershipIndex
 from ..persistence.manifest import StagedIO
 
 
@@ -67,29 +68,37 @@ class RequestLog:
 
     def __init__(self, root, seed: int = 0, capacity: int = 1 << 15,
                  shards: Optional[int] = None, rebalance: bool = False,
-                 ordered_dedup: bool = False, device=None):
+                 ordered_dedup: bool = False, registry=None, device=None):
         """``capacity`` is only the *seed* pool size of the dedup map: under
-        live traffic it grows itself via the bounded migration rounds of
-        :mod:`repro_torch.core.migrate` (:attr:`dedup_migrations` counts
-        the growth events).  ``device`` places the dedup map (``None`` =
-        the card).  ``shards``, ``rebalance`` and ``ordered_dedup`` select
-        backends that are not ported yet and raise
-        ``NotImplementedError``.
+        live traffic it grows itself (:attr:`dedup_migrations` counts the
+        growth events).  ``device`` places the dedup map (``None`` = the
+        card).  ``shards`` and ``rebalance`` select backends that are not
+        ported yet and raise ``NotImplementedError``.
 
-        Counters and histograms go to the process-wide metrics registry;
-        ``tracer`` records one span per commit/snapshot phase, charged
-        with the persistence instructions it executed (a
-        :class:`PersistListener` on ``io``)."""
-        if shards is not None or rebalance or ordered_dedup:
+        ``ordered_dedup`` keeps the committed rids on the ordered map
+        (:class:`~repro_torch.persistence.index.OrderedMembershipIndex`)
+        instead of the hash map, and :meth:`expired_rids` becomes an
+        ordered-by-rid horizon trim: the same rids for the monotone rid
+        streams the engine issues.
+
+        Counters and histograms go to ``registry`` (default: the
+        process-wide metrics registry); ``tracer`` records one span per
+        commit/snapshot phase, charged with the persistence instructions
+        it executed (a :class:`PersistListener` on ``io``)."""
+        if shards is not None or rebalance:
             raise NotImplementedError("later slice")
         self.io = StagedIO(Path(root), seed=seed)
-        self.metrics = get_registry()
+        self.metrics = registry if registry is not None else get_registry()
         self.tracer = Tracer(registry=self.metrics)
         PersistListener(tracer=self.tracer,
                         registry=self.metrics).attach(self.io)
         self._rng = random.Random(0x5eed ^ seed)
-        self._dedup = MembershipIndex(capacity, n_buckets=256,
-                                      device=device)
+        self._ordered = bool(ordered_dedup)
+        if ordered_dedup:
+            self._dedup = OrderedMembershipIndex(capacity, device=device)
+        else:
+            self._dedup = MembershipIndex(capacity, n_buckets=256,
+                                          device=device)
         self._folded: set = set()  # log filenames already in the index
         self._torn: dict = {}      # torn filename -> (size, mtime_ns) seen
         self._results: Dict[int, list] = {}   # rid -> committed result
@@ -427,7 +436,12 @@ class RequestLog:
     def expired_rids(self, retain: int) -> List[int]:
         """Rids past the newest ``retain`` committed ones, in commit
         order (restart replays records in slot order, so the retention
-        horizon survives recovery)."""
+        horizon survives recovery).  With ``ordered_dedup`` the window is
+        ordered by rid instead, answered by the ordered map
+        (:meth:`~repro_torch.persistence.index.OrderedMembershipIndex.
+        expired`)."""
+        if self._ordered:
+            return [int(r) for r in self._dedup.expired(max(retain, 0))]
         done = list(self._results)
         if retain <= 0:
             return done
@@ -551,7 +565,9 @@ class ServeEngine:
         :meth:`RequestLog.snapshot` after that many commits, keeping a
         restart O(retention window).  ``device`` (``None`` = the card)
         holds the model's parameters and the log's dedup map.
-        ``log_shards``, ``log_rebalance`` and ``ordered_dedup`` select
+        ``ordered_dedup`` keeps the dedup set on the ordered map, so
+        retention eviction is an ordered-by-rid horizon trim (see
+        :class:`RequestLog`).  ``log_shards`` and ``log_rebalance`` select
         request-log backends that are not ported yet and raise
         ``NotImplementedError``.  Counters and the per-request latency
         histogram (``serve_request_us``) go to the process registry;

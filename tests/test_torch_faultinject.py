@@ -1,0 +1,93 @@
+"""The port's crash-fault injection (``repro_torch.robustness``) against
+the JAX package's: each port scenario visits the same ``(kind, target)``
+crash sites as its JAX twin, and sweeps under the ``none``, ``random`` and
+``torn`` eviction adversaries recover every invariant (no acked op lost,
+prefix durability, oracle equivalence) on the CPU."""
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from repro.robustness import faultinject as JF
+from repro_torch.persistence.manifest import StagedIO
+from repro_torch.robustness import KINDS, faultinject as TF
+
+CPU = {"device": "cpu"}
+LAYERS = ("log", "log2", "migrate", "ordered")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import CRASH_SITES  # noqa: E402
+
+
+def sites(ss):
+    return [(s.kind, s.target) for s in ss]
+
+
+@pytest.mark.parametrize("layer", LAYERS)
+def test_port_scenario_visits_the_jax_scenarios_sites(layer):
+    port = TF.enumerate_sites(TF.SCENARIOS[layer], CPU)
+    assert sites(port) == sites(JF.enumerate_sites(JF.SCENARIOS[layer]))
+    assert [s.index for s in port] == list(range(len(port)))
+    assert len(port) == CRASH_SITES[layer]      # the card run's pin
+    assert {s.kind for s in port} <= set(KINDS)
+
+
+def test_registry_holds_the_four_ported_scenarios():
+    assert sorted(TF.SCENARIOS) == sorted(LAYERS)
+    assert KINDS == ("flush", "fence", "publish", "trim")
+    assert {s.kind for s in TF.enumerate_sites(TF.SCENARIOS["ordered"],
+                                               CPU)} == set(KINDS)
+
+
+@pytest.mark.parametrize("layer", LAYERS)
+@pytest.mark.parametrize("evict", ["none", "random", "torn"])
+def test_sweep_at_every_site_recovers_every_invariant(layer, evict):
+    rep = TF.sweep(TF.SCENARIOS[layer], evict_modes=(evict,),
+                   scenario_kw=CPU)
+    assert rep["failures"] == [], rep["failures"]
+    assert rep["tested_sites"] == list(range(rep["n_sites"]))
+    assert rep["runs"] == rep["n_sites"] > 20
+
+
+def test_crash_plan_fires_before_the_site_and_goes_inert(tmp_path):
+    io = StagedIO(tmp_path)
+    plan = TF.CrashPlan(crash_at=2).attach(io)
+    io.write("a", b"1")
+    io.flush("a")                                # site 0
+    io.fence()                                   # site 1
+    io.write("b", b"2")
+    with pytest.raises(TF.CrashPoint) as e:
+        io.flush("b")                            # site 2: crashes first
+    assert e.value.site == TF.CrashSite(2, "flush", "b")
+    assert (tmp_path / "a").read_bytes() == b"1"
+    assert not (tmp_path / "b").exists()         # staged, lost
+    assert plan.completed_sites() == plan.sites[:2]
+    io.write("c", b"3")
+    io.flush("c")                                # inert after firing
+    io.fence()
+    assert len(plan.sites) == 3 and (tmp_path / "c").exists()
+    with pytest.raises(ValueError, match="unknown site kind"):
+        TF.CrashPlan().on_site("sync")
+
+
+def test_fuzz_mode_is_seed_deterministic(tmp_path):
+    fired = []
+    for _ in range(2):
+        plan = TF.CrashPlan(p_crash=0.3, seed=7)
+        fired.append(TF._run_once(TF.SCENARIOS["log"], plan, CPU))
+    assert fired[0] == fired[1] is not None
+
+
+def test_budget_indices_match_jax():
+    for n, b in [(10, None), (10, 3), (25, 7), (5, 50), (2, 1)]:
+        assert TF._budget_indices(n, b) == JF._budget_indices(n, b)
+
+
+def test_replay_and_live_helpers_match_jax():
+    rng = np.random.default_rng(3)
+    rounds = [{"ops": rng.integers(0, 2, 12), "ks": rng.integers(0, 6, 12),
+               "vs": rng.integers(0, 99, 12)} for _ in range(4)]
+    a, b = {1: (False, 5)}, {1: (False, 5)}
+    TF._replay_rounds(a, rounds)
+    JF._replay_rounds(b, rounds)
+    assert a == b and TF._live(a) == JF._live(b)

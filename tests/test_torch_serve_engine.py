@@ -91,10 +91,30 @@ def test_one_packages_log_is_finished_by_the_other(env, tmp_path, first,
 
 
 def test_unported_log_backends_raise(env, tmp_path):
-    for kw in ({"log_shards": 2}, {"log_rebalance": True},
-               {"ordered_dedup": True}):
+    for kw in ({"log_shards": 2}, {"log_rebalance": True}):
         with pytest.raises(NotImplementedError, match="later slice"):
             _port(env, tmp_path, **kw)
     with pytest.raises(ValueError, match="params live on"):
         ServeEngine(env["tm"], env["tp"], max_len=8, log_dir=tmp_path,
                     device="meta")
+
+
+def test_ordered_dedup_engines_commit_identical_tokens(env, tmp_path):
+    """With the dedup set on the ordered map and a retention window, the
+    port's engine commits the JAX engine's tokens, evicts the same rids,
+    and a crash and restart keep exactly-once."""
+    kw = dict(ordered_dedup=True, retain=3)
+    jeng = JaxEngine(env["jm"], env["jp"], max_len=env["max_len"],
+                     log_dir=tmp_path / "jax", batch_size=2, **kw)
+    want = jeng.serve(env["requests"], n_new=N_NEW)
+    part = _port(env, tmp_path / "port", **kw).serve(
+        env["requests"], n_new=N_NEW, crash_after_batches=2)
+    assert len(part) == 4
+    eng = _port(env, tmp_path / "port", **kw)
+    got = eng.serve(env["requests"], n_new=N_NEW)
+    assert got == want and len(got) == 8
+    assert eng.log.committed() == jeng.log.committed()
+    rids = list(range(8))
+    np.testing.assert_array_equal(eng.took_effect(rids),
+                                  jeng.took_effect(rids))
+    assert eng.log.expired_rids(2) == jeng.log.expired_rids(2)

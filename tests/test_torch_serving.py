@@ -250,8 +250,7 @@ def test_restart_trim_retries_and_heals(tmp_path, monkeypatch):
     assert bool(log.took_effect([7])[0])
 
 
-@pytest.mark.parametrize("kw", [{"shards": 2}, {"rebalance": True},
-                                {"ordered_dedup": True}])
+@pytest.mark.parametrize("kw", [{"shards": 2}, {"rebalance": True}])
 def test_unported_backends_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         Log(tmp_path, **kw)
@@ -351,3 +350,100 @@ def test_spans_and_counters_match_jax(tmp_path):
             assert phase == "flush_fence" or not {"flush", "fence"} & set(
                 counts)
     assert seen[0] == seen[1]
+
+
+# --------------------------------------------------------------------- #
+# ordered_dedup: the dedup set on the ordered map                        #
+# --------------------------------------------------------------------- #
+def _ordered_history(log, n_batches=8, retain=7):
+    """Commits with ordered-by-rid evictions (growth past the seed pool
+    included), a snapshot halfway, then a post-snapshot suffix.  Returns
+    the expired-rid lists the log answered."""
+    answered, rid = [], 0
+    for b in range(n_batches):
+        ev = log.expired_rids(retain)
+        answered.append(ev)
+        log.commit({rid + i: [b, i] for i in range(3)}, evict=ev)
+        rid += 3
+        if b == n_batches // 2:
+            log.snapshot()
+    return answered
+
+
+def _assert_ordered_logs_same(jl, tl, n=30):
+    assert tl.committed() == jl.committed()
+    rids = list(range(-2, n)) + [2**33]
+    np.testing.assert_array_equal(tl.took_effect(rids),
+                                  jl.took_effect(rids))
+    for r in (0, 2, 5, 100):
+        assert tl.expired_rids(r) == jl.expired_rids(r)
+    assert tl.dedup_migrations == jl.dedup_migrations
+    for f in jl._dedup.state._fields:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(jl._dedup.state, f)),
+            getattr(tl._dedup.state, f).numpy(), err_msg=f)
+
+
+def test_ordered_dedup_log_matches_jax(tmp_path):
+    jl = JaxLog(tmp_path / "jax", capacity=8, ordered_dedup=True)
+    tl = Log(tmp_path / "port", capacity=8, ordered_dedup=True)
+    assert _ordered_history(tl) == _ordered_history(jl)
+    assert tl.dedup_migrations >= 1
+    _assert_ordered_logs_same(jl, tl)
+    names = sorted(p.name for p in (tmp_path / "jax").iterdir()
+                   if p.name != ".clock")
+    for name in names:
+        assert (tmp_path / "jax" / name).read_bytes() == \
+            (tmp_path / "port" / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_ordered_dedup_log_restarts_across_packages(tmp_path, writer):
+    make = JaxLog if writer == "jax" else Log
+    _ordered_history(make(tmp_path, capacity=8, ordered_dedup=True))
+    jl = JaxLog(tmp_path, capacity=8, ordered_dedup=True)
+    tl = Log(tmp_path, capacity=8, ordered_dedup=True)
+    assert tl.records_parsed == jl.records_parsed > 0
+    _assert_ordered_logs_same(jl, tl)
+    # and the restarted logs keep committing identically
+    for log in (jl, tl):
+        log.commit({100: [1]}, evict=log.expired_rids(4))
+    _assert_ordered_logs_same(jl, tl, n=102)
+
+
+def test_ordered_dedup_equals_hash_dedup_for_monotone_rids(tmp_path):
+    a = Log(tmp_path / "hash", capacity=256)
+    b = Log(tmp_path / "ord", capacity=256, ordered_dedup=True)
+    rid = 0
+    for batch in range(7):
+        rec = {rid + i: [batch, i] for i in range(3)}
+        rid += 3
+        ea, eb = a.expired_rids(5), b.expired_rids(5)
+        assert sorted(ea) == eb
+        a.commit(rec, evict=ea)
+        b.commit(rec, evict=eb)
+        assert a.committed() == b.committed()
+        np.testing.assert_array_equal(a.took_effect(range(rid)),
+                                      b.took_effect(range(rid)))
+    b2 = Log(tmp_path / "ord", capacity=256, ordered_dedup=True)
+    assert b2.committed() == a.committed()
+    assert b2.expired_rids(2) == sorted(a.expired_rids(2))
+
+
+def test_private_registry_gets_the_logs_counters(tmp_path):
+    from repro_torch.obs.metrics import MetricsRegistry, get_registry
+    mine = MetricsRegistry()
+    shared = get_registry().counter("serving_commits_total").value
+    log = Log(tmp_path, registry=mine, ordered_dedup=True)
+    log.commit({1: [1]})
+    log.commit({2: [2]})
+    assert log.expired_rids(1) == [1]
+    log.commit({3: [3]}, evict=log.expired_rids(1))
+    assert mine.counter("serving_commits_total").value == 3
+    assert mine.counter("serving_evicted_rids_total").value == 1
+    assert get_registry().counter("serving_commits_total").value == shared
+    again = Log(tmp_path, registry=MetricsRegistry(), ordered_dedup=True)
+    assert again.records_parsed == 3 and again.committed() == {2: [2],
+                                                               3: [3]}
+    assert again.metrics.counter(
+        "serving_records_parsed_total").value == 3

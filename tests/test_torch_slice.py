@@ -53,6 +53,67 @@ def test_map_flow_matches_jax_end_to_end():
     assert checks["max_abs_err"] == 0
 
 
+def test_ordered_phase_matches_jax_end_to_end():
+    """chip_smoke.py's ordered phase at small size on the CPU: the final
+    state, ok flags and lookups equal the JAX engine's on the same stream
+    (towers rebuilt after every batch in both), the range batch equals
+    the JAX range_query bound by bound, and the script's own checks
+    pass."""
+    from repro.core import ordered as JO
+    sz = chip_smoke.SMALL
+    stream = chip_smoke.make_stream(sz, seed=3)
+    out = chip_smoke.run_ordered(sz, stream, "cpu", 3)
+    js = JO.make_ordered(sz.capacity)
+    pre = stream["prefill"]
+    js, jok, _ = JO.update_parallel_ordered(js, np.zeros_like(pre), pre,
+                                            pre, towers=JO.build_towers(js))
+    np.testing.assert_array_equal(out["prefill_ok"].numpy(), np.asarray(jok))
+    for i, (ops, ks, vs, look) in enumerate(stream["rounds"]):
+        js, jok, _ = JO.update_parallel_ordered(js, ops, ks, vs,
+                                                towers=JO.build_towers(js))
+        np.testing.assert_array_equal(out["ok"][i].numpy(), np.asarray(jok))
+        for a, b in zip(JO.lookup_ordered(js, jnp.asarray(look),
+                                          JO.build_towers(js)),
+                        out["lookups"][i]):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    for f in JO.OrderedState._fields:
+        np.testing.assert_array_equal(getattr(out["state"], f).numpy(),
+                                      np.asarray(getattr(js, f)), err_msg=f)
+    lo, hi = out["bounds"]
+    jtw = JO.build_towers(js)
+    for i in range(0, sz.ranges, 7):
+        for a, b in zip(JO.range_query(js, int(lo[i]), int(hi[i]),
+                                       sz.max_items, jtw),
+                        (x[i] for x in out["ranges"])):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    for a, b in zip(JO.top_k(js, sz.top_k), out["top_k"]):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    got = chip_smoke.check_ordered(sz, stream, out)
+    assert got["live_keys"] > 0 and got["check_ops_committed"] > 0
+    assert out["steps"]["prefill"] == 1
+
+
+def test_durable_and_migrate_phases_recover_on_the_cpu():
+    cpu = torch.device("cpu")
+    dur = chip_smoke.run_durable_ordered(chip_smoke.SMALL, cpu, 3)
+    assert dur["crash_site"]["target"] == "ord_000007.json"
+    assert dur["snapshot_horizon"] == 5 and dur["journal_bytes"] > 0
+    mig = chip_smoke.run_migrate(chip_smoke.SMALL, cpu, 3)
+    assert mig["crash_site"]["target"] == "mig_0001/round_000008.npz"
+    assert mig["new"] == [2 * chip_smoke.SMALL.mig_capacity,
+                          2 * chip_smoke.SMALL.mig_buckets]
+    assert mig["recovered"]["n_rounds"] == 8
+    assert mig["recovered"]["frontier"] == 4 * chip_smoke.SMALL.mig_bpr
+    assert mig["drained_keys"] > 0 and mig["pulls"] > 0
+
+
+def test_crash_phase_sweeps_every_scenario_on_the_cpu():
+    got = chip_smoke.run_crash(torch.device("cpu"))
+    assert {k: v["n_sites"] for k, v in got.items()} == chip_smoke.CRASH_SITES
+    assert all(v["failures"] == 0 and v["runs"] == 3 * v["n_sites"]
+               for v in got.values())
+
+
 def test_serve_phase_holds_exactly_once_on_the_cpu():
     got = chip_smoke.run_serve(chip_smoke.SMALL, "cpu")
     assert got["dedup_migrations"] >= 1 and got["evicted"] > 0
@@ -73,9 +134,11 @@ print(len(names), bad)
 want = {"repro_torch.kernels._build", "repro_torch.models.model",
         "repro_torch.models.convert", "repro_torch.launch.serve",
         "repro_torch.kernels.flash_attention.kernel",
-        "repro_torch.kernels.ssd_scan.kernel", "repro_torch.configs.registry"}
+        "repro_torch.kernels.ssd_scan.kernel", "repro_torch.configs.registry",
+        "repro_torch.core.ordered", "repro_torch.core.skiplist",
+        "repro_torch.robustness", "repro_torch.robustness.faultinject"}
 print(sorted(want - set(names)))
-sys.exit(1 if bad or len(names) < 37 or want - set(names) else 0)
+sys.exit(1 if bad or len(names) < 41 or want - set(names) else 0)
 """
 
 
@@ -155,17 +218,28 @@ def test_probe_bytes_counts_a_hand_made_tile(cap):
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     from repro_torch.configs.registry import get_arch, tiny
     from repro_torch.core import batched as TB
+    from repro_torch.core import ordered as TO
+    from repro_torch.core.migrate import MigratingMap
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
-    from repro_torch.persistence.index import MembershipIndex
+    from repro_torch.persistence.index import (MembershipIndex,
+                                               OrderedMembershipIndex)
+    from repro_torch.robustness.faultinject import SCENARIOS, CrashPlan
     from repro_torch.serving.engine import RequestLog, ServeEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        TB.make_state(8, 4)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        MembershipIndex(8)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        RequestLog(tmp_path)
+    for make in (lambda: TB.make_state(8, 4), lambda: MembershipIndex(8),
+                 lambda: RequestLog(tmp_path),
+                 lambda: RequestLog(tmp_path, ordered_dedup=True),
+                 lambda: TO.make_ordered(8),
+                 lambda: TO.DurableOrderedMap(tmp_path / "ord"),
+                 lambda: OrderedMembershipIndex(8),
+                 lambda: MigratingMap(8, 4),
+                 lambda: MigratingMap.recover(tmp_path / "mig")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    for cls in SCENARIOS.values():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(tmp_path / cls.layer, CrashPlan()).run()
     model = Model(tiny(get_arch("zamba2-7b")))
     params = model.init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -186,7 +260,9 @@ def test_serve_cli_recovers_after_a_crash_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("module", [
     "repro_torch.core.batched", "repro_torch.core.pmem",
-    "repro_torch.obs.metrics"])
+    "repro_torch.obs.metrics", "repro_torch.core.ordered",
+    "repro_torch.core.skiplist", "repro_torch.core.migrate",
+    "repro_torch.robustness.faultinject"])
 def test_port_doctests(module):
     import doctest
     import importlib
