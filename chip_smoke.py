@@ -5,7 +5,7 @@ serving path on the card.
     python3 chip_smoke.py                 # on the card, at full size
     python3 chip_smoke.py --device cpu    # rehearsal on the host, small
 
-Nine phases, each of which fails the run when it fails:
+Eleven phases, each of which fails the run when it fails:
 
 1. ``build``  -- compile the three hand-written kernels from ``src/`` with
    nvcc, all at once, and report each compiled function's registers and
@@ -24,13 +24,28 @@ Nine phases, each of which fails the run when it fails:
    (and, on its element-load path, on the same tiles 4 bytes off a
    16-byte boundary and widened to cap 33), and ``update_parallel``
    against the ``apply`` oracle on a 4096-op batch;
-3. ``serve``  -- a ``RequestLog`` whose dedup map lives on the card
+3. ``sharded`` -- the map phase's stream on a ``ShardedDurableMap`` of
+   4 shards on the card (the same 2^23-node pool and 2^20 buckets, split
+   evenly; all shards on one card, committed one after another), held
+   against the map phase: per-op ok, per-bucket flushes, no foreign op,
+   every lookup and 2^20 more, flush/fence totals and every node.  Then a
+   journaled ``RebalancingShardedMap`` of 2^20 keys beside an uncrashed
+   twin takes zipf-skewed rounds of 2^16 ops (half updates) with
+   ``AutoRebalancePolicy(threshold=1.3, check_every=2)`` armed and 2^15
+   buckets a rebalance round: the policy must trigger, the map crashes
+   (``evict="random"``) at the publish of its 5th journaled round, and
+   ``recover`` must equal the twin at that boundary, then finish equal to
+   it and to a host dict replay, the final load imbalance at most the
+   trigger's;
+4. ``serve``  -- a ``RequestLog`` whose dedup map lives on the card
    commits and evicts past its seed capacity (so ``migrate_state`` runs
    on the card), snapshots, crashes and reopens: exactly-once must hold.
    The log's spans must bill every flush and fence to its commit or
    snapshot; their times, the restart's phases and the first-call stalls
-   of the growth rounds are printed;
-4. ``model``  -- the serving path at full width: zamba2-7b (bf16, 81
+   of the growth rounds are printed.  The same commits then go through a
+   ``RequestLog(shards=4, rebalance=True)``, which must hold exactly-once
+   across its growth, snapshot, crash and restart;
+5. ``model``  -- the serving path at full width: zamba2-7b (bf16, 81
    layers, random weights from ``--seed``) behind a ``ServeEngine`` serves
    8 requests (4 prompts of 512 tokens, 4 of 500; 16 new tokens, batches
    of 4), crashes after the first batch and is served again by a new
@@ -39,11 +54,20 @@ Nine phases, each of which fails the run when it fails:
    prefill and decode-step times, tokens/s and peak memory are printed,
    and one profiled prefill and decode step: device time, busy share,
    the top kernels and the share of each of the port's own kernels;
-5. ``checks`` -- each new kernel against its plain versions at the serve
+6. ``checkpoint`` -- zamba2-7b at full width (bf16, random weights from
+   ``--seed``) cut to 12 layers, its parameters saved by a
+   ``CheckpointManager`` as 4 steps, each changing one leaf (steps 2-4
+   are delta saves), ``gc(keep=2)`` after step 3 and a crash
+   (``evict="random"``) at step 4's manifest publish: ``recover`` must
+   land on step 3, ``restore`` onto the card must give step 3's tensors
+   bit for bit, and a 4 x 512 prefill with them (through
+   ``flash_attention`` and ``ssd_scan``) the in-memory step-3 model's
+   logits; the Izraelevitz policy runs the same sequence for its fences;
+7. ``checks`` -- each new kernel against its plain versions at the serve
    shapes and on the reference's sweep, and prefill (kernels) against
    prefill + one decode step (plain recurrent and attention steps) in f32
    at full width and depth 12;
-6. ``ordered`` -- the map phase's stream on the ordered map at the same
+8. ``ordered`` -- the map phase's stream on the ordered map at the same
    scale (2^22 keys in a 2^23-node pool) through
    ``update_parallel_ordered``, the towers rebuilt after every batch,
    then 1024 zipf-placed ``range_query`` spans (``max_items`` 1024, one
@@ -56,18 +80,19 @@ Nine phases, each of which fails the run when it fails:
    batches of 2^16 ops, snapshots after the 4th, crashes at the publish
    of the 7th (``evict="random"``) and recovers: exactly the acked
    batches, arrays and towers equal to an uncrashed twin;
-7. ``migrate`` -- a journaled ``MigratingMap`` of 3 * 2^20 keys in a
+9. ``migrate`` -- a journaled ``MigratingMap`` of 3 * 2^20 keys in a
    2^22-node pool with 2^19 buckets takes a batch of 2^20 fresh keys that
    does not fit, grows to 2^23 nodes and 2^20 buckets in drain rounds of
    2^15 buckets between mixed rounds of 2^16 ops, and crashes
    (``evict="random"``) at the publish of its 9th journaled round;
    ``recover`` must equal an uncrashed twin at that boundary and finish
    equal to it and to a host dict replay;
-8. ``crash`` -- ``sweep`` of each ported crash scenario (``log``,
-   ``log2``, ``migrate``, ``ordered``) at every site under the ``none``,
-   ``random`` and ``torn`` adversaries, with the site counts the CPU
-   tests pin; any failure fails the run;
-9. ``timing`` -- each kernel's time (CUDA events), its plain version's,
+10. ``crash`` -- ``sweep`` of each crash scenario (``log``, ``log2``,
+   ``checkpoint``, ``migrate``, ``rebalance`` at 1 and at 4 shards,
+   ``ordered``) at every site under the ``none``, ``random`` and ``torn``
+   adversaries, with the site counts the CPU tests pin; any failure fails
+   the run;
+11. ``timing`` -- each kernel's time (CUDA events), its plain version's,
    one PyTorch library call's where one computes the same function, and
    its bound from the bytes it must move and the operations it must do;
    ``nvt_probe`` also with L2 flushed before each launch, and in turns
@@ -87,6 +112,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -103,6 +129,9 @@ from repro_torch.core import batched as B  # noqa: E402
 from repro_torch.core import ordered as O  # noqa: E402
 from repro_torch.core.migrate import (MigratingMap,  # noqa: E402
                                       live_chain_nodes)
+from repro_torch.core.rebalance import (  # noqa: E402
+    AutoRebalancePolicy, RebalancingShardedMap)
+from repro_torch.core.sharded import ShardedDurableMap  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -116,7 +145,9 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref  # noqa
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.obs.compile import get_tracker  # noqa: E402
-from repro_torch.obs.metrics import get_registry  # noqa: E402
+from repro_torch.obs.metrics import MetricsRegistry, get_registry  # noqa
+from repro_torch.persistence.checkpoint import (  # noqa: E402
+    CheckpointManager)
 from repro_torch.robustness.faultinject import (  # noqa: E402
     SCENARIOS, CrashPlan, CrashPoint, sweep)
 from repro_torch.serving.engine import RequestLog, ServeEngine  # noqa: E402
@@ -172,6 +203,17 @@ class Sizes:
     mig_bpr: int = 2**15         # old buckets a drain round
     mig_round_ops: int = 2**16   # mixed user rounds, 50% updates
     mig_crash_round: int = 8     # the 9th journaled round's publish
+    # sharded phase: the map phase's stream over 4 shards, then a
+    # journaled live-rebalancing map under zipf-skewed rounds
+    shards: int = 4
+    reb_prefill: int = 2**20     # cut: the re-split must fit one shard
+    reb_round_ops: int = 2**16   # mixed rounds, 50% updates
+    reb_rounds: int = 24         # skewed rounds with the policy armed
+    reb_post: int = 4            # rounds on the final split, disarmed
+    reb_bpr: int = 2**15         # buckets a rebalance round
+    reb_crash_round: int = 4     # the 5th journaled round's publish
+    # checkpoint phase: zamba2-7b at full width, cut in depth
+    ckpt_layers: int = 12
 
 
 FULL = Sizes()
@@ -183,10 +225,15 @@ SMALL = Sizes(capacity=2**12, n_buckets=2**8, prefill=2**10,
               ranges=64, max_items=64, top_k=16, dur_capacity=2**11,
               dur_keys=2**10, dur_batch=2**6, mig_capacity=2**12,
               mig_buckets=2**9, mig_prefill=3 * 2**10, mig_fresh=2**10,
-              mig_bpr=2**5, mig_round_ops=2**6)
+              mig_bpr=2**5, mig_round_ops=2**6, reb_prefill=2**9,
+              reb_round_ops=2**8, reb_bpr=2**3, ckpt_layers=7)
 # crash sites of each ported scenario (tests/test_torch_faultinject.py
 # pins the same counts against the JAX scenarios)
-CRASH_SITES = {"log": 29, "log2": 31, "migrate": 25, "ordered": 25}
+CRASH_SITES = {"log": 29, "log2": 31, "checkpoint": 19, "migrate": 25,
+               "rebalance": 22, "rebalance4": 22, "ordered": 25}
+# each sweep of the crash phase: its scenario and its own arguments
+CRASH_SWEEPS = {**{name: (name, {}) for name in SCENARIOS},
+                "rebalance4": ("rebalance", {"n_shards": 4})}
 
 
 def log(obj) -> None:
@@ -252,15 +299,17 @@ def run_map(sz: Sizes, stream: dict, device) -> dict:
     st = stage("make_state", lambda: B.make_state(sz.capacity, sz.n_buckets,
                                                   dev))
     pre = torch.as_tensor(stream["prefill"], device=dev)
-    st, ok, _ = stage("prefill", lambda: B.update_parallel(
+    st, ok, stats = stage("prefill", lambda: B.update_parallel(
         st, torch.zeros_like(pre), pre, pre, sz.n_buckets))
     out["prefill_ok"] = ok
+    out["bucket_flushes"] = [stats.bucket_flushes]
     for ratio, (ops, ks, vs, look) in zip(sz.ratios, stream["rounds"]):
-        st, ok, _ = stage(f"update_{ratio}", lambda: B.update_parallel(
+        st, ok, stats = stage(f"update_{ratio}", lambda: B.update_parallel(
             st, torch.as_tensor(ops, device=dev),
             torch.as_tensor(ks, device=dev),
             torch.as_tensor(vs, device=dev), sz.n_buckets))
         out["ok"].append(ok)
+        out["bucket_flushes"].append(stats.bucket_flushes)
         out["lookups"].append(stage(f"lookup_{ratio}", lambda: B.lookup(
             st, torch.as_tensor(look, device=dev), sz.n_buckets)))
     out["state"] = st
@@ -1183,14 +1232,394 @@ def run_migrate(sz: Sizes, dev, seed: int) -> dict:
                 "finish_rounds": rep.rounds, "stage_s": times}
 
 
-def run_crash(dev) -> dict:
-    """Every ported crash scenario swept at every site under each
-    eviction adversary on ``dev``; any failure fails the phase."""
-    out = {}
-    for layer, cls in SCENARIOS.items():
+# --------------------------------------------------------------------- #
+# sharded and checkpoint phases                                          #
+# --------------------------------------------------------------------- #
+def node_table(host: dict) -> np.ndarray:
+    """Every allocated node of a host state as sorted ``(key, live, val)``
+    rows: one map's arrays, or a sharded map's stacked ones (a key holds
+    at most one node in the whole map, so the table is canonical)."""
+    key, live, val = (np.atleast_2d(host[f]) for f in ("key", "live",
+                                                        "val"))
+    rows = [np.stack([key[s, 1:c], live[s, 1:c], val[s, 1:c]], 1)
+            for s, c in enumerate(np.atleast_1d(host["cursor"]))]
+    t = np.concatenate(rows).astype(np.int64)
+    return t[np.argsort(t[:, 0], kind="stable")]
+
+
+def run_sharded(sz: Sizes, stream: dict, single: dict, dev) -> dict:
+    """The map phase's stream on a ``ShardedDurableMap`` of ``sz.shards``
+    shards (the same total pool and buckets, split evenly), held against
+    the single-device run: per-op ok, per-bucket flushes, no foreign op,
+    every round's lookups and 2^20 more, flush/fence totals and every
+    node.  Returns the stage times and each round's share spent in the
+    per-shard engine loop."""
+    stage, times = _timer(dev)
+    m = stage("make", lambda: ShardedDurableMap(
+        sz.shards, capacity=sz.capacity, n_buckets=sz.n_buckets,
+        device=dev))
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    loop = {}
+
+    def round_(name, want_ok, want_bf, ops, ks, vs):
+        l0 = m.loop_s
+        ok, st = stage(name, lambda: m.update(ops, ks, vs))
+        loop[name] = (m.loop_s - l0) / times[name]
+        if not np.array_equal(ok, host(want_ok)):
+            raise AssertionError(f"sharded {name}: ok flags differ")
+        if not np.array_equal(st.bucket_flushes, host(want_bf)):
+            raise AssertionError(f"sharded {name}: bucket flushes differ")
+        if st.foreign_ops.any():
+            raise AssertionError(f"sharded {name}: foreign ops "
+                                 f"{st.foreign_ops.tolist()}")
+
+    pre = stream["prefill"]
+    round_("prefill", single["prefill_ok"], single["bucket_flushes"][0],
+           np.zeros_like(pre), pre, pre)
+    for i, (ratio, (ops, ks, vs, look)) in enumerate(
+            zip(sz.ratios, stream["rounds"])):
+        round_(f"update_{ratio}", single["ok"][i],
+               single["bucket_flushes"][i + 1], ops, ks, vs)
+        got = stage(f"lookup_{ratio}", lambda: m.lookup(look))
+        if not all(np.array_equal(g, host(w))
+                   for g, w in zip(got, single["lookups"][i])):
+            raise AssertionError(f"sharded round {ratio}%: lookups differ")
+    q = stream["queries"]
+    got = stage("lookup_queries", lambda: m.lookup(q))
+    qt = torch.as_tensor(q, device=dev)
+    want = stage("lookup_queries_single", lambda: B.lookup(
+        single["state"], qt, sz.n_buckets))
+    if not all(np.array_equal(g, host(w)) for g, w in zip(got, want)):
+        raise AssertionError("sharded lookups of the queries differ")
+    st = single["state"]
+    if (m.flushes, m.fences) != (int(st.flushes), int(st.fences)):
+        raise AssertionError("sharded flush/fence totals differ")
+    t0 = time.perf_counter()
+    if not np.array_equal(node_table(m.host()),
+                          node_table(B.state_to_numpy(st))):
+        raise AssertionError("sharded nodes differ from the single map's")
+    times["node_check"] = time.perf_counter() - t0
+    return {"shards": sz.shards, "splits": list(m.splits),
+            "cursors": m.cursors.tolist(), "flushes": m.flushes,
+            "fences": m.fences, "chain": list(m.chain_stats()),
+            "stage_s": times, "loop_share": loop}
+
+
+def reb_stream(sz: Sizes, seed: int) -> list:
+    """The live-rebalance rounds: half updates (inserts and deletes
+    alike), half lookups, every key a zipf(1.3) rank over the keys
+    ``[1, 2*reb_prefill)`` ordered by bucket, so the hottest keys sit in
+    the lowest buckets, shard 0's range under the even split."""
+    rng = np.random.default_rng(seed + 17)
+    domain = np.arange(1, 2 * sz.reb_prefill, dtype=np.int32)
+    by_bucket = domain[np.argsort(B.bucket_of_np(domain, sz.n_buckets),
+                                  kind="stable")]
+
+    def draw(n):
+        return by_bucket[np.minimum(rng.zipf(1.3, n), domain.size) - 1]
+
+    n_upd = sz.reb_round_ops // 2
+    return [(rng.integers(0, 2, n_upd).astype(np.int32), draw(n_upd),
+             rng.integers(0, 1 << 20, n_upd).astype(np.int32),
+             draw(sz.reb_round_ops - n_upd))
+            for _ in range(sz.reb_rounds + sz.reb_post)]
+
+
+def reb_gauges(n_shards: int) -> dict:
+    reg = get_registry()
+    return {"map_shard_load": [reg.gauge("map_shard_load",
+                                         shard=str(s)).value
+                               for s in range(n_shards)],
+            "map_load_imbalance": reg.gauge("map_load_imbalance").value,
+            "map_trigger_imbalance":
+                reg.gauge("map_trigger_imbalance").value}
+
+
+def run_live_rebalance(sz: Sizes, dev, seed: int) -> dict:
+    """A journaled ``RebalancingShardedMap`` of ``sz.shards`` shards
+    (the map phase's pool and buckets, ``reb_prefill`` keys) beside an
+    uncrashed twin, the auto policy armed after the prefill, under
+    zipf-skewed rounds.  The policy must trigger; the map crashes
+    (``evict="random"``) at the publish of its journal's round
+    ``reb_crash_round``; ``recover`` must equal the twin at that boundary,
+    then take the rest of the rounds and the post rounds (policy
+    disarmed) equal to the twin and to a host dict replay, with the final
+    load imbalance at most the trigger's."""
+    rounds = reb_stream(sz, seed)
+    stage, times = _timer(dev)
+    policy = AutoRebalancePolicy(threshold=1.3,
+                                 min_load=sz.reb_round_ops // 4,
+                                 check_every=2,
+                                 buckets_per_round=sz.reb_bpr)
+    kw = dict(capacity=sz.capacity, n_buckets=sz.n_buckets,
+              rounds_per_update=2, device=dev)
+    cells: dict = {}
+    round_s = {"steady": [], "rebalancing": []}
+    get_registry().reset()
+    with tempfile.TemporaryDirectory() as d:
+        root = Path(d)
+        m = RebalancingShardedMap(sz.shards, root=root, seed=seed, **kw)
+        twin = RebalancingShardedMap(sz.shards, **kw)
+        pre = np.arange(1, sz.reb_prefill + 1, dtype=np.int32)
+        stage("prefill", lambda: m.insert(pre, pre * 3))
+        twin.insert(pre, pre * 3)
+        for x in (m, twin):
+            # arm the policy on the skewed traffic, not the uniform prefill
+            x.policy = policy
+            x.loads[:] = 0
+        _replay_map(cells, np.zeros_like(pre), pre, pre * 3)
+        plan = CrashAtPublish(f"reb_0001/round_{sz.reb_crash_round:06d}.npz",
+                              evict="random", seed=seed).attach(m.io)
+
+        def step(mm, i, ops, ks, vs, look, want_ok, timed):
+            """One round on ``mm``, its ok flags and lookups held against
+            the replay (already advanced by this round)."""
+            busy = mm.rebalancing
+            t0 = time.perf_counter()
+            ok, _ = mm.update(ops, ks, vs)
+            _sync(dev)
+            if timed:
+                round_s["rebalancing" if busy or mm.rebalancing
+                        else "steady"].append(time.perf_counter() - t0)
+            if ok.tolist() != want_ok:
+                raise AssertionError(f"rebalance round {i}: ok flags "
+                                     f"differ from the replay")
+            c = [cells.get(k, [False, 0]) for k in look.tolist()]
+            f, v = mm.lookup(look)
+            if f.tolist() != [x[0] for x in c] or \
+                    v.tolist() != [x[1] if x[0] else 0 for x in c]:
+                raise AssertionError(f"rebalance round {i}: lookups differ")
+
+        crashed = None
+        for i, (ops, ks, vs, look) in enumerate(rounds[:sz.reb_rounds]):
+            saved = {k: list(cells[k]) for k in set(ks.tolist())
+                     if k in cells}
+            want_ok = _replay_map(cells, ops, ks, vs)
+            try:
+                step(m, i, ops, ks, vs, look, want_ok, True)
+            except CrashPoint as e:
+                crashed = (i, e.site)
+                for k in set(ks.tolist()):       # not acked: undo it
+                    cells.pop(k, None)
+                cells.update(saved)
+                break
+            step(twin, i, ops, ks, vs, look, want_ok, False)
+            if m.rebalancing and "gauges_at_trigger" not in times:
+                times["gauges_at_trigger"] = reb_gauges(sz.shards)
+        if crashed is None:
+            raise AssertionError("the crash round was never journaled")
+        if twin.rebalances_completed + twin.rebalancing < 1:
+            raise AssertionError("the policy never triggered")
+        trigger = twin.last_trigger_imbalance
+        journal_bytes = sum(p.stat().st_size for p in root.rglob("*")
+                            if p.is_file())
+        rec = stage("recover", lambda: RebalancingShardedMap.recover(
+            root, sz.shards, seed=seed, rounds_per_update=2, policy=policy,
+            device=dev))
+        # the crashed update had published its first drain rounds: the
+        # twin drains as far to reach the same round boundary
+        while twin._reb["n_rounds"] < rec._reb["n_rounds"]:
+            twin.rebalance_round()
+        if (rec.frontier, rec.splits) != (twin.frontier, twin.splits) or \
+                rec._reb["remaining"].tolist() != \
+                twin._reb["remaining"].tolist():
+            raise AssertionError("recovered frontier/splits/reserve differ "
+                                 "from the twin")
+        same_arrays(rec._reb["new"].state, twin._reb["new"].state,
+                    "recovered new map vs the twin")
+        same_arrays(rec.map.state, twin.map.state,
+                    "recovered frozen map vs the twin")
+        at_crash = {"round": crashed[0], "frontier": rec.frontier,
+                    "splits_new": list(rec.splits),
+                    "site": dataclasses.asdict(crashed[1])}
+        for j, (ops, ks, vs, look) in enumerate(rounds[crashed[0]:],
+                                                crashed[0]):
+            if j == sz.reb_rounds:       # the post rounds: disarmed
+                for x in (rec, twin):
+                    if x.rebalancing:
+                        stage("finish", x.run_rebalance)
+                    x.policy = None
+            want_ok = _replay_map(cells, ops, ks, vs)
+            step(rec, j, ops, ks, vs, look, want_ok, True)
+            step(twin, j, ops, ks, vs, look, want_ok, False)
+        same_arrays(rec.map.state, twin.map.state, "finished map vs twin")
+        want = np.asarray(sorted((k, c[1]) for k, c in cells.items()
+                                 if c[0]), np.int64).reshape(-1, 2)
+        t = node_table(rec.map.host())
+        if not np.array_equal(t[t[:, 1] == 1][:, [0, 2]], want):
+            raise AssertionError("rebalanced map differs from the replay")
+        after = reb_gauges(sz.shards)
+        if after["map_load_imbalance"] > trigger:
+            raise AssertionError(f"final imbalance "
+                                 f"{after['map_load_imbalance']} above "
+                                 f"the trigger's {trigger}")
+        return {"prefill": sz.reb_prefill, "rounds": len(rounds),
+                "round_ops": sz.reb_round_ops, "bpr": sz.reb_bpr,
+                "rebalances": twin.rebalances_completed,
+                "drain_rounds": twin.rounds_total,
+                "pulls": twin.pulls_total, "trigger_imbalance": trigger,
+                "gauges_at_trigger": times.pop("gauges_at_trigger"),
+                "gauges_after": after, "splits": list(rec.splits),
+                "crash": at_crash, "journal_bytes": journal_bytes,
+                "reduced": [f"prefill 2^22 -> {sz.reb_prefill} keys: "
+                            "the split that isolates zipf's hot buckets "
+                            "puts nearly every live key in one shard, "
+                            "whose pool is a quarter of the map's"],
+                "round_s": {k: {"n": len(v),
+                                "median": float(np.median(v)) if v else
+                                None, "max": max(v, default=None)}
+                            for k, v in round_s.items()},
+                "stage_s": times}
+
+
+def run_sharded_serve(sz: Sizes, dev) -> dict:
+    """The serve phase's commits through a ``RequestLog`` whose dedup map
+    is sharded over ``sz.shards`` shards and may re-split them live:
+    growth, snapshot, crash and restart keep exactly-once."""
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(capacity=sz.serve_capacity, shards=sz.shards,
+                  rebalance=True, device=dev)
         t0 = time.perf_counter()
-        rep = sweep(cls, evict_modes=("none", "random", "torn"),
-                    scenario_kw={"device": dev})
+        rlog = RequestLog(d, registry=MetricsRegistry(), **kw)
+        rid = 0
+        for _ in range(sz.serve_batches):
+            batch = {r: [r, (r * 7) % 1000]
+                     for r in range(rid, rid + sz.serve_batch)}
+            rlog.commit(batch, evict=rlog.expired_rids(sz.serve_retain))
+            rid += sz.serve_batch
+        rlog.snapshot()
+        rlog.commit({rid: [rid, 0]},
+                    evict=rlog.expired_rids(sz.serve_retain))
+        rid += 1
+        before = rlog.committed()
+        kept = sorted(before)
+        evicted = sorted(set(range(rid)) - set(before))
+        rlog.io.crash(evict="random")
+        t1 = time.perf_counter()
+        again = RequestLog(d, registry=MetricsRegistry(), **kw)
+        t2 = time.perf_counter()
+        if again.committed() != before:
+            raise AssertionError("sharded log: committed() changed across "
+                                 "the crash")
+        if not again.took_effect(kept).all() or \
+                again.took_effect(evicted).any():
+            raise AssertionError("sharded log: took_effect differs")
+        if rlog.dedup_migrations < 1 or not evicted:
+            raise AssertionError("sharded log: no growth or no eviction")
+        return {"shards": sz.shards, "rids": rid, "kept": len(kept),
+                "evicted": len(evicted),
+                "dedup_migrations": rlog.dedup_migrations,
+                "dedup_rebalances": rlog.dedup_rebalances,
+                "commit_s": t1 - t0, "restart_s": t2 - t1}
+
+
+def run_checkpoint(sz: Sizes, dev, seed: int) -> dict:
+    """zamba2-7b's parameters (full width, ``ckpt_layers`` deep, random
+    from ``seed``) saved as 4 checkpoint steps, each step changing one
+    leaf as a trainer's step would, ``gc(keep=2)`` after step 3 and a
+    crash (``evict="random"``) at step 4's manifest publish.  ``recover``
+    must land on step 3, ``restore`` onto the card must give step 3's
+    tensors bit for bit, and a prefill with the restored weights (through
+    ``flash_attention`` and ``ssd_scan``) the in-memory step-3 model's
+    logits.  The same sequence under the Izraelevitz policy gives its
+    fence count."""
+    cfg = model_config(sz, n_layers=sz.ckpt_layers)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed + 2))
+    trees = [{n: p.detach() for n, p in params.named_parameters()}]
+    for s, name in ((2, "embed"), (3, "blocks.mamba.0.in_proj"),
+                    (4, "final_norm")):
+        t = dict(trees[-1])
+        g = torch.Generator(device=dev).manual_seed(seed + 10 * s)
+        t[name] = (t[name].float() - 1e-3 * torch.randn(
+            t[name].shape, generator=g, device=dev)).to(t[name].dtype)
+        trees.append(t)
+    n_bytes = sum(t.numel() * t.element_size() for t in trees[0].values())
+    stage, times = _timer(dev)
+    with tempfile.TemporaryDirectory() as d:
+        fences = {}
+        for policy in ("nvtraverse", "izraelevitz"):
+            root = Path(d) / policy
+            plan = CrashAtPublish("step_00000004/MANIFEST.json",
+                                  evict="random", seed=seed)
+            mgr = CheckpointManager(root, policy=policy, faults=plan,
+                                    device=dev)
+            tag = "" if policy == "nvtraverse" else "iz_"
+            for s, tree in enumerate(trees, 1):
+                try:
+                    stage(f"{tag}save_{s}", lambda: mgr.save(
+                        s, tree, aux={"step": s}))
+                except CrashPoint:
+                    break
+                if s == 3:
+                    stage(f"{tag}gc", lambda: mgr.gc(keep=2))
+            if plan.fired_at is None or s != 4:
+                raise AssertionError(f"{policy}: the crash did not fire "
+                                     f"at step 4's publish")
+            fences[policy] = mgr.io.counters.fences
+            if policy == "nvtraverse":
+                written = mgr.io.counters.bytes_fenced
+                on_disk = sum(p.stat().st_size for p in root.rglob("*")
+                              if p.is_file())
+                rec = CheckpointManager(root, device=dev)
+                man = stage("recover", rec.recover)
+                if man is None or man.step != 3:
+                    raise AssertionError(f"recovered step "
+                                         f"{man and man.step}, not 3")
+                man, restored = stage("restore", lambda: rec.restore(
+                    trees[2]))
+                for n, t in trees[2].items():
+                    r = restored[n]
+                    if r.device != t.device or not torch.equal(r, t):
+                        raise AssertionError(f"restored {n} differs from "
+                                             f"step 3's")
+            shutil.rmtree(root)
+    S = max(sz.prompt_lens)
+    toks = torch.as_tensor(np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab, size=(sz.model_batch, S)), device=dev)
+    logits = {}
+    with torch.no_grad():
+        for which, tree in (("memory", trees[2]), ("restored", restored)):
+            for n, p in params.named_parameters():
+                p.data = tree[n]
+            reset_launches()
+            logits[which], _ = model.prefill(params, {"tokens": toks}, S)
+            launches = {"flash_attention": flash_attention.launches,
+                        "ssd_scan": ssd_scan.launches}
+    n_inv = cfg.n_layers // cfg.shared_attn_every
+    if dev.type == "cuda" and launches != {"flash_attention": n_inv,
+                                           "ssd_scan": cfg.n_layers}:
+        raise AssertionError(f"restored prefill launches {launches}")
+    diff = max_err(logits["restored"], logits["memory"])
+    if not torch.isfinite(logits["restored"].float()).all():
+        raise AssertionError("restored prefill logits not finite")
+    if diff:         # only a GEMM that is not bit-reproducible allows it
+        _check_close("restored prefill", logits["restored"],
+                     logits["memory"], 2e-2)
+    save_s = sum(v for k, v in times.items() if k.startswith("save_"))
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+            "leaves": len(trees[0]), "param_bytes": n_bytes,
+            "bytes_written": written, "bytes_on_disk": on_disk,
+            "save_gb_per_s": written / save_s / 1e9,
+            "recovered_step": 3, "fences": fences,
+            "prefill_shape": list(toks.shape), "launches": launches,
+            "logits_max_abs_diff": diff, "bit_identical": diff == 0,
+            "stage_s": times,
+            "reduced": [f"layers {get_arch('zamba2-7b').n_layers} -> "
+                        f"{cfg.n_layers}: every save writes every byte "
+                        f"to the host's disk and digests it"]}
+
+
+def run_crash(dev) -> dict:
+    """Every crash scenario (``rebalance`` at 1 and 4 shards) swept at
+    every site under each eviction adversary on ``dev``; any failure
+    fails the phase."""
+    out = {}
+    for layer, (name, kw) in CRASH_SWEEPS.items():
+        t0 = time.perf_counter()
+        rep = sweep(SCENARIOS[name], evict_modes=("none", "random", "torn"),
+                    scenario_kw={"device": dev, **kw})
         if rep["n_sites"] != CRASH_SITES[layer]:
             raise AssertionError(f"{layer}: {rep['n_sites']} crash sites, "
                                  f"{CRASH_SITES[layer]} expected")
@@ -1550,14 +1979,39 @@ def main(argv=None) -> int:
          "check_s": time.perf_counter() - t0, "launches": launches,
          **checks})
 
-    # 3. serve
-    log({"phase": "serve", "ok": True, **run_serve(sz, dev)})
+    # 3. sharded: the map's stream over 4 shards on the card, held
+    # against the map phase, then a journaled live rebalance through a
+    # crash (the shards probe by chain walk: no kernel launches)
+    reset_launches()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sharded = run_sharded(sz, stream, out, dev)
+    live = run_live_rebalance(sz, dev, args.seed)
+    log({"phase": "sharded", "ok": True, **sharded, "live_rebalance": live,
+         "single_stage_s": out["times"],
+         "peak_bytes": torch.cuda.max_memory_allocated(dev) if on_card
+         else None, "phase_s": time.perf_counter() - t0,
+         "launches": {w.__name__: w.launches for w in WRAPPERS}})
 
-    # 4. model: the serving path, launch counts from 0 (inside run_model)
+    # 4. serve, then the same commits on a sharded, rebalancing log
+    t0 = time.perf_counter()
+    log({"phase": "serve", "ok": True, **run_serve(sz, dev),
+         "sharded_log": run_sharded_serve(sz, dev),
+         "phase_s": time.perf_counter() - t0})
+
+    # 5. model: the serving path, launch counts from 0 (inside run_model)
     model = run_model(sz, dev, args.seed)
     log({"phase": "model", "ok": True, "device": str(dev), **model})
 
-    # 5. checks: kernels against their plain versions, and consistency
+    # 6. checkpoint: zamba2-7b's parameters saved, crashed, recovered,
+    # restored onto the card and served by a prefill
+    t0 = time.perf_counter()
+    log({"phase": "checkpoint", "ok": True,
+         **run_checkpoint(sz, dev, args.seed),
+         "phase_s": time.perf_counter() - t0})
+
+    # 7. checks: kernels against their plain versions, and consistency
     t0 = time.perf_counter()
     fa_errs = check_flash(sz, dev)
     ssd_errs = check_ssd(sz, dev)
@@ -1566,7 +2020,7 @@ def main(argv=None) -> int:
          "ssd_scan": ssd_errs, "consistency": cons,
          "check_s": time.perf_counter() - t0})
 
-    # 6. ordered: the map's stream on the ordered map, its reads, and the
+    # 8. ordered: the map's stream on the ordered map, its reads, and the
     # journaled durable ordered map through a crash (no kernel launches)
     reset_launches()
     ordered = run_ordered(sz, stream, dev, args.seed)
@@ -1579,17 +2033,17 @@ def main(argv=None) -> int:
          "launches": {w.__name__: w.launches for w in WRAPPERS}})
     del ordered
 
-    # 7. migrate: journaled growth through a crash and a recovery
+    # 9. migrate: journaled growth through a crash and a recovery
     reset_launches()
     log({"phase": "migrate", "ok": True, **run_migrate(sz, dev, args.seed),
          "launches": {w.__name__: w.launches for w in WRAPPERS}})
 
-    # 8. crash: every ported crash scenario at every site x adversary
+    # 10. crash: every crash scenario at every site x adversary
     t0 = time.perf_counter()
     log({"phase": "crash", "ok": True, "scenarios": run_crash(dev),
          "crash_s": time.perf_counter() - t0})
 
-    # 9. timing
+    # 11. timing
     if not on_card:
         log({"phase": "timing", "skipped": "no card"})
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))

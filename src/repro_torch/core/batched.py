@@ -567,9 +567,10 @@ def delete_parallel(state: HashMapState, ks, n_buckets: int):
 
 
 def chain_stats(state: HashMapState, n_buckets: int):
-    """Max/mean chain length over every bucket.  The mean is the exact
-    integer total over ``n_buckets`` in float32 (the reference's float32
-    sum is exact while the total stays below 2**24)."""
+    """Max/mean chain length over every bucket.  The mean is the integer
+    total in float32 times the float32 reciprocal of ``n_buckets``, as XLA
+    computes the reference's ``mean`` (the float32 sum is exact while the
+    total stays below 2**24)."""
     dev = state.key.device
     cap = state.key.shape[0]
     node = _take(state.head, torch.arange(n_buckets, device=dev))
@@ -580,6 +581,7 @@ def chain_stats(state: HashMapState, n_buckets: int):
             break
         node = torch.where(act, _take(state.nxt, node), node)
         steps += act.to(torch.int32)
-    mean = steps.sum().to(torch.float32) / torch.tensor(
-        float(n_buckets), dtype=torch.float32, device=dev)
+    inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(
+        float(n_buckets), dtype=torch.float32)
+    mean = steps.sum().to(torch.float32) * inv.to(dev)
     return steps.max(), mean

@@ -1,14 +1,15 @@
-"""NVTrace metrics: a process-local registry of counters and fixed
+"""NVTrace metrics: a process-local registry of counters, gauges and fixed
 log-spaced-bucket histograms (the port's own copy of the parts of
 ``repro.obs.metrics`` it uses).
 
 The paper's whole argument is an *accounting* one — traversal persists
 nothing, so every microsecond and every fence concentrates at the
 destination — and this module is the ledger that argument is read from
-at runtime.  Two metric kinds, one registry:
+at runtime.  Three metric kinds, one registry:
 
 * :class:`Counter` — monotone event totals (records parsed, commits,
   migrations completed).
+* :class:`Gauge` — a last-written level (per-shard load, imbalance).
 * :class:`Histogram` — fixed log-spaced buckets with an explicit
   overflow bucket.  Quantiles are *deterministic and bounded*: for any
   recorded distribution, ``oracle <= quantile(q) <= oracle * growth``
@@ -43,6 +44,21 @@ class Counter:
     def inc(self, n: int = 1) -> None:
         if n < 0:
             raise ValueError("counters are monotone; inc(n >= 0)")
+        self.value += n
+
+
+class Gauge:
+    """Last-written level (may go up or down)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value: float = 0.0):
+        self.value = value
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
+
+    def inc(self, n: float = 1.0) -> None:
         self.value += n
 
 
@@ -127,7 +143,7 @@ class _Entry:
 class MetricsRegistry:
     """Name+labels → metric object; one kind per name.
 
-    ``counter``/``histogram`` are get-or-create and memoized,
+    ``counter``/``gauge``/``histogram`` are get-or-create and memoized,
     so call sites just ask for the metric every time — no wiring phase.
     """
 
@@ -153,6 +169,9 @@ class MetricsRegistry:
 
     def counter(self, name: str, **labels) -> Counter:
         return self._get("counter", name, labels, Counter)
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._get("gauge", name, labels, Gauge)
 
     def histogram(self, name: str, lo: float = 1.0, hi: float = 1e7,
                   growth: float = 1.25, **labels) -> Histogram:

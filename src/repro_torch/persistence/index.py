@@ -1,16 +1,19 @@
 """Set-membership index on the PyTorch durable map (port of
-``repro.persistence.index``, single-device backends).
+``repro.persistence.index``).
 
 One mixed ``update_parallel`` round keeps the index current (new members
 insert, removed members delete), one batched
 :func:`repro_torch.core.batched.lookup` answers membership (the journey:
-zero persistence work), and the map grows online through
-:func:`repro_torch.core.migrate.migrate_state` before a batch that would
-not fit, so the index never drops a member.
+zero persistence work), and the map grows online before a batch that
+would not fit, so the index never drops a member.  The map behind the
+index is the single-device engine, or with ``n_shards`` the
+bucket-range-sharded :class:`repro_torch.core.sharded.ShardedDurableMap`
+(``auto_rebalance`` makes it a
+:class:`repro_torch.core.rebalance.RebalancingShardedMap`).
 :class:`OrderedMembershipIndex` keeps the same set on the ordered map
 (:mod:`repro_torch.core.ordered`) and adds the ordered reads a retention
-policy wants.  The sharded and auto-rebalancing backends are not ported
-yet.
+policy wants.  :func:`live_step_index` is the checkpoint manager's
+"which steps must survive a trim?" index.
 """
 from __future__ import annotations
 
@@ -95,6 +98,82 @@ class _SingleBackend:
         return found.cpu().numpy()[:ks.size]
 
 
+class _ShardedBackend:
+    """The bucket-range-sharded map behind the index.  With
+    ``auto_rebalance`` it is a
+    :class:`~repro_torch.core.rebalance.RebalancingShardedMap`: skewed
+    member streams re-split the boundaries under live index traffic, and
+    growth finishes any in-flight re-split first."""
+
+    def __init__(self, capacity: int, n_buckets: int, n_shards: int,
+                 device, auto_rebalance: bool = False):
+        if auto_rebalance:
+            from ..core.rebalance import (AutoRebalancePolicy,
+                                          RebalancingShardedMap)
+            self.map = RebalancingShardedMap(
+                n_shards, capacity=capacity, n_buckets=n_buckets,
+                policy=AutoRebalancePolicy(), device=device)
+        else:
+            from ..core.sharded import ShardedDurableMap
+            self.map = ShardedDurableMap(
+                n_shards, capacity=capacity, n_buckets=n_buckets,
+                device=device)
+        self._live = auto_rebalance
+        self.migrations = 0
+
+    @property
+    def rebalances(self) -> int:
+        return self.map.rebalances_completed if self._live else 0
+
+    @property
+    def state(self):
+        return self.map.state
+
+    @property
+    def capacity(self) -> int:
+        return self.map.cap_local * self.map.n_shards
+
+    @property
+    def n_buckets(self) -> int:
+        return self.map.n_buckets
+
+    def fits(self, ks: np.ndarray) -> bool:
+        """Exact *per-shard* fit check: only keys without a node (live or
+        dead) allocate, each in its owner shard, so per-shard demand is
+        held against each shard's own free pool.  The probe only runs
+        when the batch-size upper bound does not already prove fitness.
+        Mid-rebalance the map's ``cursors`` include the un-drained
+        reserve and its ``fresh_demand`` counts a key whose only node is
+        dead in the frozen old map."""
+        cursors = self.map.cursors
+        if int(cursors.max()) + ks.size <= self.map.cap_local:
+            return True
+        demand = self.map.fresh_demand(np.unique(ks))
+        return bool((cursors + demand <= self.map.cap_local).all())
+
+    def grow_for(self, ks: np.ndarray) -> None:
+        """Online growth across the shards: migrate every chain to a map
+        with doubled per-shard pools and bucket count in bounded drain
+        rounds until the batch fits each owner shard."""
+        while not self.fits(ks):
+            cap = 2 * self.map.cap_local * self.map.n_shards
+            nb = 2 * self.map.n_buckets
+            if self._live:
+                self.map.grow_to(capacity=cap, n_buckets=nb)
+            else:
+                self.map, _ = self.map.migrate_to(capacity=cap,
+                                                  n_buckets=nb)
+            self.migrations += 1
+            get_registry().counter("dedup_migrations_total").inc()
+
+    def update(self, ops: np.ndarray, ks: np.ndarray):
+        return self.map.update(ops, ks, ks)
+
+    def lookup(self, ks: np.ndarray) -> np.ndarray:
+        found, _ = self.map.lookup(ks)
+        return found
+
+
 class MembershipIndex:
     """Growable set-membership index on the durable map.
 
@@ -102,32 +181,46 @@ class MembershipIndex:
     int32-keyed map as ``key + 1``; the rare out-of-range key falls back
     to a Python-set side table rather than wrapping.  :meth:`update`
     commits adds and removes in one mixed plan/commit round; a removed
-    key's node is resurrected if the key returns.
+    key's node is resurrected if the key returns.  A batch whose fresh
+    inserts would not fit (checked exactly, per owner shard on the
+    sharded backend) first grows the map online.
 
-    ``n_shards`` and ``auto_rebalance`` select backends that are not
-    ported yet and raise ``NotImplementedError``."""
+    ``n_shards`` runs the map bucket-range-sharded over that many shards
+    on ``device``; ``auto_rebalance`` (sharded only, ignored without
+    ``n_shards`` as in the reference) lets skewed member
+    streams re-split the shard boundaries under live index traffic
+    (:attr:`rebalances` counts completions)."""
 
     def __init__(self, capacity: int = 4096, n_buckets: int = N_BUCKETS,
                  n_shards: Optional[int] = None,
                  auto_rebalance: bool = False, device=None):
-        if n_shards is not None or auto_rebalance:
-            raise NotImplementedError("later slice")
         self.n_buckets = n_buckets
         self.capacity = capacity
-        self._backend = _SingleBackend(capacity, n_buckets, device)
+        self.n_shards = n_shards
+        if n_shards is None:
+            self._backend = _SingleBackend(capacity, n_buckets, device)
+        else:
+            self._backend = _ShardedBackend(capacity, n_buckets, n_shards,
+                                            device, auto_rebalance)
         self._members: set = set()               # live in-range members
         self._oob: set = set()     # members outside the int32 key space
         self.last_stats = None
 
     @property
     def state(self):
-        """The backing ``HashMapState``."""
+        """The backing map state (``HashMapState`` or ``ShardedState``)."""
         return self._backend.state
 
     @property
     def migrations(self) -> int:
         """Online growth migrations the backend has run so far."""
         return self._backend.migrations
+
+    @property
+    def rebalances(self) -> int:
+        """Live cross-shard re-splits completed (0 unless the backend was
+        opted in with ``auto_rebalance``)."""
+        return getattr(self._backend, "rebalances", 0)
 
     @staticmethod
     def _in_range(k: int) -> bool:
@@ -207,6 +300,8 @@ class OrderedMembershipIndex:
     fall back to a side set, which the ordered reads do not cover.
     Growth doubles the node pool and rebuilds it from the live member set
     (:attr:`migrations` counts the rebuilds)."""
+
+    rebalances = 0      # single-device pool: never re-splits
 
     def __init__(self, capacity: int = 4096, max_level: int = 8,
                  device=None):
@@ -327,3 +422,22 @@ class OrderedMembershipIndex:
         # the largest member to evict (inclusive)
         horizon = int(tk[0])
         return self.range_members(ordered.KEY_MIN, horizon - 1, n_evict)
+
+
+def live_step_index(manifests, keep_files: Iterable[str],
+                    idx: Optional[MembershipIndex] = None,
+                    device=None) -> MembershipIndex:
+    """Index of every step that must survive a trim pass: steps with a
+    surviving manifest plus the owner steps of every delta-referenced
+    file.  A given ``idx`` is updated in place (newly live steps enter,
+    since-died steps leave, in one mixed round) instead of rebuilt; a new
+    one is made on ``device``."""
+    steps = set()
+    for man in manifests:
+        steps.add(man.step)
+    for rel in keep_files:
+        steps.add(owner_step(rel))
+    if idx is None:
+        idx = MembershipIndex(device=device)
+    idx.update(steps, idx.members - steps)
+    return idx

@@ -9,15 +9,22 @@ file, ``fence`` moves all marked files to durable storage, and
 critical phase).  A crash loses the staging area, except for a chosen
 subset of staged files that may have been "evicted" to disk whole or, in
 the ``torn`` mode, torn.
+
+:class:`Manifest` is one link of the checkpoint chain: its ``prev`` field
+is the parent pointer, and its publish (the rename of
+``step_XXXXXXXX/MANIFEST.json``) commits the step.  A step directory
+without a committed manifest is a marked-but-disconnected node that
+recovery trims.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import os
 import shutil
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 
@@ -170,3 +177,32 @@ class StagedIO:
 
 def digest(data: bytes) -> str:
     return hashlib.sha1(data).hexdigest()
+
+
+@dataclasses.dataclass
+class Manifest:
+    step: int
+    prev: Optional[int]
+    files: Dict[str, dict]          # leaf path -> {"file","digest","owner"}
+    aux: dict                       # data cursor, rng, ...
+
+    def to_bytes(self) -> bytes:
+        return json.dumps(dataclasses.asdict(self), sort_keys=True).encode()
+
+    @staticmethod
+    def from_bytes(b: bytes) -> "Manifest":
+        d = json.loads(b.decode())
+        return Manifest(step=d["step"], prev=d["prev"], files=d["files"],
+                        aux=d.get("aux", {}))
+
+
+def manifest_rel(step: int) -> str:
+    return f"step_{step:08d}/MANIFEST.json"
+
+
+def list_step_dirs(root: Path) -> Iterable[int]:
+    for p in sorted(Path(root).glob("step_*")):
+        try:
+            yield int(p.name.split("_")[1])
+        except (IndexError, ValueError):
+            continue

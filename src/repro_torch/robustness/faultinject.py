@@ -20,10 +20,14 @@ no acknowledged op lost, prefix durability, and oracle equivalence (an
 independent host-side replay of the durable bytes matches the recovered
 object).
 
-Four scenarios (:data:`SCENARIOS`): the serving
+Six scenarios (:data:`SCENARIOS`), the reference's: the serving
 :class:`~repro_torch.serving.engine.RequestLog` (``log``), two such logs
-live on one dir (``log2``), the :class:`~repro_torch.core.migrate.
-MigratingMap` growth window (``migrate``) and the
+live on one dir (``log2``), the :class:`~repro_torch.persistence.
+checkpoint.CheckpointManager` save/gc chain (``checkpoint``), the
+:class:`~repro_torch.core.migrate.MigratingMap` growth window
+(``migrate``), the :class:`~repro_torch.core.rebalance.
+RebalancingShardedMap` re-split window (``rebalance``, with ``n_shards``
+through ``scenario_kw``) and the
 :class:`~repro_torch.core.ordered.DurableOrderedMap` batch journal
 (``ordered``).  Each takes a ``device`` (through ``scenario_kw``) for the
 maps it builds; ``None`` is the card.  Each visits the same
@@ -404,6 +408,59 @@ class ConcurrentLogScenario(RequestLogScenario):
             "took_effect answers diverge between concurrent recoveries"
 
 
+class CheckpointScenario:
+    """Checkpoint save/gc chain.  The manifest publish rename is the only
+    commit point: after any crash, recovery must land on exactly the last
+    acked step, restore its exact tree (delta references included), and
+    never resurrect an unpublished commit."""
+
+    layer = "checkpoint"
+    STEPS = (1, 2, 3, 4)
+    GC_AT = 3               # gc(keep=2) right after saving step 3
+
+    def __init__(self, root, plan: CrashPlan, device=None):
+        self.root = Path(root)
+        self.plan = plan
+        self.device = device
+        self.acked: List[int] = []
+
+    @staticmethod
+    def _tree(step: int) -> dict:
+        # "w" changes every step; "b" settles at step 2, so steps 3+
+        # delta-reference step 2's copy (gc must keep it alive), while
+        # step 1 really dies at gc time (a trim crash site)
+        return {"w": np.arange(6, dtype=np.float64).reshape(2, 3) + step,
+                "b": np.full(3, float(min(step, 2)))}
+
+    def _manager(self, **kw):
+        from ..persistence.checkpoint import CheckpointManager
+        return CheckpointManager(self.root, device=self.device, **kw)
+
+    def run(self) -> None:
+        mgr = self._manager(faults=self.plan)
+        for s in self.STEPS:
+            mgr.save(s, self._tree(s), aux={"step": s})
+            self.acked.append(s)
+            if s == self.GC_AT:
+                mgr.gc(keep=2)
+
+    def check(self) -> None:
+        man = self._manager().recover()
+        if not self.acked:
+            assert man is None, \
+                "a never-acked save resurrected after recovery"
+            return
+        assert man is not None, "all acked checkpoints lost"
+        assert man.step == self.acked[-1], \
+            f"recovered head {man.step} != last acked {self.acked[-1]}"
+        man2, tree = self._manager().restore(self._tree(0))
+        assert man2.step == self.acked[-1]
+        want = self._tree(man2.step)
+        for k in want:
+            assert np.array_equal(tree[k].cpu().numpy(), want[k]), \
+                f"restored leaf {k} differs"
+
+
 class MigrateScenario:
     """Map growth window: the journaled rounds are the durable surface
     (steady-state batches outside a migration are volatile by design).
@@ -467,6 +524,76 @@ class MigrateScenario:
             m2.run_migration()
             assert _live(m2.items()) == want, \
                 "finishing the recovered migration changed content"
+
+
+class RebalanceScenario:
+    """Sharded map re-split window: the journaled rounds are the durable
+    surface.  ``n_shards`` of 1 re-splits onto the same single range (a
+    compaction); more shards skew shard 0 down to 2 buckets."""
+
+    layer = "rebalance"
+
+    def __init__(self, root, plan: CrashPlan, n_shards: int = 1,
+                 device=None):
+        self.root = Path(root)
+        self.plan = plan
+        self.n_shards = n_shards
+        self.device = device
+
+    def run(self) -> None:
+        from ..core.rebalance import RebalancingShardedMap
+        from ..core import batched as B
+        rm = RebalancingShardedMap(self.n_shards, capacity=64,
+                                   n_buckets=8, root=self.root,
+                                   buckets_per_round=2,
+                                   rounds_per_update=1, device=self.device)
+        self.plan.attach(rm.io)
+        ks = np.arange(1, 21, dtype=np.int32)
+        rm.insert(ks, ks * 7)
+        rm.delete(np.asarray([4, 9], np.int32))
+        nb = rm.n_buckets
+        if self.n_shards == 1:
+            splits = (0, nb)          # a compaction re-split
+        else:
+            step = max(1, (nb - 2) // (self.n_shards - 1))
+            splits = (0, *[2 + i * step
+                           for i in range(self.n_shards - 1)], nb)
+        rm.start_rebalance(splits)
+        rm.update(np.asarray([B.OP_DELETE, B.OP_INSERT, B.OP_INSERT],
+                             np.int32),
+                  np.asarray([7, 4, 40], np.int32),
+                  np.asarray([0, 444, 400], np.int32))
+        while rm.rebalancing:
+            rm.rebalance_round()
+
+    def check(self) -> None:
+        from ..core.migrate import items_of_host
+        from ..core.rebalance import RebalancingShardedMap, RebalanceState
+        from ..core.sharded import shard_host
+        out = _journal_invariants(self.root, self.plan, "reb")
+        if out is None:
+            return       # recover() requires a published journal
+        _, hdr_bytes, snap, rounds = out
+        hdr = RebalanceState.from_bytes(hdr_bytes)
+        acked_headers = _acked_publishes(
+            self.plan, lambda t: t.endswith("state.json"))
+        if acked_headers >= 2:
+            assert hdr.phase == "done", "acked done-header lost"
+        m2 = RebalancingShardedMap.recover(self.root, self.n_shards,
+                                           device=self.device)
+        merged: dict = {}
+        for s in range(self.n_shards):
+            merged.update(items_of_host(shard_host(snap, s)))
+        new_items: dict = {}
+        _replay_rounds(new_items, rounds)
+        merged.update(new_items)
+        want = _live(merged)
+        assert _live(m2.items()) == want, \
+            "recovered live content diverges from the journal oracle"
+        if m2.rebalancing:
+            m2.run_rebalance()
+            assert _live(m2.items()) == want, \
+                "finishing the recovered rebalance changed content"
 
 
 class OrderedScenario:
@@ -624,7 +751,9 @@ class OrderedScenario:
 SCENARIOS = {
     "log": RequestLogScenario,
     "log2": ConcurrentLogScenario,
+    "checkpoint": CheckpointScenario,
     "migrate": MigrateScenario,
+    "rebalance": RebalanceScenario,
     "ordered": OrderedScenario,
 }
 

@@ -13,8 +13,9 @@ so a log directory written by either reopens in the other.
 
 :class:`ServeEngine` serves batches of prompts greedily through a model's
 prefill and decode steps and commits each batch's results to the log.
-The dedup set lives on the hash map or, with ``ordered_dedup``, on the
-ordered map; the sharded backends are not ported yet.
+The dedup set lives on the hash map, on the bucket-range-sharded map
+(``shards``, optionally re-split under live traffic with ``rebalance``)
+or, with ``ordered_dedup``, on the ordered map.
 """
 from __future__ import annotations
 
@@ -72,21 +73,28 @@ class RequestLog:
         """``capacity`` is only the *seed* pool size of the dedup map: under
         live traffic it grows itself (:attr:`dedup_migrations` counts the
         growth events).  ``device`` places the dedup map (``None`` = the
-        card).  ``shards`` and ``rebalance`` select backends that are not
-        ported yet and raise ``NotImplementedError``.
+        card).  ``shards`` backs the dedup index with the
+        bucket-range-sharded map
+        (:class:`~repro_torch.core.sharded.ShardedDurableMap`) over that
+        many shards, with the same exactly-once semantics; ``rebalance``
+        (sharded only) additionally lets skewed rid streams re-split the
+        shard boundaries under live traffic
+        (:class:`~repro_torch.core.rebalance.RebalancingShardedMap`;
+        :attr:`dedup_rebalances` counts completions).
 
         ``ordered_dedup`` keeps the committed rids on the ordered map
         (:class:`~repro_torch.persistence.index.OrderedMembershipIndex`)
         instead of the hash map, and :meth:`expired_rids` becomes an
         ordered-by-rid horizon trim: the same rids for the monotone rid
-        streams the engine issues.
+        streams the engine hands out.  It excludes ``shards`` (the ordered
+        pool is not sharded).
 
         Counters and histograms go to ``registry`` (default: the
         process-wide metrics registry); ``tracer`` records one span per
         commit/snapshot phase, charged with the persistence instructions
         it executed (a :class:`PersistListener` on ``io``)."""
-        if shards is not None or rebalance:
-            raise NotImplementedError("later slice")
+        if ordered_dedup and shards is not None:
+            raise ValueError("ordered_dedup is not sharded (no shards)")
         self.io = StagedIO(Path(root), seed=seed)
         self.metrics = registry if registry is not None else get_registry()
         self.tracer = Tracer(registry=self.metrics)
@@ -98,6 +106,8 @@ class RequestLog:
             self._dedup = OrderedMembershipIndex(capacity, device=device)
         else:
             self._dedup = MembershipIndex(capacity, n_buckets=256,
+                                          n_shards=shards,
+                                          auto_rebalance=rebalance,
                                           device=device)
         self._folded: set = set()  # log filenames already in the index
         self._torn: dict = {}      # torn filename -> (size, mtime_ns) seen
@@ -375,6 +385,12 @@ class RequestLog:
         eviction ``retain`` window is mis-sized)."""
         return self._dedup.migrations
 
+    @property
+    def dedup_rebalances(self) -> int:
+        """Live cross-shard re-splits the dedup map has completed (only
+        nonzero when the log was opened with ``rebalance=True``)."""
+        return self._dedup.rebalances
+
     def is_committed(self, rids: Sequence[int]) -> np.ndarray:
         """Batched exactly-once probe over the dedup map (bool[len(rids)]).
         Arbitrary-int rids are fine: the index stores int32-representable
@@ -567,9 +583,10 @@ class ServeEngine:
         holds the model's parameters and the log's dedup map.
         ``ordered_dedup`` keeps the dedup set on the ordered map, so
         retention eviction is an ordered-by-rid horizon trim (see
-        :class:`RequestLog`).  ``log_shards`` and ``log_rebalance`` select
-        request-log backends that are not ported yet and raise
-        ``NotImplementedError``.  Counters and the per-request latency
+        :class:`RequestLog`).  ``log_shards`` backs the log's dedup map
+        with the bucket-range-sharded map over that many shards, and
+        ``log_rebalance`` lets it re-split its shard boundaries under
+        live traffic.  Counters and the per-request latency
         histogram (``serve_request_us``) go to the process registry;
         :attr:`step_times` keeps each batch's prefill and decode-step
         seconds, each ended by a device sync."""

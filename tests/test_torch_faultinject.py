@@ -2,7 +2,13 @@
 the JAX package's: each port scenario visits the same ``(kind, target)``
 crash sites as its JAX twin, and sweeps under the ``none``, ``random`` and
 ``torn`` eviction adversaries recover every invariant (no acked op lost,
-prefix durability, oracle equivalence) on the CPU."""
+prefix durability, oracle equivalence) on the CPU.  The ``rebalance``
+scenario at 4 shards needs four JAX devices, so its reference sites come
+from a subprocess with forced host devices (this file, run as a
+script)."""
+import json
+import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -14,7 +20,8 @@ from repro_torch.persistence.manifest import StagedIO
 from repro_torch.robustness import KINDS, faultinject as TF
 
 CPU = {"device": "cpu"}
-LAYERS = ("log", "log2", "migrate", "ordered")
+LAYERS = ("log", "log2", "checkpoint", "migrate", "rebalance", "ordered")
+REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import CRASH_SITES  # noqa: E402
 
@@ -32,8 +39,38 @@ def test_port_scenario_visits_the_jax_scenarios_sites(layer):
     assert {s.kind for s in port} <= set(KINDS)
 
 
+def jax_sites_at_4_shards():
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO / "src")] + ([os.environ["PYTHONPATH"]]
+                                          if os.environ.get("PYTHONPATH")
+                                          else [])))
+    proc = subprocess.run([sys.executable, __file__], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return [tuple(x) for x in json.loads(proc.stdout.splitlines()[-1])]
+
+
+def test_rebalance_at_4_shards_visits_the_jax_scenarios_sites():
+    kw = {"device": "cpu", "n_shards": 4}
+    port = sites(TF.enumerate_sites(TF.SCENARIOS["rebalance"], kw))
+    assert port == jax_sites_at_4_shards()
+    assert len(port) == CRASH_SITES["rebalance4"]   # the card run's pin
+
+
+def test_rebalance_sweep_at_4_shards_recovers_every_invariant():
+    rep = TF.sweep(TF.SCENARIOS["rebalance"],
+                   evict_modes=("none", "random", "torn"),
+                   scenario_kw={"device": "cpu", "n_shards": 4})
+    assert rep["failures"] == [], rep["failures"]
+    assert rep["runs"] == 3 * rep["n_sites"]
+
+
 def test_registry_holds_the_four_ported_scenarios():
-    assert sorted(TF.SCENARIOS) == sorted(LAYERS)
+    """Named for the slice that ported four; the registry now holds all
+    six of the reference's scenarios."""
+    assert sorted(TF.SCENARIOS) == sorted(LAYERS) == sorted(JF.SCENARIOS)
     assert KINDS == ("flush", "fence", "publish", "trim")
     assert {s.kind for s in TF.enumerate_sites(TF.SCENARIOS["ordered"],
                                                CPU)} == set(KINDS)
@@ -46,7 +83,7 @@ def test_sweep_at_every_site_recovers_every_invariant(layer, evict):
                    scenario_kw=CPU)
     assert rep["failures"] == [], rep["failures"]
     assert rep["tested_sites"] == list(range(rep["n_sites"]))
-    assert rep["runs"] == rep["n_sites"] > 20
+    assert rep["runs"] == rep["n_sites"] == CRASH_SITES[layer]
 
 
 def test_crash_plan_fires_before_the_site_and_goes_inert(tmp_path):
@@ -91,3 +128,8 @@ def test_replay_and_live_helpers_match_jax():
     TF._replay_rounds(a, rounds)
     JF._replay_rounds(b, rounds)
     assert a == b and TF._live(a) == JF._live(b)
+
+
+if __name__ == "__main__":
+    print(json.dumps(sites(JF.enumerate_sites(
+        JF.SCENARIOS["rebalance"], {"n_shards": 4}))))

@@ -126,8 +126,30 @@ def test_pad_pow2_pads_with_the_last_op():
 
 @pytest.mark.parametrize("kw", [{"n_shards": 2}, {"auto_rebalance": True}])
 def test_unported_backends_raise(kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        MembershipIndex(capacity=8, device="cpu", **kw)
+    """The backend options once unported now build their backend: the
+    sharded map with ``n_shards``; ``auto_rebalance`` alone keeps the
+    single-device map, as in the reference.  Either grows past its seed
+    pool and answers like a set."""
+    from repro.persistence.index import MembershipIndex as JaxIndex
+    idx = MembershipIndex(capacity=8, device="cpu", **kw)
+    keys = list(range(1, 40))
+    idx.add(keys)
+    idx.remove(keys[::3])
+    want = set(keys) - set(keys[::3])
+    assert idx.contains(range(50)).tolist() == [k in want
+                                                for k in range(50)]
+    assert idx.migrations >= 1 and idx.rebalances == 0
+    sharded = "n_shards" in kw
+    assert type(idx._backend).__name__ == \
+        ("_ShardedBackend" if sharded else "_SingleBackend")
+    if not sharded:
+        jidx = JaxIndex(capacity=8, **kw)
+        jidx.add(keys)
+        jidx.remove(keys[::3])
+        for f in jidx.state._fields:
+            np.testing.assert_array_equal(
+                np.asarray(getattr(jidx.state, f)),
+                getattr(idx.state, f).numpy(), err_msg=f)
 
 
 def test_growth_first_call_events_match_jax():

@@ -91,9 +91,20 @@ def test_one_packages_log_is_finished_by_the_other(env, tmp_path, first,
 
 
 def test_unported_log_backends_raise(env, tmp_path):
-    for kw in ({"log_shards": 2}, {"log_rebalance": True}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            _port(env, tmp_path, **kw)
+    """The log backends once unported now serve: a sharded and a
+    sharded, rebalancing dedup map commit the JAX engine's tokens and
+    keep exactly-once through a crash.  Params on another device still
+    raise."""
+    want = _jax(env, tmp_path / "jax").serve(env["requests"], n_new=N_NEW)
+    for i, kw in enumerate(({"log_shards": 2},
+                            {"log_shards": 4, "log_rebalance": True})):
+        d = tmp_path / f"port{i}"
+        first = _port(env, d, **kw).serve(env["requests"], n_new=N_NEW,
+                                          crash_after_batches=1)
+        again = _port(env, d, **kw)
+        assert again.took_effect(sorted(first)).all()
+        assert again.serve(env["requests"], n_new=N_NEW) == want
+        assert len(list(d.glob("log_*.json"))) == 4
     with pytest.raises(ValueError, match="params live on"):
         ServeEngine(env["tm"], env["tp"], max_len=8, log_dir=tmp_path,
                     device="meta")

@@ -252,8 +252,18 @@ def test_restart_trim_retries_and_heals(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kw", [{"shards": 2}, {"rebalance": True}])
 def test_unported_backends_raise(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Log(tmp_path, **kw)
+    """The backends once unported now open: the same history on a sharded
+    (or, with ``rebalance`` alone, the reference's single-device) dedup
+    map commits, evicts and reopens with the JAX log's answers."""
+    n = _history(Log(tmp_path / "port", capacity=16, **kw))
+    _history(JaxLog(tmp_path / "jax", capacity=16))
+    jl = JaxLog(tmp_path / "jax", capacity=16)
+    tl = Log(tmp_path / "port", capacity=16, **kw)
+    assert jl.committed() == tl.committed()
+    rids = list(range(-2, n + 3)) + [2**33]
+    np.testing.assert_array_equal(jl.is_committed(rids),
+                                  tl.is_committed(rids))
+    assert tl.dedup_migrations >= 1 and tl.dedup_rebalances == 0
 
 
 def _history(log):
@@ -447,3 +457,26 @@ def test_private_registry_gets_the_logs_counters(tmp_path):
                                                                3: [3]}
     assert again.metrics.counter(
         "serving_records_parsed_total").value == 3
+
+
+@pytest.mark.parametrize("kw", [{"shards": 4},
+                                {"shards": 4, "rebalance": True}])
+def test_sharded_log_crash_restart_matches_jax(tmp_path, kw):
+    """A log whose dedup map is sharded over four shards (and may re-split
+    them live) grows, snapshots, crashes with staged bytes evicted, and
+    reopens with the answers of the JAX log on the same history."""
+    log = Log(tmp_path / "port", capacity=16, **kw)
+    n = _history(log)
+    log.commit({n: [n]}, evict=log.expired_rids(20))
+    log.io.crash(evict="random")
+    jl = JaxLog(tmp_path / "jax", capacity=16)
+    _history(jl)
+    jl.commit({n: [n]}, evict=jl.expired_rids(20))
+    tl = Log(tmp_path / "port", capacity=16, **kw)
+    assert tl.committed() == JaxLog(tmp_path / "jax").committed()
+    rids = list(range(-2, n + 3)) + [2**33]
+    np.testing.assert_array_equal(tl.took_effect(rids),
+                                  jl.took_effect(rids))
+    assert log.dedup_migrations >= 1
+    assert tl._dedup.n_shards == 4
+    assert tl.dedup_rebalances == log.dedup_rebalances == 0

@@ -117,6 +117,35 @@ def test_crash_phase_sweeps_every_scenario_on_the_cpu():
 def test_serve_phase_holds_exactly_once_on_the_cpu():
     got = chip_smoke.run_serve(chip_smoke.SMALL, "cpu")
     assert got["dedup_migrations"] >= 1 and got["evicted"] > 0
+    sharded = chip_smoke.run_sharded_serve(chip_smoke.SMALL, "cpu")
+    assert sharded["shards"] == 4 and sharded["dedup_migrations"] >= 1
+    assert sharded["kept"] + sharded["evicted"] == sharded["rids"]
+
+
+def test_sharded_phase_matches_the_map_phase_on_the_cpu():
+    """chip_smoke.py's sharded phase at small size: the 4-shard map holds
+    the map phase's results (its own checks raise otherwise), and the
+    live rebalance triggers, crashes at its 5th journaled round and
+    recovers to the twin."""
+    sz, cpu = chip_smoke.SMALL, torch.device("cpu")
+    stream = chip_smoke.make_stream(sz, seed=3)
+    out = chip_smoke.run_map(sz, stream, cpu)
+    got = chip_smoke.run_sharded(sz, stream, out, cpu)
+    assert got["splits"] == [i * sz.n_buckets // 4 for i in range(5)]
+    assert (got["flushes"], got["fences"]) == (int(out["state"].flushes),
+                                               int(out["state"].fences))
+    live = chip_smoke.run_live_rebalance(sz, cpu, 3)
+    assert live["rebalances"] >= 1 and live["trigger_imbalance"] > 1.3
+    assert live["crash"]["site"]["target"] == "reb_0001/round_000004.npz"
+    assert live["splits"][1] < sz.n_buckets // 4     # the hot range shrank
+
+
+def test_checkpoint_phase_restores_step_3_on_the_cpu():
+    got = chip_smoke.run_checkpoint(chip_smoke.SMALL,
+                                    torch.device("cpu"), 3)
+    assert got["recovered_step"] == 3 and got["bit_identical"]
+    assert got["fences"]["nvtraverse"] == 4          # one a save
+    assert got["fences"]["izraelevitz"] == got["leaves"] + 3 + 4
 
 
 _IMPORT_ALL = """
@@ -136,9 +165,11 @@ want = {"repro_torch.kernels._build", "repro_torch.models.model",
         "repro_torch.kernels.flash_attention.kernel",
         "repro_torch.kernels.ssd_scan.kernel", "repro_torch.configs.registry",
         "repro_torch.core.ordered", "repro_torch.core.skiplist",
-        "repro_torch.robustness", "repro_torch.robustness.faultinject"}
+        "repro_torch.robustness", "repro_torch.robustness.faultinject",
+        "repro_torch.core.sharded", "repro_torch.core.rebalance",
+        "repro_torch.launch.mesh", "repro_torch.persistence.checkpoint"}
 print(sorted(want - set(names)))
-sys.exit(1 if bad or len(names) < 41 or want - set(names) else 0)
+sys.exit(1 if bad or len(names) < 45 or want - set(names) else 0)
 """
 
 
