@@ -5,7 +5,7 @@ serving path on the card.
     python3 chip_smoke.py                 # on the card, at full size
     python3 chip_smoke.py --device cpu    # rehearsal on the host, small
 
-Eleven phases, each of which fails the run when it fails:
+Twelve phases, each of which fails the run when it fails:
 
 1. ``build``  -- compile the three hand-written kernels from ``src/`` with
    nvcc, all at once, and report each compiled function's registers and
@@ -92,7 +92,28 @@ Eleven phases, each of which fails the run when it fails:
    ``ordered``) at every site under the ``none``, ``random`` and ``torn``
    adversaries, with the site counts the CPU tests pin; any failure fails
    the run;
-11. ``timing`` -- each kernel's time (CUDA events), its plain version's,
+11. ``paper`` -- the paper's transformation itself, on the host's
+   instruction-level machine (``PMem`` is numpy by design: it runs one
+   word at a time), bridged to the card's engines.  The count sweep of
+   ``benchmarks/paper_figures.py:run_workload`` (the list at 256 and
+   4096 keys, 150 ops; hash, bst and skiplist at 512, 100 ops; 20%
+   updates) under the volatile, Izraelevitz and NVTraverse policies, with
+   ``tests/test_paper_claims.py``'s bounds (NVTraverse: no traverse
+   flush or fence, under 4 fences an op on the list; Izraelevitz at 4096:
+   more than 0.8 x 4096 x 0.9); every structure interleaved under
+   NVTraverse and Izraelevitz, crashed at each quarter of its steps under
+   the ``none``, ``random`` and ``all`` adversaries, recovered and
+   durably linearizable (the volatile list's history must be rejected);
+   each crash scenario traced on the card with its pinned event count
+   and no finding of the trace checker; 2^12 keys through the
+   instruction-level ``HashTable`` (3 fences an op) and the card map's
+   ``update_parallel`` (2), the card map's tiles probed by ``nvt_probe``
+   against the ``HashTable``; 8 rounds of 2^14 concurrent ops through
+   ``update_parallel`` judged by ``check_linearizable``; a
+   ``DurableOrderedMap`` on the card crashed at each of 4 batches of
+   2^12 ops, every recovered prefix durably linearizable; and
+   ``SkipList.rebuild_index`` over 2^12 keys against ``build_towers``;
+12. ``timing`` -- each kernel's time (CUDA events), its plain version's,
    one PyTorch library call's where one computes the same function, and
    its bound from the bytes it must move and the operations it must do;
    ``nvt_probe`` also with L2 flushed before each launch, and in turns
@@ -107,8 +128,10 @@ and on ``tiny(zamba2-7b)``) it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -118,12 +141,14 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.analysis import check_events, trace_scenario  # noqa: E402
 from repro_torch.configs.registry import get_arch, tiny  # noqa: E402
 from repro_torch.core import batched as B  # noqa: E402
 from repro_torch.core import ordered as O  # noqa: E402
@@ -214,6 +239,19 @@ class Sizes:
     reb_crash_round: int = 4     # the 5th journaled round's publish
     # checkpoint phase: zamba2-7b at full width, cut in depth
     ckpt_layers: int = 12
+    # paper phase: run_workload's sweep (tests/test_paper_claims.py's
+    # sizes), then the bridges from the instruction level to the card
+    paper_list_sizes: tuple = (256, 4096)
+    paper_list_ops: int = 150
+    paper_size: int = 512        # hash, bst and skiplist
+    paper_ops: int = 100
+    bridge_keys: int = 2**12     # the fence bridge and the towers
+    bridge_buckets: int = 2**10
+    hist_rounds: int = 8         # the card map's concurrent history
+    hist_ops: int = 2**14
+    hist_key_hi: int = 2**15
+    prefix_batches: int = 4      # DurableOrderedMap crash prefixes
+    prefix_ops: int = 2**12
 
 
 FULL = Sizes()
@@ -226,7 +264,11 @@ SMALL = Sizes(capacity=2**12, n_buckets=2**8, prefill=2**10,
               dur_keys=2**10, dur_batch=2**6, mig_capacity=2**12,
               mig_buckets=2**9, mig_prefill=3 * 2**10, mig_fresh=2**10,
               mig_bpr=2**5, mig_round_ops=2**6, reb_prefill=2**9,
-              reb_round_ops=2**8, reb_bpr=2**3, ckpt_layers=7)
+              reb_round_ops=2**8, reb_bpr=2**3, ckpt_layers=7,
+              paper_list_sizes=(64, 256), paper_list_ops=60,
+              paper_size=128, paper_ops=60, bridge_keys=2**8,
+              bridge_buckets=2**5, hist_ops=2**8, hist_key_hi=2**9,
+              prefix_ops=2**6)
 # crash sites of each ported scenario (tests/test_torch_faultinject.py
 # pins the same counts against the JAX scenarios)
 CRASH_SITES = {"log": 29, "log2": 31, "checkpoint": 19, "migrate": 25,
@@ -1632,6 +1674,435 @@ def run_crash(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# paper phase: the paper's transformation on the host's instruction-     #
+# level machine, its checkers and trace analysis, bridged to the card's  #
+# engines                                                                #
+# --------------------------------------------------------------------- #
+PAPER_MODULES = ("pmem", "policies", "traversal", "harris_list",
+                 "hash_table", "bst", "skiplist", "queue", "stack",
+                 "scheduler", "linearizability")
+
+
+def core_modules(package: str = "repro_torch") -> SimpleNamespace:
+    """The instruction-level modules of ``package`` (this script only ever
+    loads the port's; the CPU tests hand the functions below the
+    reference's to hold them against it)."""
+    return SimpleNamespace(**{m: importlib.import_module(f"{package}.core.{m}")
+                              for m in PAPER_MODULES})
+
+
+PORT_CORE = core_modules()
+POLICY_NAMES = ("volatile", "izraelevitz", "nvtraverse")
+# trace events of each scenario of the crash phase (tests/
+# test_torch_analysis.py holds the same streams against the JAX scenarios)
+TRACE_EVENTS = {"log": 38, "log2": 41, "checkpoint": 29, "migrate": 34,
+                "rebalance": 30, "rebalance4": 30, "ordered": 32}
+# the crash points of the instruction-level histories: the same seeded
+# interleaving crashed at a quarter, half and three quarters of its steps
+HIST_CRASH_QUARTERS = (1, 2, 3)
+HIST_SEEDS = (0, 1)
+# a volatile-policy list history the checker must reject (no flush at
+# all: completed updates are lost at the crash)
+VOLATILE_LOSS = {"seed": 0, "crash_at": 248, "evict": "none"}
+
+
+def paper_workload(structure: str, policies, size: int, n_ops: int,
+                   update_pct: int = 20, seed: int = 0,
+                   core=PORT_CORE) -> dict:
+    """``benchmarks/paper_figures.py:run_workload``'s workload under each
+    of ``policies``: an ``nvtraverse`` prefill of ``size`` keys out of
+    ``2 * size``, then ``n_ops`` ops, ``update_pct``% split between
+    inserts and deletes, the rest finds.  The prefill is built once and
+    each policy runs on a copy of it (memory, structure and the seeded
+    generator), which is what a fresh prefill would give.  Returns, per
+    policy, the instruction counts per op and the host seconds of the
+    measured ops."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    mem = core.pmem.PMem(1 << 19)
+    ds = {"list": lambda: core.harris_list.HarrisList(mem),
+          "hash": lambda: core.hash_table.HashTable(mem, n_buckets=64),
+          "bst": lambda: core.bst.ExternalBST(mem),
+          "skiplist": lambda: core.skiplist.SkipList(mem)}[structure]()
+    run, get = core.traversal.run_operation, core.policies.get_policy
+    for k in rng.permutation(2 * size)[:size]:
+        run(ds, get("nvtraverse"), "insert", (int(k), 1))
+    mem.persist_all()
+    mem.counters.reset()
+    prefill_s = time.perf_counter() - t0
+    out = {}
+    for policy in policies:
+        rng_p, ds_p = copy.deepcopy((rng, ds))
+        pol = get(policy)
+        t0 = time.perf_counter()
+        for _ in range(n_ops):
+            r = rng_p.random()
+            k = int(rng_p.integers(0, 2 * size))
+            if r < update_pct / 200:
+                run(ds_p, pol, "insert", (k, 1))
+            elif r < update_pct / 100:
+                run(ds_p, pol, "delete", (k,))
+            else:
+                run(ds_p, pol, "find", (k,))
+        out[policy] = {**{f"{f}_per_op": v / n_ops
+                          for f, v in ds_p.mem.counters.snapshot().items()},
+                       "ops_s": time.perf_counter() - t0,
+                       "prefill_s": prefill_s}
+    return out
+
+
+def paper_counts(sz: Sizes) -> dict:
+    """The paper's count sweep: the list at two sizes and hash, bst and
+    skiplist at one, under every policy.  The journey persists nothing,
+    NVTraverse fences stay O(1) an op and Izraelevitz fences O(path)
+    (``tests/test_paper_claims.py``'s bounds)."""
+    runs = [("list", n, sz.paper_list_ops) for n in sz.paper_list_sizes] + \
+        [(s, sz.paper_size, sz.paper_ops) for s in ("hash", "bst",
+                                                     "skiplist")]
+    out = {}
+    for structure, size, n_ops in runs:
+        got = paper_workload(structure, POLICY_NAMES, size, n_ops)
+        for policy, r in got.items():
+            out[f"{structure}{size}_{policy}"] = r
+            if policy == "nvtraverse":
+                if r["traverse_flushes_per_op"] or \
+                        r["traverse_fences_per_op"]:
+                    raise AssertionError(f"{structure}: nvtraverse "
+                                         f"persisted during a traversal")
+                if r["fences_per_op"] >= (4 if structure == "list" else 5):
+                    raise AssertionError(f"{structure}{size}: "
+                                         f"{r['fences_per_op']} fences/op")
+            if policy == "volatile" and (r["flushes_per_op"]
+                                         or r["fences_per_op"]):
+                raise AssertionError(f"{structure}: volatile persisted")
+    big = max(sz.paper_list_sizes)
+    iz = out[f"list{big}_izraelevitz"]["fences_per_op"]
+    if not iz > 0.8 * big * 0.9:
+        raise AssertionError(f"izraelevitz list{big}: {iz} fences/op")
+    return out
+
+
+def hist_structure(core, name: str, mem):
+    return {"list": lambda: core.harris_list.HarrisList(mem),
+            "hash": lambda: core.hash_table.HashTable(mem, n_buckets=4),
+            "bst": lambda: core.bst.ExternalBST(mem),
+            "skiplist": lambda: core.skiplist.SkipList(mem, max_level=6),
+            "queue": lambda: core.queue.MSQueue(mem),
+            "stack": lambda: core.stack.TreiberStack(mem)}[name]()
+
+
+def crash_trial(name: str, policy: str, seed: int, crash_at, evict,
+                core=PORT_CORE) -> dict:
+    """One seeded interleaving of concurrent ops on a prefilled, persisted
+    structure under ``policy``, crashed at global step ``crash_at``
+    (``None``: run to the end) with the ``evict`` adversary and recovered
+    by ``disconnect``; the history is judged against the recovered state
+    by the durable-linearizability checker of the structure's kind.  The
+    ops and their interleaving depend on ``seed`` alone, so an uncrashed
+    run's ``steps`` place the crash points of the others."""
+    rng = np.random.default_rng(seed)
+    mem = core.pmem.PMem(1 << 16, seed=seed)
+    ds = hist_structure(core, name, mem)
+    run, nv = core.traversal.run_operation, core.policies.get_policy(
+        "nvtraverse")
+    ops = []
+    if name in ("queue", "stack"):
+        put, take = (("enqueue", "dequeue") if name == "queue"
+                     else ("push", "pop"))
+        initial = list(range(1, 6))
+        for v in initial:
+            run(ds, nv, put, (v,))
+        for v in range(100, 108):
+            ops.append((put, (v,)) if rng.random() < 0.6 else (take, ()))
+    else:
+        initial = list(range(0, 16, 2))
+        for k in initial:
+            run(ds, nv, "insert", (k, k * 10))
+        for _ in range(16):
+            op = str(rng.choice(["insert", "delete", "find"]))
+            k = int(rng.integers(0, 16))
+            ops.append((op, (k, k) if op == "insert" else (k,)))
+    mem.persist_all()
+    il = core.scheduler.Interleaver(ds, core.policies.get_policy(policy),
+                                    ops, seed=seed)
+    recs = il.run(crash_at=crash_at, evict=evict)
+    if il.crashed:
+        if name == "skiplist":
+            ds.index = {}                 # the towers die with the crash
+        ds.disconnect()
+    ds.check_integrity(require_unmarked=il.crashed)
+    state = ds.contents()
+    return {"records": recs, "state": state, "initial": initial,
+            "crashed": il.crashed, "steps": il.global_step,
+            "ok": history_verdict(name, recs, state, initial, core)}
+
+
+def history_verdict(name: str, records, state, initial,
+                    core=PORT_CORE) -> bool:
+    """The durable-linearizability checker of the structure's kind: FIFO,
+    LIFO (``state`` and ``initial`` front or top first) or set."""
+    lin = core.linearizability
+    if name == "queue":
+        return lin.check_queue_durably_linearizable(records, state, initial)
+    if name == "stack":
+        return lin.check_stack_durably_linearizable(records, state,
+                                                    initial[::-1])
+    return lin.check_durably_linearizable(records, set(state),
+                                          initial_keys=initial)
+
+
+def paper_histories() -> dict:
+    """Every structure under ``nvtraverse`` and ``izraelevitz``: each seeded
+    interleaving run to its end, then crashed at each quarter under each
+    adversary and recovered.  Every history must be durably linearizable;
+    the volatile list's must not."""
+    out = {}
+    for name in ("list", "hash", "bst", "skiplist", "queue", "stack"):
+        for policy in ("nvtraverse", "izraelevitz"):
+            t0, runs, crashed = time.perf_counter(), 0, 0
+            for seed in HIST_SEEDS:
+                steps = None
+                for evict in ("none", "random", "all"):
+                    for q in (None, *HIST_CRASH_QUARTERS):
+                        if q is None and steps is not None:
+                            continue              # one uncrashed run
+                        at = None if q is None else steps * q // 4
+                        r = crash_trial(name, policy, seed, at, evict)
+                        if not r["ok"] or r["crashed"] != (q is not None):
+                            raise AssertionError(
+                                f"{name}/{policy}/{evict} seed {seed} "
+                                f"crash at {at}: not durably linearizable")
+                        steps = steps or r["steps"]
+                        runs += 1
+                        crashed += r["crashed"]
+            out[f"{name}_{policy}"] = {"histories": runs, "crashed": crashed,
+                                       "s": time.perf_counter() - t0}
+    bad = crash_trial("list", "volatile", **VOLATILE_LOSS)
+    if not bad["crashed"] or bad["ok"]:
+        raise AssertionError("the volatile list's lost update was not caught")
+    out["volatile_list_rejected"] = PORT_CORE.linearizability.explain_failure(
+        bad["records"], bad["state"], bad["initial"])
+    return out
+
+
+def paper_traces(dev) -> dict:
+    """Each crash scenario (``rebalance`` at 1 and 4 shards) traced on
+    ``dev``: its pinned event count, and no finding of the checker."""
+    out = {}
+    for layer, (name, kw) in CRASH_SWEEPS.items():
+        t0 = time.perf_counter()
+        events = trace_scenario(name, {"device": dev, **kw}).events
+        rep = check_events(events)
+        if len(events) != TRACE_EVENTS[layer]:
+            raise AssertionError(f"{layer}: {len(events)} trace events, "
+                                 f"{TRACE_EVENTS[layer]} expected")
+        if not rep.ok or rep.diagnostics:
+            raise AssertionError(f"{layer}: {rep.to_dict()}")
+        out[layer] = {"events": len(events),
+                      "kinds": sorted({e.kind for e in events}),
+                      "s": time.perf_counter() - t0}
+    return out
+
+
+def batch_records(batches, oks, core=PORT_CORE, crashed_batch=None) -> list:
+    """Engine batches as a concurrent history: the ops of batch ``b`` are
+    concurrent (invoked at step 2b, responding at 2b+1) and batches are
+    ordered in time.  The crashed batch's ops stay pending; later batches
+    were never invoked."""
+    records, opid = [], 0
+    for b, (ops, ks, _vs) in enumerate(batches):
+        acked = crashed_batch is None or b < crashed_batch
+        invoked = acked or b == crashed_batch
+        for i, (o, k) in enumerate(zip(ops.tolist(), ks.tolist())):
+            records.append(core.scheduler.OpRecord(
+                opid=opid, op="insert" if o == B.OP_INSERT else "delete",
+                args=(k,), invoke_step=2 * b if invoked else None,
+                respond_step=2 * b + 1 if acked else None,
+                result=bool(oks[b][i]) if acked else None))
+            opid += 1
+    return records
+
+
+def mixed_batches(rng, n_batches: int, n: int, key_hi: int) -> list:
+    return [(rng.integers(0, 2, n).astype(np.int32),
+             rng.integers(1, key_hi, n).astype(np.int32),
+             rng.integers(0, 1 << 20, n).astype(np.int32))
+            for _ in range(n_batches)]
+
+
+def paper_fence_bridge(sz: Sizes, dev, seed: int, core=PORT_CORE) -> dict:
+    """The same keys through the instruction-level ``HashTable`` (3 fences
+    an op: makePersistent, the CAS's and the return's) and the card map's
+    ``update_parallel`` (2: the plan persists nothing), then the card map
+    converted to tiles and probed by ``nvt_probe``: every found flag and
+    value must be the ``HashTable``'s."""
+    rng = np.random.default_rng(seed)
+    n = sz.bridge_keys
+    ks = rng.choice(np.arange(1, 1 << 15), n, replace=False).astype(np.int32)
+    vs = rng.integers(0, 1 << 20, n).astype(np.int32)
+    mem = core.pmem.PMem(1 << 16)
+    ht = core.hash_table.HashTable(mem, n_buckets=256)
+    pol = core.policies.get_policy("nvtraverse")
+    mem.counters.reset()
+    t0 = time.perf_counter()
+    for k, v in zip(ks.tolist(), vs.tolist()):
+        if not core.traversal.run_operation(ht, pol, "insert", (k, v)):
+            raise AssertionError(f"HashTable refused fresh key {k}")
+    inst_s = time.perf_counter() - t0
+    want = ht.contents()
+    nb = sz.bridge_buckets
+    st = B.make_state(2 * n, nb, dev)
+    st, ok, _ = B.update_parallel(st, np.zeros(n, np.int32), ks, vs, nb)
+    inst_f, eng_f = mem.counters.fences / n, int(st.fences) / n
+    if not bool(ok.all()) or (inst_f, eng_f) != (3.0, 2.0):
+        raise AssertionError(f"fences an op {inst_f} / {eng_f}, "
+                             f"ok {int(ok.sum())}/{n}")
+    if int(st.live.sum()) != len(want):
+        raise AssertionError("the card map's live set differs")
+    kt, vt = tiles_from_hashmap(st, nb, sz.cap)
+    absent = np.arange(1 << 15, (1 << 15) + n, dtype=np.int32)
+    q = np.concatenate([ks, absent])
+    _sync(dev)
+    t0 = time.perf_counter()
+    found, vals = nvt_probe(kt, vt, torch.as_tensor(q, device=dev))
+    _sync(dev)
+    probe_s = time.perf_counter() - t0
+    exp_found = np.array([int(k in want) for k in q.tolist()], np.int32)
+    exp_vals = np.array([want.get(k, 0) for k in q.tolist()], np.int32)
+    if not (np.array_equal(found.cpu().numpy(), exp_found)
+            and np.array_equal(vals.cpu().numpy(), exp_vals)):
+        raise AssertionError("nvt_probe disagrees with the HashTable")
+    return {"keys": n, "fences_per_op": {"instruction": inst_f,
+                                         "engine": eng_f},
+            "queries": int(q.size), "instruction_s": inst_s,
+            "probe_s": probe_s}
+
+
+def paper_engine_history(sz: Sizes, dev, seed: int, core=PORT_CORE) -> dict:
+    """Rounds of concurrent insert/delete ops through the card map's
+    ``update_parallel``: the history must linearize, and end in the card
+    map's live set."""
+    rng = np.random.default_rng(seed + 1)
+    nb, hi = sz.bridge_buckets, sz.hist_key_hi
+    batches = mixed_batches(rng, sz.hist_rounds, sz.hist_ops, hi)
+    st = B.make_state(hi, nb, dev)
+    t0 = time.perf_counter()
+    oks = []
+    for ops, ks, vs in batches:
+        st, ok, _ = B.update_parallel(st, ops, ks, vs, nb)
+        oks.append(ok.cpu().numpy())
+    engine_s = time.perf_counter() - t0
+    universe = np.arange(1, hi, dtype=np.int32)
+    found, _ = B.lookup(st, universe, nb)
+    live = set(universe[found.cpu().numpy()].tolist())
+    records = batch_records(batches, oks, core)
+    lin = core.linearizability
+    t0 = time.perf_counter()
+    if not lin.check_linearizable(records):
+        raise AssertionError("the card map's history does not linearize")
+    if not lin.check_durably_linearizable(records, live):
+        raise AssertionError("the card map's live set is not the "
+                             "history's")
+    per_key = np.bincount(np.concatenate([b[1] for b in batches]))
+    return {"ops": len(records), "keys": int((per_key > 0).sum()),
+            "max_ops_per_key": int(per_key.max()), "live": len(live),
+            "engine_s": engine_s, "check_s": time.perf_counter() - t0}
+
+
+def paper_crash_prefixes(sz: Sizes, dev, seed: int,
+                         core=PORT_CORE) -> dict:
+    """A ``DurableOrderedMap`` on ``dev`` crashed at the publish of each
+    batch in turn (and once not at all) and reopened: every recovered
+    live set must durably linearize the history, the crashed batch
+    pending."""
+    rng = np.random.default_rng(seed + 2)
+    n = sz.prefix_ops
+    batches = mixed_batches(rng, sz.prefix_batches, n, n)
+    out = {"batches": len(batches), "ops": n, "recovered_live": []}
+    t0 = time.perf_counter()
+    for c in range(len(batches) + 1):
+        crash = c < len(batches)
+        with tempfile.TemporaryDirectory() as d:
+            m = O.DurableOrderedMap(d, capacity=2 * n, device=dev)
+            # sites per batch: flush, fence, publish of its round file
+            CrashPlan(crash_at=3 * c + 2 if crash else None,
+                      evict="random", seed=c).attach(m.io)
+            oks = []
+            try:
+                for ops, ks, vs in batches:
+                    oks.append(m.update(ops, ks, vs))
+            except CrashPoint:
+                pass
+            if len(oks) != c:
+                raise AssertionError(f"prefix {c}: {len(oks)} acked")
+            live = set(O.live_items(O.DurableOrderedMap(
+                d, capacity=2 * n, device=dev).state))
+        records = batch_records(batches, oks, core,
+                                crashed_batch=c if crash else None)
+        if not core.linearizability.check_durably_linearizable(records,
+                                                               live):
+            raise AssertionError(f"prefix {c} not durably linearizable")
+        out["recovered_live"].append(len(live))
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def paper_towers(sz: Sizes, dev, seed: int, core=PORT_CORE) -> dict:
+    """``SkipList.rebuild_index`` after inserts and deletes at the
+    instruction level promotes the same keys at every level as
+    ``build_towers`` over the same live keys on the card."""
+    rng = np.random.default_rng(seed + 3)
+    n = sz.bridge_keys
+    keys = rng.choice(np.arange(1, 1 << 15), n, replace=False).tolist()
+    mem = core.pmem.PMem(1 << 16)
+    sl = core.skiplist.SkipList(mem, max_level=O.MAX_LEVEL)
+    run, pol = core.traversal.run_operation, core.policies.get_policy(
+        "nvtraverse")
+    t0 = time.perf_counter()
+    for k in keys:
+        run(sl, pol, "insert", (k, 2 * k))
+    for k in keys[::5]:
+        run(sl, pol, "delete", (k,))
+    sl.rebuild_index()
+    inst_s = time.perf_counter() - t0
+    live = np.asarray(sorted(set(keys) - set(keys[::5])), np.int32)
+    stt = O.make_ordered(2 * n, dev)
+    stt, ok, _ = O.update_parallel_ordered(
+        stt, np.zeros(live.size, np.int32), live, 2 * live)
+    rows = O.build_towers(stt).keys.cpu().numpy()
+    promoted = {}
+    for lvl in range(2, O.MAX_LEVEL + 1):
+        seed_keys = [k for k, _ in sl.index[lvl]]
+        row = rows[lvl - 2]
+        if not (bool(ok.all()) and row[:len(seed_keys)].tolist() == seed_keys
+                and (row[len(seed_keys):] == O.KEY_PAD).all()):
+            raise AssertionError(f"level {lvl} promotion differs")
+        promoted[lvl] = len(seed_keys)
+    return {"live": int(live.size), "promoted": promoted,
+            "instruction_s": inst_s}
+
+
+def run_paper(sz: Sizes, dev, seed: int) -> dict:
+    """The paper phase; raises on the first failed check."""
+    out, times = {}, {}
+    for part, fn in (("counts", lambda: paper_counts(sz)),
+                     ("histories", paper_histories),
+                     ("traces", lambda: paper_traces(dev)),
+                     ("fence_bridge",
+                      lambda: paper_fence_bridge(sz, dev, seed)),
+                     ("engine_history",
+                      lambda: paper_engine_history(sz, dev, seed)),
+                     ("crash_prefixes",
+                      lambda: paper_crash_prefixes(sz, dev, seed)),
+                     ("towers", lambda: paper_towers(sz, dev, seed))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        times[part] = time.perf_counter() - t0
+    out["part_s"] = times
+    return out
+
+
 def cuda_ms(fn, iters: int = 20) -> float:
     """Mean time of ``fn`` on the card (CUDA events, after warm-up)."""
     for _ in range(3):
@@ -2043,7 +2514,18 @@ def main(argv=None) -> int:
     log({"phase": "crash", "ok": True, "scenarios": run_crash(dev),
          "crash_s": time.perf_counter() - t0})
 
-    # 11. timing
+    # 11. paper: the instruction-level structures, checkers and traces on
+    # the host, bridged to the card's engines (nvt_probe launched once)
+    reset_launches()
+    t0 = time.perf_counter()
+    paper = run_paper(sz, dev, args.seed)
+    paper_launches = {w.__name__: w.launches for w in WRAPPERS}
+    if on_card and paper_launches["nvt_probe"] < 1:
+        raise AssertionError("the paper phase never launched nvt_probe")
+    log({"phase": "paper", "ok": True, **paper, "launches": paper_launches,
+         "phase_s": time.perf_counter() - t0})
+
+    # 12. timing
     if not on_card:
         log({"phase": "timing", "skipped": "no card"})
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))

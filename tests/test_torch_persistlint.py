@@ -1,12 +1,15 @@
 """The reference's PersistLint static pass over the port package: the
 port's durable layers keep the flush -> fence -> publish discipline with
-no violation, and need only the reference's own two waivers."""
+no violation, and need only the reference's own two waivers.  The port's
+own copy of the pass, run with no arguments, lints the port's tree and
+gives the same report."""
 from collections import Counter
 from pathlib import Path
 
 import pytest
 
 from repro.analysis.persistlint import lint_source, run_static
+from repro_torch.analysis import persistlint as port_lint
 
 PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 DURABLE = ("core/ordered.py", "core/migrate.py", "persistence/manifest.py",
@@ -44,3 +47,11 @@ def test_dropping_a_journal_fence_is_caught(rel, needle):
     mutant = src.replace(needle, needle.split("\n")[1])
     rules = [v.rule for v in lint_source(rel, mutant) if not v.waived]
     assert rules == ["publish-needs-fence"]
+
+
+def test_ports_own_run_static_lints_its_tree_as_the_reference_does():
+    own = port_lint.run_static()
+    assert own.to_dict() == run_static(root=PORT).to_dict()
+    assert own.n_files == len(list(PORT.rglob("*.py")))
+    assert {(v.rule, v.file) for v in own.waived} == {
+        ("raw-durable-io", "serving/engine.py")}

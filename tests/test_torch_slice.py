@@ -167,9 +167,17 @@ want = {"repro_torch.kernels._build", "repro_torch.models.model",
         "repro_torch.core.ordered", "repro_torch.core.skiplist",
         "repro_torch.robustness", "repro_torch.robustness.faultinject",
         "repro_torch.core.sharded", "repro_torch.core.rebalance",
-        "repro_torch.launch.mesh", "repro_torch.persistence.checkpoint"}
+        "repro_torch.launch.mesh", "repro_torch.persistence.checkpoint",
+        "repro_torch.core.pmem", "repro_torch.core.instr",
+        "repro_torch.core.policies", "repro_torch.core.traversal",
+        "repro_torch.core.harris_list", "repro_torch.core.hash_table",
+        "repro_torch.core.bst", "repro_torch.core.queue",
+        "repro_torch.core.stack", "repro_torch.core.scheduler",
+        "repro_torch.core.linearizability", "repro_torch.analysis",
+        "repro_torch.analysis.trace", "repro_torch.analysis.checker",
+        "repro_torch.analysis.persistlint"}
 print(sorted(want - set(names)))
-sys.exit(1 if bad or len(names) < 45 or want - set(names) else 0)
+sys.exit(1 if bad or len(names) < 59 or want - set(names) else 0)
 """
 
 
