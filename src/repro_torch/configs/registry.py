@@ -2,17 +2,23 @@
 reduced ("tiny") variants that drive the CPU tests (the port's own copy of
 ``repro.configs.registry.get_arch``/``tiny``).
 
-Only zamba2-7b is here; each other arch comes with the slice that serves
-it.
+The hybrid zamba2-7b and the dense family (qwen2-7b, qwen3-1.7b,
+qwen1.5-32b, gemma3-27b) are here; the MoE, SSM, encoder-decoder and VLM
+archs come with the slices that serve them.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from .base import ArchConfig
+from .gemma3_27b import GEMMA3_27B
+from .qwen1_5_32b import QWEN1_5_32B
+from .qwen2_7b import QWEN2_7B
+from .qwen3_1_7b import QWEN3_1_7B
 from .zamba2_7b import ZAMBA2_7B
 
-ARCHS = {c.name: c for c in (ZAMBA2_7B,)}
+ARCHS = {c.name: c for c in (GEMMA3_27B, QWEN3_1_7B, QWEN1_5_32B, QWEN2_7B,
+                             ZAMBA2_7B)}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -1,7 +1,7 @@
 """Serving entry point: batched greedy requests against an arch the port
 serves (reduced or full config) with the durable request log.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny:zamba2-7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny:qwen2-7b \
         --requests 8 --new-tokens 8 [--crash-after 1] [--device cpu]
 
 Without ``--device`` it runs on the card and fails when there is none.
@@ -23,7 +23,7 @@ from ..serving.engine import ServeEngine
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="tiny:zamba2-7b")
+    ap.add_argument("--arch", default="tiny:qwen2-7b")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=8)

@@ -5,7 +5,8 @@ a leading ``L`` axis (``repro.models.transformer.stacked_params``).  Given
 that tree as numpy arrays (``jax.tree.map(np.asarray, params)``),
 :func:`params_from_numpy` builds the port's :class:`ParamTree` with the
 layer axis unrolled, so ``blocks/mamba/in_proj[3]`` becomes
-``blocks.mamba.3.in_proj``.  bf16 arrays (numpy's ``bfloat16`` extension
+``blocks.mamba.3.in_proj`` (and a dense model's ``blocks/attn/wq[3]``
+``blocks.3.attn.wq``).  bf16 arrays (numpy's ``bfloat16`` extension
 dtype) arrive as torch bf16, bit for bit.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from .model import ParamTree
 
 # subtrees whose leaves carry the stacked layer axis, per family
-STACKED = {"hybrid": (("blocks", "mamba"),)}
+STACKED = {"dense": (("blocks",),), "hybrid": (("blocks", "mamba"),)}
 
 
 def _tensor(a, device) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """The model API of the port (port of ``repro.models.model`` for the
-hybrid family)::
+dense and hybrid families)::
 
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
@@ -8,8 +8,9 @@ hybrid family)::
 
 Parameters are a :class:`ParamTree`, an ``nn.Module`` whose names are the
 reference's tree paths with the stacked layer axis unrolled
-(``blocks.mamba.3.in_proj``); :mod:`repro_torch.models.convert` builds one
-from the reference's parameters.  Other families raise
+(``blocks.mamba.3.in_proj``, ``blocks.3.attn.wq``);
+:mod:`repro_torch.models.convert` builds one from the reference's
+parameters.  The MoE, SSM, encoder-decoder and VLM families raise
 ``NotImplementedError`` until their slice.
 """
 from __future__ import annotations
@@ -61,12 +62,16 @@ class ParamTree(nn.Module):
         return self[name] if name in self else default
 
 
+# the families the port serves, and the layer stack each runs
+STACKS = {"dense": T.dense_stack, "hybrid": T.hybrid_stack}
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: object
 
     def __post_init__(self):
-        if self.cfg.family != "hybrid":
+        if self.cfg.family not in STACKS:
             raise NotImplementedError(
                 f"family {self.cfg.family!r}: later slice")
 
@@ -80,10 +85,14 @@ class Model:
                 "final_norm": _zeros(gen, (D,), dt)}
         if not cfg.tie_embeddings:
             tree["lm_head"] = dense_init(gen, (D, V), dt)
-        tree["blocks"] = {
-            "mamba": [mamba_params(gen, cfg, dt)
-                      for _ in range(cfg.n_layers)],
-            "shared": T.dense_block_params(gen, cfg, dt)}
+        if cfg.family == "dense":
+            tree["blocks"] = [T.dense_block_params(gen, cfg, dt)
+                              for _ in range(cfg.n_layers)]
+        else:
+            tree["blocks"] = {
+                "mamba": [mamba_params(gen, cfg, dt)
+                          for _ in range(cfg.n_layers)],
+                "shared": T.dense_block_params(gen, cfg, dt)}
         return ParamTree(tree)
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -106,6 +115,9 @@ class Model:
     def init_caches(self, batch: int, max_len: int, device) -> dict:
         cfg = self.cfg
         ct = _dtype(cfg.compute_dtype)
+        if cfg.family == "dense":
+            return T.init_attn_caches(cfg, cfg.n_layers, batch, max_len, ct,
+                                      device)
         n_inv = cfg.n_layers // cfg.shared_attn_every
         return {"ssm": T.init_ssm_caches(cfg, cfg.n_layers, batch, ct,
                                          device),
@@ -121,9 +133,9 @@ class Model:
         positions = torch.arange(S, device=dev).expand(B, S)
         x = self._embed(params, tokens)
         caches = self.init_caches(B, max_len, dev)
-        x, caches = T.hybrid_stack(params["blocks"], x, self.cfg,
-                                   positions=positions, mode="causal",
-                                   caches=caches)
+        x, caches = STACKS[self.cfg.family](
+            params["blocks"], x, self.cfg, positions=positions,
+            mode="causal", caches=caches)
         return self._logits(params, x[:, -1:]), caches
 
     def decode_step(self, params, tokens: torch.Tensor, caches: dict,
@@ -134,7 +146,7 @@ class Model:
         positions = torch.full((B, 1), int(pos), dtype=torch.int32,
                                device=params["embed"].device)
         x = self._embed(params, tokens[:, None])
-        x, caches = T.hybrid_stack(params["blocks"], x, self.cfg,
-                                   positions=positions, mode="decode",
-                                   caches=caches, cache_pos=pos)
+        x, caches = STACKS[self.cfg.family](
+            params["blocks"], x, self.cfg, positions=positions,
+            mode="decode", caches=caches, cache_pos=pos)
         return self._logits(params, x), caches

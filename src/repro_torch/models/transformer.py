@@ -1,13 +1,16 @@
-"""Layer stacks (port of ``repro.models.transformer`` for the hybrid
-family): the dense block, its parameters, the zamba2 stack and the
-functions that allocate its caches.
+"""Layer stacks (port of ``repro.models.transformer`` for the dense and
+hybrid families): the dense block, its parameters, the dense stack (with
+gemma3's local:global window pattern), the zamba2 stack and the functions
+that allocate their caches.
 
-The reference scans over stacked per-layer parameters with ``lax.scan``
-and picks the shared block with ``lax.cond`` and a dynamic cache index.
-Here the stack is a Python loop over the per-layer parameter trees: layer
-``idx`` runs the tied shared block after its Mamba2 block when
-``idx % k == k - 1``, with attention cache slot ``idx // k``.  Caches are
-stacked tensors updated in place.
+The reference scans over stacked per-layer parameters with ``lax.scan``,
+computes each layer's window as a traced scalar, and picks zamba2's
+shared block with ``lax.cond`` and a dynamic cache index.  Here each stack
+is a Python loop over the per-layer parameter trees: dense layer ``idx``
+attends with :func:`_layer_window`'s window and cache slot ``idx``;
+hybrid layer ``idx`` runs the tied shared block after its Mamba2 block
+when ``idx % k == k - 1``, with attention cache slot ``idx // k``.  Caches
+are stacked tensors updated in place.
 """
 from __future__ import annotations
 
@@ -39,6 +42,30 @@ def dense_block_params(gen: torch.Generator, cfg, dtype) -> dict:
             "attn": attn_params(gen, cfg, dtype),
             "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, cfg.act,
                               fused=cfg.fused_gate_up)}
+
+
+def _layer_window(cfg, idx: int) -> int:
+    """Sliding-window size of layer ``idx`` (0 = full attention): with
+    ``local_per_global`` local layers per global one, every
+    ``local_per_global + 1``-th layer is global."""
+    if not cfg.local_per_global:
+        return 0
+    period = cfg.local_per_global + 1
+    return 0 if idx % period == period - 1 else cfg.local_window
+
+
+def dense_stack(params, x: torch.Tensor, cfg, *, positions, mode: str,
+                caches: Optional[dict] = None, cache_pos=None):
+    """[attn -> mlp] x L.  ``params`` holds the L per-layer trees;
+    ``caches = {'k','v'} [L, B, max_len, K, dh]`` or None, updated in
+    place and returned."""
+    for idx, lp in enumerate(params):
+        cache = None if caches is None else {
+            "k": caches["k"][idx], "v": caches["v"][idx]}
+        x, _ = dense_block(lp, x, cfg, positions=positions, mode=mode,
+                           window=_layer_window(cfg, idx), cache=cache,
+                           cache_pos=cache_pos)
+    return x, caches
 
 
 def hybrid_stack(params, x: torch.Tensor, cfg, *, positions, mode: str,

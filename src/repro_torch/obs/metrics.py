@@ -1,20 +1,27 @@
-"""NVTrace metrics: a process-local registry of counters, gauges and fixed
-log-spaced-bucket histograms (the port's own copy of the parts of
-``repro.obs.metrics`` it uses).
+"""NVTrace metrics: a process-local registry of counters, gauges and
+fixed log-spaced-bucket histograms (the port's own copy of
+``repro.obs.metrics``).
 
 The paper's whole argument is an *accounting* one — traversal persists
 nothing, so every microsecond and every fence concentrates at the
 destination — and this module is the ledger that argument is read from
 at runtime.  Three metric kinds, one registry:
 
-* :class:`Counter` — monotone event totals (records parsed, commits,
-  migrations completed).
-* :class:`Gauge` — a last-written level (per-shard load, imbalance).
+* :class:`Counter` — monotone event totals (records parsed, flushes
+  issued, migrations completed).
+* :class:`Gauge` — last-written level (per-shard load, imbalance).
 * :class:`Histogram` — fixed log-spaced buckets with an explicit
   overflow bucket.  Quantiles are *deterministic and bounded*: for any
   recorded distribution, ``oracle <= quantile(q) <= oracle * growth``
-  (the bucket upper edge), so p50/p99 are exact up to the configured
-  bucket resolution.
+  (the bucket upper edge), so p50/p99/p999 are exact up to the
+  configured bucket resolution — and two histograms with the same
+  layout merge by elementwise count addition, which is what makes
+  snapshots mergeable across shards and subprocesses.
+
+Snapshots are plain JSON (`MetricsRegistry.snapshot` /
+`MetricsRegistry.from_snapshot` / `MetricsRegistry.merge_snapshot`)
+and export to Prometheus text (`MetricsRegistry.to_prometheus`) or a
+JSON file (`MetricsRegistry.dump_json`).
 
 >>> reg = MetricsRegistry()
 >>> reg.counter("ops_total", layer="log").inc(3)
@@ -25,9 +32,21 @@ at runtime.  Three metric kinds, one registry:
 ...     h.record(v)
 >>> h.count, h.quantile(0.5), h.quantile(0.99)
 (4, 2.0, 512.0)
+
+Round-trip through JSON and merge — the cross-shard path:
+
+>>> import json
+>>> snap = json.loads(json.dumps(reg.snapshot()))
+>>> twin = MetricsRegistry.from_snapshot(snap)
+>>> twin.merge_snapshot(snap)          # two identical shards
+>>> twin.counter("ops_total", layer="log").value
+6
+>>> twin.histogram("lat_us", lo=1.0, hi=1000.0, growth=2.0).count
+8
 """
 from __future__ import annotations
 
+import json
 import math
 from bisect import bisect_left
 from dataclasses import dataclass, field
@@ -127,6 +146,20 @@ class Histogram:
                 return self.bounds[i] if i < len(self.bounds) else self.max
         return self.max  # pragma: no cover - rank <= total
 
+    def merge(self, other: "Histogram") -> None:
+        """Elementwise count addition; layouts must match exactly."""
+        if other.bounds != self.bounds:
+            raise ValueError("cannot merge histograms with different "
+                             "bucket layouts")
+        for i, c in enumerate(other.counts):
+            self.counts[i] += c
+        self.sum += other.sum
+        self.min = min(self.min, other.min)
+        self.max = max(self.max, other.max)
+
+
+_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
+
 
 def _label_key(labels: dict) -> tuple:
     return tuple(sorted((k, str(v)) for k, v in labels.items()))
@@ -186,6 +219,97 @@ class MetricsRegistry:
         self._entries.clear()
         self._kinds.clear()
         self.gen += 1
+
+    # -- snapshots ----------------------------------------------------
+    def snapshot(self) -> dict:
+        """JSON-able snapshot of every registered metric."""
+        out = {"counters": [], "gauges": [], "histograms": []}
+        for e in self._entries.values():
+            if e.kind == "counter":
+                out["counters"].append(
+                    {"name": e.name, "labels": e.labels,
+                     "value": e.obj.value})
+            elif e.kind == "gauge":
+                out["gauges"].append(
+                    {"name": e.name, "labels": e.labels,
+                     "value": e.obj.value})
+            else:
+                h = e.obj
+                out["histograms"].append(
+                    {"name": e.name, "labels": e.labels,
+                     "lo": h.lo, "hi": h.hi, "growth": h.growth,
+                     "counts": list(h.counts), "sum": h.sum,
+                     "min": (None if h.count == 0 else h.min),
+                     "max": (None if h.count == 0 else h.max)})
+        return out
+
+    @classmethod
+    def from_snapshot(cls, snap: dict) -> "MetricsRegistry":
+        reg = cls()
+        reg.merge_snapshot(snap)
+        return reg
+
+    def merge_snapshot(self, snap: dict) -> None:
+        """Fold another snapshot in: counters/histograms add, gauges
+        take the incoming value.  Associative and commutative for the
+        additive kinds — shard order does not matter."""
+        for c in snap.get("counters", ()):
+            self.counter(c["name"], **c["labels"]).inc(int(c["value"]))
+        for g in snap.get("gauges", ()):
+            self.gauge(g["name"], **g["labels"]).set(g["value"])
+        for hs in snap.get("histograms", ()):
+            h = self.histogram(hs["name"], lo=hs["lo"], hi=hs["hi"],
+                               growth=hs["growth"], **hs["labels"])
+            other = Histogram(lo=hs["lo"], hi=hs["hi"],
+                              growth=hs["growth"])
+            other.counts = list(hs["counts"])
+            other.sum = float(hs["sum"])
+            other.min = math.inf if hs["min"] is None else float(hs["min"])
+            other.max = -math.inf if hs["max"] is None else float(hs["max"])
+            h.merge(other)
+
+    # -- exporters ----------------------------------------------------
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition (histograms as cumulative
+        ``_bucket{le=...}`` series plus ``_sum``/``_count``)."""
+        lines = []
+        typed = set()
+        for e in sorted(self._entries.values(),
+                        key=lambda e: (e.name, _label_key(e.labels))):
+            if e.name not in typed:
+                lines.append(f"# TYPE {e.name} {e.kind}")
+                typed.add(e.name)
+            if e.kind in ("counter", "gauge"):
+                lines.append(f"{e.name}{_promlabels(e.labels)} "
+                             f"{e.obj.value}")
+            else:
+                h = e.obj
+                cum = 0
+                for b, c in zip(h.bounds, h.counts):
+                    cum += c
+                    lines.append(
+                        f"{e.name}_bucket"
+                        f"{_promlabels(e.labels, le=repr(b))} {cum}")
+                lines.append(f"{e.name}_bucket"
+                             f"{_promlabels(e.labels, le='+Inf')} "
+                             f"{h.count}")
+                lines.append(f"{e.name}_sum{_promlabels(e.labels)} "
+                             f"{h.sum}")
+                lines.append(f"{e.name}_count{_promlabels(e.labels)} "
+                             f"{h.count}")
+        return "\n".join(lines) + "\n"
+
+    def dump_json(self, path) -> None:
+        with open(path, "w") as f:
+            json.dump(self.snapshot(), f, indent=1, sort_keys=True)
+
+
+def _promlabels(labels: dict, **extra) -> str:
+    items = dict(labels, **extra)
+    if not items:
+        return ""
+    body = ",".join(f'{k}="{v}"' for k, v in sorted(items.items()))
+    return "{" + body + "}"
 
 
 REGISTRY = MetricsRegistry()

@@ -69,7 +69,9 @@ class RequestLog:
 
     def __init__(self, root, seed: int = 0, capacity: int = 1 << 15,
                  shards: Optional[int] = None, rebalance: bool = False,
-                 ordered_dedup: bool = False, registry=None, device=None):
+                 ordered_dedup: bool = False, registry=None,
+                 tracer: Optional[Tracer] = None, timeline=None,
+                 obs: bool = True, device=None):
         """``capacity`` is only the *seed* pool size of the dedup map: under
         live traffic it grows itself (:attr:`dedup_migrations` counts the
         growth events).  ``device`` places the dedup map (``None`` = the
@@ -89,17 +91,29 @@ class RequestLog:
         streams the engine hands out.  It excludes ``shards`` (the ordered
         pool is not sharded).
 
-        Counters and histograms go to ``registry`` (default: the
-        process-wide metrics registry); ``tracer`` records one span per
+        ``registry``/``tracer`` plug the log into an explicit NVTrace
+        metrics registry and span tracer (default: the process-wide
+        registry and a tracer on it); the tracer records one span per
         commit/snapshot phase, charged with the persistence instructions
-        it executed (a :class:`PersistListener` on ``io``)."""
+        it executed (a :class:`PersistListener` on ``io``).  ``timeline``
+        (an :class:`~repro_torch.obs.timeline.EventTimeline`) additionally
+        gets snapshot/truncate, dedup-migration/rebalance and open
+        annotations, so a latency excursion in a windowed series is
+        attributable to its cause; ``obs=False`` disables the span tracer
+        and the persistence-event listener (the zero-instrumentation
+        baseline)."""
         if ordered_dedup and shards is not None:
             raise ValueError("ordered_dedup is not sharded (no shards)")
         self.io = StagedIO(Path(root), seed=seed)
         self.metrics = registry if registry is not None else get_registry()
-        self.tracer = Tracer(registry=self.metrics)
-        PersistListener(tracer=self.tracer,
-                        registry=self.metrics).attach(self.io)
+        self.tracer = tracer if tracer is not None else Tracer(
+            registry=self.metrics, enabled=obs)
+        if obs and self.io.faults is None:
+            # persistence-instruction counts per span ride the same
+            # `faults` hook surface CrashPlan uses; a crash plan attached
+            # later simply replaces the listener for that run
+            PersistListener(tracer=self.tracer,
+                            registry=self.metrics).attach(self.io)
         self._rng = random.Random(0x5eed ^ seed)
         self._ordered = bool(ordered_dedup)
         if ordered_dedup:
@@ -121,6 +135,7 @@ class RequestLog:
                                    # mid-truncation): trimmed at restart
         self.records_parsed = 0    # log records read+parsed by this
                                    # instance (restart-replay observability)
+        self.timeline = timeline
         t0 = time.perf_counter_ns()
         self._load_snapshot()
         t1 = time.perf_counter_ns()
@@ -141,7 +156,8 @@ class RequestLog:
         self._stale.clear()
         t3 = time.perf_counter_ns()
         # per-phase restart breakdown, so recovery cost is explainable,
-        # not just a total (chip_smoke.py's serve phase prints it)
+        # not just a total (the flight recorder dumps it on a post-crash
+        # reload; chip_smoke.py's serve phase prints it)
         self.restart_timing = {
             "load_snapshot_us": (t1 - t0) / 1e3,
             "replay_us": (t2 - t1) / 1e3,
@@ -154,6 +170,10 @@ class RequestLog:
             self.metrics.histogram(
                 "restart_phase_us", lo=1.0, hi=1e8, growth=1.25,
                 phase=ph).record(self.restart_timing[ph + "_us"])
+        if timeline is not None:
+            timeline.annotate("log_open",
+                              total_us=self.restart_timing["total_us"],
+                              records_parsed=self.records_parsed)
 
     @staticmethod
     def _log_index(name: str) -> Optional[int]:
@@ -444,7 +464,20 @@ class RequestLog:
                 self.io.flush(rel)
                 self.io.fence()
             self._folded.add(rel)
+            m0, r0 = self._dedup.migrations, self._dedup.rebalances
             self._apply_record(rec, evict)
+            if self.timeline is not None:
+                # annotate live-traffic dedup growth/re-splits only (a
+                # restart replay folds records through _apply_record
+                # directly and stays silent)
+                if self._dedup.migrations > m0:
+                    self.timeline.annotate(
+                        "dedup_migration",
+                        rounds=self._dedup.migrations - m0)
+                if self._dedup.rebalances > r0:
+                    self.timeline.annotate(
+                        "dedup_rebalance",
+                        rounds=self._dedup.rebalances - r0)
         self.metrics.counter("serving_commits_total").inc()
         self.metrics.counter("serving_committed_rids_total").inc(len(rec))
         self.metrics.counter("serving_evicted_rids_total").inc(len(evict))
@@ -510,25 +543,37 @@ class RequestLog:
                 self.io.publish("snap.tmp", final)
             old_snap, self._snap_name = self._snap_name, final
             self._snap_horizon = horizon
+            if self.timeline is not None:
+                self.timeline.annotate("snapshot", horizon=horizon,
+                                       n_results=len(self._results))
             if truncate:
-                self._truncate(horizon, old_snap)
+                n_trimmed = self._truncate(horizon, old_snap)
+                if self.timeline is not None:
+                    self.timeline.annotate("truncate", horizon=horizon,
+                                           n_trimmed=n_trimmed)
         self.metrics.counter("serving_snapshots_total").inc()
         return final
 
-    def _truncate(self, horizon: int, old_snap: Optional[str]) -> None:
+    def _truncate(self, horizon: int, old_snap: Optional[str]) -> int:
         """Unlink everything the just-published snapshot supersedes.
         Crash-safe by construction: every leftover is either below the
         published horizon (restart re-collects and trims it) or an older
-        snapshot shadowed by the newer one."""
+        snapshot shadowed by the newer one.  Returns the number of
+        files trimmed (timeline observability)."""
+        n = 0
         for name in sorted(self._folded):
             idx = self._log_index(name)
             if idx is not None and idx < horizon:
                 self._unlink_quiet(name)
+                n += 1
         for name in sorted(self._stale):
             self._unlink_quiet(name)
+            n += 1
         self._stale.clear()
         if old_snap is not None:
             self._unlink_quiet(old_snap)
+            n += 1
+        return n
 
     def took_effect(self, rids: Sequence[int]) -> np.ndarray:
         """Per-op detectable recovery ("Tracking in Order to Recover"):
@@ -573,7 +618,9 @@ class ServeEngine:
                  log_shards: Optional[int] = None,
                  log_rebalance: bool = False,
                  ordered_dedup: bool = False,
-                 snapshot_every: Optional[int] = None, device=None):
+                 snapshot_every: Optional[int] = None,
+                 registry=None, timeline=None, obs: bool = True,
+                 device=None):
         """``retain`` bounds the exactly-once window: when set, each
         commit also evicts all but the newest ``retain`` committed rids
         from the durable dedup index (one mixed insert/delete round).
@@ -586,8 +633,11 @@ class ServeEngine:
         :class:`RequestLog`).  ``log_shards`` backs the log's dedup map
         with the bucket-range-sharded map over that many shards, and
         ``log_rebalance`` lets it re-split its shard boundaries under
-        live traffic.  Counters and the per-request latency
-        histogram (``serve_request_us``) go to the process registry;
+        live traffic.  ``registry``/``timeline``/``obs`` select the
+        NVTrace metrics registry, the event timeline for
+        snapshot/truncate/growth annotations, and toggle span/listener
+        instrumentation (see :class:`RequestLog`); per-request serve
+        latency lands in the ``serve_request_us`` histogram either way.
         :attr:`step_times` keeps each batch's prefill and decode-step
         seconds, each ended by a device sync."""
         self.device = resolve_device(device)
@@ -604,9 +654,11 @@ class ServeEngine:
         self.log = RequestLog(log_dir, shards=log_shards,
                               rebalance=log_rebalance,
                               ordered_dedup=ordered_dedup,
-                              device=self.device)
+                              registry=registry, timeline=timeline,
+                              obs=obs, device=self.device)
         self.metrics = self.log.metrics
         self.tracer = self.log.tracer
+        self.timeline = self.log.timeline
         self.step_times: Dict[str, List[float]] = {"prefill_s": [],
                                                    "decode_step_s": []}
 

@@ -175,7 +175,9 @@ want = {"repro_torch.kernels._build", "repro_torch.models.model",
         "repro_torch.core.stack", "repro_torch.core.scheduler",
         "repro_torch.core.linearizability", "repro_torch.analysis",
         "repro_torch.analysis.trace", "repro_torch.analysis.checker",
-        "repro_torch.analysis.persistlint"}
+        "repro_torch.analysis.persistlint", "repro_torch.obs.windows",
+        "repro_torch.obs.timeline", "repro_torch.obs.loadgen",
+        "repro_torch.configs.qwen2_7b", "repro_torch.configs.gemma3_27b"}
 print(sorted(want - set(names)))
 sys.exit(1 if bad or len(names) < 59 or want - set(names) else 0)
 """
@@ -301,7 +303,8 @@ def test_serve_cli_recovers_after_a_crash_on_the_cpu(tmp_path, capsys):
     "repro_torch.core.batched", "repro_torch.core.pmem",
     "repro_torch.obs.metrics", "repro_torch.core.ordered",
     "repro_torch.core.skiplist", "repro_torch.core.migrate",
-    "repro_torch.robustness.faultinject"])
+    "repro_torch.robustness.faultinject", "repro_torch.obs.windows",
+    "repro_torch.obs.timeline", "repro_torch.obs.loadgen"])
 def test_port_doctests(module):
     import doctest
     import importlib
