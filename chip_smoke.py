@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the NVTraverse map and its zamba2-7b and
-qwen2-7b serving paths on the card.
+"""Drive the PyTorch/CUDA port of the NVTraverse map and its serving path,
+every model family of it, on the card.
 
     python3 chip_smoke.py                 # on the card, at full size
     python3 chip_smoke.py --device cpu    # rehearsal on the host, small
 
-Thirteen phases, each of which fails the run when it fails:
+Fourteen phases, each of which fails the run when it fails:
 
 1. ``build``  -- compile the three hand-written kernels from ``src/`` with
    nvcc, all at once, and report each compiled function's registers and
@@ -58,7 +58,19 @@ Thirteen phases, each of which fails the run when it fails:
    random weights from ``--seed``), once zamba2 is freed: every prefill
    must launch ``flash_attention`` 28 times (GQA 28:4, d = 128) and no
    ``ssd_scan``;
-6. ``load``   -- ``obs/loadgen.py``'s ``LoadHarness`` (the points of
+6. ``families`` -- the other families served the same way, one model on
+   the card at a time, bf16, random weights from ``--seed``, each
+   through a crash and a new engine (exactly-once, the dedup hits, the
+   launches a prefill): qwen2-moe-a2.7b (moe, 60 routed top-4 experts and
+   4 shared; 24 ``flash_attention`` launches a prefill), mamba2-370m
+   (ssm, N = 128; 48 ``ssd_scan``), whisper-medium (encdec: frames from
+   the engine's stub, 24 non-causal launches over 1500 frames, 24 cross
+   launches and 24 causal ones at d = 64, each counted at its shape),
+   internvl2-26b (vlm: a 256-token vision prefix, GQA 48:8; 48) at full
+   width and depth, and arctic-480b (moe, 128 experts top-2 and a dense
+   residual, GQA 56:8; 1) at full width cut to one layer
+   (``DEPTH_CUTS``); the same numbers as the model phase for each;
+7. ``load``   -- ``obs/loadgen.py``'s ``LoadHarness`` (the points of
    ``benchmarks/loadtest.py``) against a ``RequestLog`` whose dedup map
    lives, and grows, on the card: batches of 1024 rids, a 2^16 retain
    window, a truncating snapshot every 20 commits; closed loop at zipf
@@ -73,7 +85,7 @@ Thirteen phases, each of which fails the run when it fails:
    ``flash_attention`` 28 times an update (warm-up included) and never on
    its reads, which are dedup hits.  p50/p99, sustained rids/s, excursions and their
    attribution, counters and growth events are printed;
-7. ``checkpoint`` -- zamba2-7b at full width (bf16, random weights from
+8. ``checkpoint`` -- zamba2-7b at full width (bf16, random weights from
    ``--seed``) cut to 12 layers, its parameters saved by a
    ``CheckpointManager`` as 4 steps, each changing one leaf (steps 2-4
    are delta saves), ``gc(keep=2)`` after step 3 and a crash
@@ -82,13 +94,19 @@ Thirteen phases, each of which fails the run when it fails:
    bit for bit, and a 4 x 512 prefill with them (through
    ``flash_attention`` and ``ssd_scan``) the in-memory step-3 model's
    logits; the Izraelevitz policy runs the same sequence for its fences;
-8. ``checks`` -- each new kernel against its plain versions at the serve
+9. ``checks`` -- each new kernel against its plain versions at the serve
    shapes and on the reference's sweep, and prefill (kernels) against
    prefill + one decode step (plain recurrent and attention steps) in f32
    at full width and depth 12, for zamba2-7b and qwen2-7b (whose bf16
    attention shapes, B=4, H=28, K=4, d=128 in the model phase and the
-   load phase's engine point's, B=2, S=6, are checked beside zamba2's);
-9. ``ordered`` -- the map phase's stream on the ordered map at the same
+   load phase's engine point's, B=2, S=6, are checked beside zamba2's),
+   and for qwen2-moe-a2.7b (its capacity factor raised so that no token
+   is dropped), mamba2-370m, whisper-medium and internvl2-26b; the
+   families' attention shapes in bf16 (whisper's non-causal encoder over
+   1500 frames, its cross shape, Sq = 512 and 500 over Sk = 1500, and its
+   decoder's at d = 64; internvl2's GQA 6:1 over 768; qwen2-moe's;
+   arctic's GQA 7:1) and mamba2-370m's scan (N = 128) in bf16 and f32;
+10. ``ordered`` -- the map phase's stream on the ordered map at the same
    scale (2^22 keys in a 2^23-node pool) through
    ``update_parallel_ordered``, the towers rebuilt after every batch,
    then 1024 zipf-placed ``range_query`` spans (``max_items`` 1024, one
@@ -101,19 +119,19 @@ Thirteen phases, each of which fails the run when it fails:
    batches of 2^16 ops, snapshots after the 4th, crashes at the publish
    of the 7th (``evict="random"``) and recovers: exactly the acked
    batches, arrays and towers equal to an uncrashed twin;
-10. ``migrate`` -- a journaled ``MigratingMap`` of 3 * 2^20 keys in a
+11. ``migrate`` -- a journaled ``MigratingMap`` of 3 * 2^20 keys in a
    2^22-node pool with 2^19 buckets takes a batch of 2^20 fresh keys that
    does not fit, grows to 2^23 nodes and 2^20 buckets in drain rounds of
    2^15 buckets between mixed rounds of 2^16 ops, and crashes
    (``evict="random"``) at the publish of its 9th journaled round;
    ``recover`` must equal an uncrashed twin at that boundary and finish
    equal to it and to a host dict replay;
-11. ``crash`` -- ``sweep`` of each crash scenario (``log``, ``log2``,
+12. ``crash`` -- ``sweep`` of each crash scenario (``log``, ``log2``,
    ``checkpoint``, ``migrate``, ``rebalance`` at 1 and at 4 shards,
    ``ordered``) at every site under the ``none``, ``random`` and ``torn``
    adversaries, with the site counts the CPU tests pin; any failure fails
    the run;
-12. ``paper`` -- the paper's transformation itself, on the host's
+13. ``paper`` -- the paper's transformation itself, on the host's
    instruction-level machine (``PMem`` is numpy by design: it runs one
    word at a time), bridged to the card's engines.  The count sweep of
    ``benchmarks/paper_figures.py:run_workload`` (the list at 256 and
@@ -134,21 +152,23 @@ Thirteen phases, each of which fails the run when it fails:
    ``DurableOrderedMap`` on the card crashed at each of 4 batches of
    2^12 ops, every recovered prefix durably linearizable; and
    ``SkipList.rebuild_index`` over 2^12 keys against ``build_towers``;
-13. ``timing`` -- each kernel's time (CUDA events), its plain version's,
+14. ``timing`` -- each kernel's time (CUDA events), its plain version's,
    one PyTorch library call's where one computes the same function, and
    its bound from the bytes it must move and the operations it must do;
    ``nvt_probe`` also with L2 flushed before each launch, and in turns
    with the earlier one-warp-a-query kernel where a copy of its source
    lies at ``build/chip_scripts/nvt_probe_warp_a_query.cu``;
    ``flash_attention`` once a main-path shape, each entry with the
-   launches made at its shape: zamba2-7b's and qwen2-7b's serve shapes
-   and the engine point's (SDPA with ``enable_gqa`` where K < H).
+   launches made at its shape: zamba2-7b's and qwen2-7b's serve shapes,
+   the engine point's and the families' six (SDPA with the same mask, and
+   ``enable_gqa`` where K < H); ``ssd_scan`` at zamba2-7b's and
+   mamba2-370m's, each also timed in f32.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card (and without
 ``--device cpu``, which rehearses every phase but timing on small shapes
-and on ``tiny(zamba2-7b)`` and ``tiny(qwen2-7b)``) it exits non-zero and
-prints no result.
+and on the tiny form of every arch) it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -193,7 +213,10 @@ from repro_torch.kernels.nvt_probe.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref  # noqa
-from repro_torch.models.model import Model, padded_vocab  # noqa: E402
+from repro_torch.models.frontends import (  # noqa: E402
+    synth_audio_frames, synth_vision_patches)
+from repro_torch.models.model import (Model, padded_vocab,  # noqa: E402
+                                      prefix_tokens)
 from repro_torch.obs.compile import get_tracker  # noqa: E402
 from repro_torch.obs.loadgen import (LoadHarness, LoadSpec,  # noqa: E402
                                      make_schedule)
@@ -202,7 +225,8 @@ from repro_torch.persistence.checkpoint import (  # noqa: E402
     CheckpointManager)
 from repro_torch.robustness.faultinject import (  # noqa: E402
     SCENARIOS, CrashPlan, CrashPoint, sweep)
-from repro_torch.serving.engine import RequestLog, ServeEngine  # noqa: E402
+from repro_torch.serving.engine import (RequestLog,  # noqa: E402
+                                        ServeEngine, stub_inputs)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
@@ -625,19 +649,54 @@ def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     for w in WRAPPERS:
         w.launches = 0
+    flash_attention.shapes.clear()
+
+
+# full-width archs cut in depth to fit one card: (layers, why)
+DEPTH_CUTS = {"arctic-480b": (1, "477 B parameters, about 954 GB in bf16, "
+                              "cannot be held by one 80 GB card")}
 
 
 def model_config(sz: Sizes, arch: str = "zamba2-7b", **overrides):
+    """``arch`` at full width (cut in depth where ``DEPTH_CUTS`` says so)
+    or, at a tiny size, ``tiny(arch)``; ``overrides`` last."""
     cfg = get_arch(arch)
-    return tiny(cfg, **overrides) if sz.model_tiny else \
-        dataclasses.replace(cfg, **overrides)
+    if sz.model_tiny:
+        return tiny(cfg, **overrides)
+    if arch in DEPTH_CUTS:
+        overrides = {"n_layers": DEPTH_CUTS[arch][0], **overrides}
+    return dataclasses.replace(cfg, **overrides)
 
 
 def attn_launches_per_prefill(cfg) -> int:
-    """flash_attention launches of one prefill: one a layer of a dense
-    model, one a shared-block call of a hybrid one."""
-    return cfg.n_layers if cfg.family == "dense" else \
-        cfg.n_layers // cfg.shared_attn_every
+    """flash_attention launches of one prefill: one a layer of a dense,
+    MoE or VLM model, one a shared-block call of a hybrid one, none in an
+    SSM, and an encoder-decoder's encoder layers plus two a decoder layer
+    (causal self-attention and cross-attention)."""
+    fam = cfg.family
+    if fam == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    if fam == "ssm":
+        return 0
+    if fam == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def ssd_launches_per_prefill(cfg) -> int:
+    """ssd_scan launches of one prefill: one a Mamba2 layer."""
+    return cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+def synth_inputs(cfg, batch: int, gen) -> dict:
+    """A VLM's vision prefix or an encoder-decoder's frames drawn from
+    ``gen`` by the frontend stubs, in the compute dtype."""
+    ct = getattr(torch, cfg.compute_dtype)
+    if cfg.family == "vlm":
+        return {"vis": synth_vision_patches(gen, batch, cfg, ct)}
+    if cfg.family == "encdec":
+        return {"frames": synth_audio_frames(gen, batch, cfg, ct)}
+    return {}
 
 
 def free_card(dev) -> None:
@@ -658,20 +717,26 @@ def model_requests(sz: Sizes, vocab: int, seed: int) -> dict:
 
 
 def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
-    """The serving path: ``arch`` (zamba2-7b or qwen2-7b) behind a
-    ServeEngine serves 8 requests, crashes after its first batch, and a
-    new engine on the same log serves all 8 again.  Checks exactly-once,
-    the dedup hits and the kernels' launch counts per prefill; returns the
-    phase's numbers."""
+    """The serving path: ``arch`` (of any family) behind a ServeEngine
+    serves 8 requests, crashes after its first batch, and a new engine on
+    the same log serves all 8 again.  Checks exactly-once, the dedup hits
+    and the kernels' launch counts per prefill; returns the phase's
+    numbers, ``flash_shapes`` the flash_attention launches by shape."""
     cfg = model_config(sz, arch)
     model = Model(cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     _sync(dev)
     init_s = time.perf_counter() - t0
+    # each leaf is drawn in f32 before its cast: the largest draw is the
+    # init's temporary (arctic-480b's expert leaves: 17.8 GB)
+    init_peak = torch.cuda.max_memory_allocated(dev) \
+        if dev.type == "cuda" else None
     n_params = sum(p.numel() for p in params.parameters())
     requests = model_requests(sz, cfg.vocab, seed)
-    max_len = max(sz.prompt_lens) + sz.new_tokens
+    max_len = max(sz.prompt_lens) + sz.new_tokens + prefix_tokens(cfg)
     reg = get_registry()
     hits = reg.counter("serving_dedup_hits_total")
     with tempfile.TemporaryDirectory() as d:
@@ -689,6 +754,8 @@ def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
         launches = {"flash_attention": flash_attention.launches,
                     "ssd_scan": ssd_scan.launches,
                     "nvt_probe": nvt_probe.launches}
+        flash_shapes = sorted([*k, n] for k, n in
+                              flash_attention.shapes.items())
         dedup_hits = hits.value - hits0
         records = sorted(n for n in os.listdir(d) if n.startswith("log_"))
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
@@ -713,11 +780,11 @@ def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
                              f"dedup hits, not {len(first)}")
     prefills = len(first_eng.step_times["prefill_s"]) + \
         len(again.step_times["prefill_s"])
-    n_ssd = cfg.n_layers if cfg.family == "hybrid" else 0
     if dev.type == "cuda" and (
             launches["flash_attention"]
             != attn_launches_per_prefill(cfg) * prefills
-            or launches["ssd_scan"] != n_ssd * prefills):
+            or launches["ssd_scan"] != ssd_launches_per_prefill(cfg)
+            * prefills):
         raise AssertionError(f"launches {launches} for {prefills} "
                              f"prefills of {cfg.n_layers} layers")
     times = {k: first_eng.step_times[k] + again.step_times[k]
@@ -733,7 +800,8 @@ def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
             "prompt_lens": list(sz.prompt_lens),
             "new_tokens": sz.new_tokens, "batch": sz.model_batch,
             "max_len": max_len, "prefills": prefills,
-            "launches": launches, "dedup_hits": dedup_hits,
+            "launches": launches, "flash_shapes": flash_shapes,
+            "dedup_hits": dedup_hits,
             "records": len(records), "prefill_s": times["prefill_s"],
             "decode_step_s_median": float(np.median(decode)),
             "decode_step_s": decode,
@@ -741,7 +809,8 @@ def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
             / sum(times["prefill_s"]),
             "decode_tokens_per_s": sz.model_batch / float(np.median(decode)),
             "prefill_compute_bound_ms": prefill_bound_ms(cfg, sz),
-            "peak_bytes": peak, "profile": profiled, "reduced": []}
+            "peak_bytes": peak, "init_peak_bytes": init_peak,
+            "profile": profiled, "reduced": []}
 
 
 def prefill_bound_ms(cfg, sz: Sizes):
@@ -754,6 +823,89 @@ def prefill_bound_ms(cfg, sz: Sizes):
     weights = cfg.n_params() - padded_vocab(cfg) * cfg.d_model
     return 2 * weights * sz.model_batch * max(sz.prompt_lens) \
         / BF16_FLOP_PER_S * 1e3
+
+
+# families phase: the MoE, SSM, encoder-decoder and VLM archs, served at
+# full width one at a time (arctic-480b cut in depth, DEPTH_CUTS)
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "mamba2-370m", "whisper-medium",
+                "internvl2-26b", "arctic-480b")
+
+
+def family_flash_shapes(sz: Sizes, S: int = None) -> dict:
+    """(B, Sq, Sk, H, K, d, causal) of each flash_attention shape the
+    families' prefills launch, at prompt length ``S`` (default the
+    longer): the MoE archs' and internvl2's causal self-attention (over
+    the vision prefix and the prompt), whisper's bidirectional encoder
+    over its frames, its cross-attention from the prompt to them, and its
+    decoder's causal self-attention."""
+    S = S or max(sz.prompt_lens)
+    B = sz.model_batch
+    out = {}
+    for key, arch in (("qwen2_moe", "qwen2-moe-a2.7b"),
+                      ("internvl2", "internvl2-26b"),
+                      ("arctic", "arctic-480b")):
+        cfg = model_config(sz, arch)
+        Sv = S + prefix_tokens(cfg)
+        out[key] = (B, Sv, Sv, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                    True)
+    w = model_config(sz, "whisper-medium")
+    heads = (w.n_heads, w.n_kv_heads, w.head_dim)
+    out["whisper_encoder"] = (B, w.enc_seq, w.enc_seq, *heads, False)
+    out["whisper_cross"] = (B, S, w.enc_seq, *heads, False)
+    out["whisper_decoder"] = (B, S, S, *heads, True)
+    return out
+
+
+def launches_at(flash_shapes, shape) -> int:
+    """The launches among ``flash_shapes`` (run_model's rows ``[B, Sq,
+    Sk, H, K, d, causal, count]``) at ``shape`` with either prompt
+    length: the same batch, heads, head dim and mask, and self-attention
+    (Sq == Sk) for a self-attention shape, the same keys (Sk != Sq) for a
+    cross-attention one."""
+    B, Sq, Sk, H, K, d, causal = shape
+    total = 0
+    for b, sq, sk, h, k, dd, c, n in flash_shapes:
+        if (b, h, k, dd, bool(c)) != (B, H, K, d, causal):
+            continue
+        if (sq == sk) if Sq == Sk else (sk == Sk and sq != sk):
+            total += n
+    return total
+
+
+def families_reduced(sz: Sizes) -> list:
+    """How the families phase departs from each published config."""
+    if sz.model_tiny:
+        return ["every arch as tiny(arch), f32: a rehearsal"]
+    return [f"{arch}: n_layers {get_arch(arch).n_layers} -> {n} ({why}); "
+            f"{model_config(sz, arch).n_params() / 1e9:.1f} B parameters "
+            f"at full width" for arch, (n, why) in DEPTH_CUTS.items()]
+
+
+def run_families(sz: Sizes, dev, seed: int) -> dict:
+    """Each of FAMILY_ARCHS through run_model's flow (8 requests, a crash
+    after the first batch, a new engine on the same log; exactly-once, the
+    dedup hits and the launches a prefill checked), one model on the card
+    at a time.  whisper-medium must launch flash_attention once an
+    encoder layer, once a decoder layer at its cross shape and once at
+    its causal shape, a prefill."""
+    t0 = time.perf_counter()
+    archs = []
+    for arch in FAMILY_ARCHS:
+        out = run_model(sz, dev, seed, arch)
+        if dev.type == "cuda" and arch == "whisper-medium":
+            cfg = model_config(sz, arch)
+            shapes = family_flash_shapes(sz)
+            for key, layers in (("whisper_encoder", cfg.enc_layers),
+                                ("whisper_cross", cfg.n_layers),
+                                ("whisper_decoder", cfg.n_layers)):
+                got = launches_at(out["flash_shapes"], shapes[key])
+                if got != layers * out["prefills"]:
+                    raise AssertionError(
+                        f"whisper {key}: {got} launches for "
+                        f"{out['prefills']} prefills of {layers} layers")
+        archs.append(out)
+    return {"archs": archs, "reduced": families_reduced(sz),
+            "phase_s": time.perf_counter() - t0}
 
 
 PORT_KERNELS = ("nvt_probe", "flash_fwd", "ssd_scan_tc", "ssd_chunk_scan")
@@ -801,14 +953,16 @@ def profile_model(model, params, requests: dict, sz: Sizes, dev) -> dict:
     prompts = np.stack([requests[r]
                         for r in sorted(requests)[:sz.model_batch]])
     tokens = torch.as_tensor(prompts, device=dev)
-    max_len = max(sz.prompt_lens) + sz.new_tokens
+    cfg = model.cfg
+    max_len = max(sz.prompt_lens) + sz.new_tokens + prefix_tokens(cfg)
+    batch = {"tokens": tokens, **stub_inputs(cfg, tokens.shape[0], dev)}
     out = {}
     with torch.no_grad():
-        model.prefill(params, {"tokens": tokens}, max_len)   # warm
+        model.prefill(params, batch, max_len)   # warm
         out["prefill"] = profile_step(lambda: model.prefill(
-            params, {"tokens": tokens}, max_len), dev)
-        _, caches = model.prefill(params, {"tokens": tokens}, max_len)
-        S = tokens.shape[1]
+            params, batch, max_len), dev)
+        _, caches = model.prefill(params, batch, max_len)
+        S = tokens.shape[1] + prefix_tokens(cfg)
         model.decode_step(params, tokens[:, -1], caches, S)  # warm
         out["decode_step"] = profile_step(lambda: model.decode_step(
             params, tokens[:, -1], caches, S + 1), dev)
@@ -850,24 +1004,35 @@ def engine_flash_shape(sz: Sizes) -> tuple:
 
 
 def check_flash(sz: Sizes, dev) -> dict:
-    """flash_attention against attention_ref: at the serve shapes of both
-    served archs and at the engine point's shape (shorter than one tile)
-    in bf16 (reference in f32, 2e-2), and the tests/test_kernels.py
-    sweep in f32 (2e-5: f32 sums in another order)."""
+    """flash_attention against attention_ref: at the serve shapes of every
+    served arch (zamba2-7b, qwen2-7b and the families') and at the engine
+    point's shape (shorter than one tile) in bf16 (reference in f32,
+    2e-2), and the tests/test_kernels.py sweep in f32 (2e-5: f32 sums in
+    another order)."""
     errs = {}
 
-    def bf16(key, B, S, H, K, d):
-        q, k, v = flash_inputs(dev, B, S, H, d, torch.bfloat16, S, K)
-        got = flash_attention(q, k, v, causal=True)
+    def bf16(key, B, S, H, K, d, Sk=None, causal=True):
+        q, k, v = flash_inputs(dev, B, S, H, d, torch.bfloat16, S, K, Sk)
+        got = flash_attention(q, k, v, causal=causal)
         want = flash_attention_plain(q.float(), k.float(), v.float(),
-                                     causal=True)
-        errs[key] = _check_close(f"flash {key} {[B, S, H, K, d]}", got,
-                                 want, 2e-2)
+                                     causal=causal)
+        errs[key] = _check_close(
+            f"flash {key} {[B, S, Sk or S, H, K, d, causal]}", got, want,
+            2e-2)
     for arch, (B, H, K, d) in FLASH_SHAPES.items():
         tag = "" if arch == "zamba2-7b" else "qwen2_"
         for S in sz.check_lens:
             bf16(f"{tag}bf16_S{S}", B, S, H, K, d)
     bf16("qwen2_engine_bf16", *engine_flash_shape(sz))
+    # the families' shapes: non-causal (a ragged last KV tile), Sq != Sk,
+    # d = 64, GQA 6:1 and 7:1
+    for S in sz.check_lens:
+        for key, (B, Sq, Sk, H, K, d, causal) in \
+                family_flash_shapes(sz, S).items():
+            name = f"{key}_bf16" if key == "whisper_encoder" else \
+                f"{key}_bf16_S{S}"
+            if name not in errs:
+                bf16(name, B, Sq, H, K, d, Sk, causal)
     sweep = [(1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64),
              (1, 256, 256, 8, 2, 32), (2, 64, 192, 2, 1, 128)]
     for i, (B, Sq, Sk, H, K, d) in enumerate(sweep):
@@ -898,8 +1063,22 @@ def ssd_inputs(dev, B, S, H, P, N, dtype, seed):
         (rnd(B, S, N) * 0.5).to(dtype)
 
 
+# the archs whose scan shapes check_ssd holds, and their keys' prefixes
+SSD_ARCHS = {"zamba2-7b": "", "mamba2-370m": "mamba2_"}
+
+
+def ssd_shape(sz: Sizes, arch: str) -> tuple:
+    """(B, H, P, N, chunk) of an arch's scan at the model batch; 4 heads
+    at a tiny size."""
+    cfg = model_config(sz, arch)
+    return (sz.model_batch, 4 if sz.model_tiny else cfg.ssm_heads,
+            cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk)
+
+
 def check_ssd(sz: Sizes, dev) -> dict:
-    """ssd_scan's y and final state at the serve shapes against the plain
+    """ssd_scan's y and final state at the serve shapes of zamba2-7b
+    (P = N = 64) and mamba2-370m (P = 64, N = 128: ``ssd_scan_tc<16>``,
+    and the f32 kernel with its P split over blocks) against the plain
     chunked version computed in f32 on the same values and against the
     sequential ssd_ref (f32 arithmetic, y rounded to the input dtype):
     bf16 at 5e-2, f32 at 1e-4.  The reference's own bf16 chunked form
@@ -907,12 +1086,17 @@ def check_ssd(sz: Sizes, dev) -> dict:
     kernel keeps f32; its distance to ssd_ref is reported beside the
     kernel's (``chunked_bf16_vs_ref``), not held to the tolerance."""
     errs = {}
-    B, H, P, N, Q = 4, 112, 64, 64, 128
-    if sz.model_tiny:
-        H, P, N, Q = 4, 16, 16, 16
+    for arch, prefix in SSD_ARCHS.items():
+        errs.update(_check_ssd_arch(sz, dev, arch, prefix))
+    return errs
+
+
+def _check_ssd_arch(sz: Sizes, dev, arch: str, prefix: str) -> dict:
+    errs = {}
+    B, H, P, N, Q = ssd_shape(sz, arch)
     for S in sz.check_lens:
         for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
-            tag = f"{str(dtype)[6:]}_S{S}"
+            tag = f"{prefix}{str(dtype)[6:]}_S{S}"
             xh, dt, A, Bm, Cm = ssd_inputs(dev, B, S, H, P, N, dtype, S)
             y, final = ssd_scan(xh, dt, A, Bm, Cm, chunk=Q)
             cy, cfin = ssd_chunked(xh.float(), dt, A, Bm.float(),
@@ -948,6 +1132,11 @@ def check_ssd(sz: Sizes, dev) -> dict:
 
 
 CONSISTENCY_TOL = 2e-3
+# the families' archs held to prefill/decode consistency on the card
+# (arctic-480b's one f32 layer alone is 56 GB: its parity is held on the
+# CPU)
+CONSISTENCY_ARCHS = ("qwen2-moe-a2.7b", "mamba2-370m", "whisper-medium",
+                     "internvl2-26b")
 
 
 def check_consistency(sz: Sizes, dev, seed: int,
@@ -961,27 +1150,42 @@ def check_consistency(sz: Sizes, dev, seed: int,
     and the differences grow through the layers, far below this bound in
     f32; a wrong mask, state or cache would move logits by O(1).  A
     dense ``arch`` has no SSD: its decode step runs decode attention
-    against the cache that prefill filled through ``flash_attention``."""
+    against the cache that prefill filled through ``flash_attention``.
+    A VLM's vision prefix and an encoder-decoder's frames are drawn from
+    the frontend stubs; a MoE's capacity factor is raised to
+    ``n_experts / top_k``, so that no token is dropped (with drops, S + 1
+    tokens may route otherwise than S tokens and one step)."""
     cfg = model_config(sz, arch, n_layers=sz.consistency_layers,
                        param_dtype="float32", compute_dtype="float32")
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=max(
+            cfg.capacity_factor, cfg.n_experts / cfg.top_k))
     model = Model(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed + 1))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    params = model.init(gen)
     S = max(sz.prompt_lens)
+    pre = prefix_tokens(cfg)
+    extra = synth_inputs(cfg, 2, gen)
     toks = torch.as_tensor(np.random.default_rng(seed + 1).integers(
         0, cfg.vocab, size=(2, S + 1)), device=dev)
     with torch.no_grad():
-        _, caches = model.prefill(params, {"tokens": toks[:, :S]}, S + 1)
-        dec, _ = model.decode_step(params, toks[:, S], caches, S)
-        full, _ = model.prefill(params, {"tokens": toks}, S + 1)
+        _, caches = model.prefill(params, {"tokens": toks[:, :S], **extra},
+                                  pre + S + 1)
+        dec, _ = model.decode_step(params, toks[:, S], caches, pre + S)
+        full, _ = model.prefill(params, {"tokens": toks, **extra},
+                                pre + S + 1)
     err = _check_close(f"{arch} prefill/decode consistency", dec[:, 0],
                        full[:, 0], CONSISTENCY_TOL)
     del params, caches
     free_card(dev)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "S": S, "max_abs_err": err,
-           "tol": CONSISTENCY_TOL, "max_abs_logit": float(full.abs().max())}
+           "tol": CONSISTENCY_TOL,
+           "max_abs_logit": float(full[..., :cfg.vocab].abs().max())}
     if cfg.family == "hybrid":
         out["shared_attn_calls"] = cfg.n_layers // cfg.shared_attn_every
+    if cfg.n_experts:
+        out["capacity_factor"] = cfg.capacity_factor
     return out
 
 
@@ -2596,26 +2800,31 @@ def time_probe(out: dict, launches: int, err: int) -> dict:
 
 def time_flash(dev, launches: int, err: float, arch: str = "zamba2-7b",
                shape=None, path: str = "model") -> dict:
-    """flash_attention at one shape of the main path, bf16, causal: by
-    default an arch's serve shape (S=512; zamba2-7b: B=4, H=K=32, d=112;
-    qwen2-7b: B=4, H=28, K=4, d=128), else ``shape`` = (B, S, H, K, d);
-    ``launches`` are those at that shape.  The bound: q, k, v read once
-    and o written once, or 2 * 2 * d flops per visible (query, key) pair
-    at the bf16 peak, whichever is longer.  The library call is SDPA with
-    ``is_causal=True`` (and ``enable_gqa=True`` where K < H: k and v are
-    not repeated)."""
-    B, S, H, K, d = shape or (FLASH_SHAPES[arch][0], 512,
-                              *FLASH_SHAPES[arch][1:])
-    q, k, v = flash_inputs(dev, B, S, H, d, torch.bfloat16, 0, K)
-    ms = cuda_ms(lambda: fa_kernel.flash_attention_kernel(q, k, v))
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v))
+    """flash_attention at one shape of the main path, bf16: by default an
+    arch's causal serve shape (S=512; zamba2-7b: B=4, H=K=32, d=112;
+    qwen2-7b: B=4, H=28, K=4, d=128), else ``shape`` = (B, Sq, Sk, H, K,
+    d, causal); ``launches`` are those at that shape.  The bound: q, k, v
+    read once and o written once, or 2 * 2 * d flops per visible (query,
+    key) pair at the bf16 peak, whichever is longer.  The library call is
+    SDPA with the same mask (``is_causal``), and ``enable_gqa=True`` where
+    K < H (k and v are not repeated)."""
+    if shape is None:
+        B, H, K, d = FLASH_SHAPES[arch]
+        shape = (B, 512, 512, H, K, d, True)
+    B, Sq, Sk, H, K, d, causal = shape
+    q, k, v = flash_inputs(dev, B, Sq, H, d, torch.bfloat16, 0, K, Sk)
+    ms = cuda_ms(lambda: fa_kernel.flash_attention_kernel(q, k, v,
+                                                          causal=causal))
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
+                                                     causal=causal))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = {"enable_gqa": True} if K < H else {}
     library_ms = cuda_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=True, **gqa))
+                         .scaled_dot_product_attention(
+                             qt, kt, vt, is_causal=causal, **gqa))
     nbytes = sum(2 * t.numel() * t.element_size() for t in (q, k))
-    flops = 4 * d * B * H * (S * (S + 1) // 2)
+    # causal shapes are self-attention (Sq == Sk)
+    flops = 4 * d * B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2628,10 +2837,11 @@ def time_flash(dev, launches: int, err: float, arch: str = "zamba2-7b",
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
-            "library": "scaled_dot_product_attention(is_causal=True"
+            "library": f"scaled_dot_product_attention(is_causal={causal}"
                        + (", enable_gqa=True)" if gqa else ")"),
             "bytes": nbytes, "flops": flops,
-            "shape": [B, S, H, K, d], "dtype": "bfloat16"}
+            "shape": [B, Sq, Sk, H, K, d], "causal": causal,
+            "dtype": "bfloat16"}
 
 
 def ssd_flops(B: int, S: int, H: int, P: int, N: int, Q: int) -> int:
@@ -2648,18 +2858,25 @@ def ssd_flops(B: int, S: int, H: int, P: int, N: int, Q: int) -> int:
     return total
 
 
-def time_ssd(dev, launches: int, err: float) -> dict:
-    """ssd_scan at the serve shape (B=4, S=512, H=112, P=N=64, chunk 128,
-    bf16), from a zero f32 state as prefill into a cache passes it.  The
-    bound: x, dt, B, C and the state read once, y and the final state
-    written once, or :func:`ssd_flops` at the bf16 peak."""
-    B, S, H, P, N, Q = 4, 512, 112, 64, 64, 128
+def time_ssd(dev, launches: int, err: float, arch: str = "zamba2-7b",
+             path: str = "model") -> dict:
+    """ssd_scan at an arch's serve shape (S=512; zamba2-7b: B=4, H=112,
+    P=N=64; mamba2-370m: B=4, H=32, P=64, N=128; chunk 128, bf16), from a
+    zero f32 state as prefill into a cache passes it.  The bound: x, dt,
+    B, C and the state read once, y and the final state written once, or
+    :func:`ssd_flops` at the bf16 peak.  ``f32_ms`` times the f32 kernel
+    on the same values in f32 (the checks' kernel)."""
+    B, H, P, N, Q = ssd_shape(FULL, arch)
+    S = 512
     xh, dt, A, Bm, Cm = ssd_inputs(dev, B, S, H, P, N, torch.bfloat16, 0)
     init = torch.zeros((B, H, P, N), dtype=torch.float32, device=dev)
     ms = cuda_ms(lambda: ssd_kernel.ssd_scan_kernel(
         xh, dt, A, Bm, Cm, chunk=Q, init_state=init))
     plain_ms = cuda_ms(lambda: ssd_chunked(xh, dt, A, Bm, Cm, Q,
                                            init_state=init))
+    x32, b32, c32 = (t.float() for t in (xh, Bm, Cm))
+    f32_ms = cuda_ms(lambda: ssd_kernel.ssd_scan_kernel(
+        x32, dt, A, b32, c32, chunk=Q, init_state=init))
     nbytes = sum(t.numel() * t.element_size()
                  for t in (xh, dt, A, Bm, Cm, init)) \
         + xh.numel() * xh.element_size() + init.numel() * 4
@@ -2668,9 +2885,10 @@ def time_ssd(dev, launches: int, err: float) -> dict:
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:34",
-            "design": "mma.sync bf16", "launches": launches,
+            "design": "mma.sync bf16", "arch": arch, "path": path,
+            "launches": launches,
             "max_abs_err": err, "max_abs_diff": err,
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms, "f32_ms": f32_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "bytes": nbytes, "flops": flops,
@@ -2792,32 +3010,45 @@ def main(argv=None) -> int:
     log({"phase": "model", "ok": True, "device": str(dev), **model,
          "qwen2-7b": dense})
 
-    # 6. load: LoadHarness points against the card's log and a qwen2-7b
+    # 6. families: the MoE, SSM, encoder-decoder and VLM archs served the
+    # same way, one at a time, launch counts from 0 (inside run_model)
+    families = run_families(sz, dev, args.seed)
+    log({"phase": "families", "ok": True, **families})
+    fam = {a["arch"]: a for a in families["archs"]}
+
+    # 7. load: LoadHarness points against the card's log and a qwen2-7b
     # engine, launch counts from 0 (inside run_engine_point)
     t0 = time.perf_counter()
     load = run_load(sz, dev, args.seed)
     log({"phase": "load", "ok": True, **load,
          "phase_s": time.perf_counter() - t0})
 
-    # 7. checkpoint: zamba2-7b's parameters saved, crashed, recovered,
+    # 8. checkpoint: zamba2-7b's parameters saved, crashed, recovered,
     # restored onto the card and served by a prefill
     t0 = time.perf_counter()
     log({"phase": "checkpoint", "ok": True,
          **run_checkpoint(sz, dev, args.seed),
          "phase_s": time.perf_counter() - t0})
 
-    # 8. checks: kernels against their plain versions, and consistency
+    # 9. checks: kernels against their plain versions, and consistency
     t0 = time.perf_counter()
     fa_errs = check_flash(sz, dev)
     ssd_errs = check_ssd(sz, dev)
     cons = check_consistency(sz, dev, args.seed)
     dense_cons = check_consistency(sz, dev, args.seed, "qwen2-7b")
+    fam_cons = {arch: check_consistency(sz, dev, args.seed, arch)
+                for arch in CONSISTENCY_ARCHS}
     log({"phase": "checks", "ok": True, "flash_attention": fa_errs,
          "ssd_scan": ssd_errs, "consistency": cons,
          "consistency_qwen2-7b": dense_cons,
+         **{f"consistency_{a}": c for a, c in fam_cons.items()},
+         "reduced": [f"{a} consistency: capacity_factor "
+                     f"{get_arch(a).capacity_factor} -> "
+                     f"{c['capacity_factor']} (no token dropped)"
+                     for a, c in fam_cons.items() if "capacity_factor" in c],
          "check_s": time.perf_counter() - t0})
 
-    # 9. ordered: the map's stream on the ordered map, its reads, and the
+    # 10. ordered: the map's stream on the ordered map, its reads, and the
     # journaled durable ordered map through a crash (no kernel launches)
     reset_launches()
     ordered = run_ordered(sz, stream, dev, args.seed)
@@ -2830,17 +3061,17 @@ def main(argv=None) -> int:
          "launches": {w.__name__: w.launches for w in WRAPPERS}})
     del ordered
 
-    # 10. migrate: journaled growth through a crash and a recovery
+    # 11. migrate: journaled growth through a crash and a recovery
     reset_launches()
     log({"phase": "migrate", "ok": True, **run_migrate(sz, dev, args.seed),
          "launches": {w.__name__: w.launches for w in WRAPPERS}})
 
-    # 11. crash: every crash scenario at every site x adversary
+    # 12. crash: every crash scenario at every site x adversary
     t0 = time.perf_counter()
     log({"phase": "crash", "ok": True, "scenarios": run_crash(dev),
          "crash_s": time.perf_counter() - t0})
 
-    # 12. paper: the instruction-level structures, checkers and traces on
+    # 13. paper: the instruction-level structures, checkers and traces on
     # the host, bridged to the card's engines (nvt_probe launched once)
     reset_launches()
     t0 = time.perf_counter()
@@ -2851,7 +3082,7 @@ def main(argv=None) -> int:
     log({"phase": "paper", "ok": True, **paper, "launches": paper_launches,
          "phase_s": time.perf_counter() - t0})
 
-    # 13. timing
+    # 14. timing
     if not on_card:
         log({"phase": "timing", "skipped": "no card"})
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
@@ -2866,6 +3097,7 @@ def main(argv=None) -> int:
     # made at that shape (zamba2-7b's and qwen2-7b's model runs, the load
     # phase's engine point)
     engine = load["points"]["engine_closed_zipf1.3"]
+    B, S, H, K, d = engine_flash_shape(sz)
     kernels = [
         kern, time_flash(dev, model["launches"]["flash_attention"], fa_err),
         time_flash(dev, dense["launches"]["flash_attention"], max(
@@ -2873,8 +3105,23 @@ def main(argv=None) -> int:
             "qwen2-7b"),
         time_flash(dev, engine["launches"]["flash_attention"],
                    fa_errs["qwen2_engine_bf16"], "qwen2-7b",
-                   engine_flash_shape(sz), "load engine point"),
+                   (B, S, S, H, K, d, True), "load engine point"),
         time_ssd(dev, model["launches"]["ssd_scan"], ssd_err)]
+    # the families' shapes: an entry a new main-path shape, with the
+    # launches the families phase made at it
+    for key, shape in family_flash_shapes(sz).items():
+        arch = {"qwen2_moe": "qwen2-moe-a2.7b", "internvl2": "internvl2-26b",
+                "arctic": "arctic-480b"}.get(key, "whisper-medium")
+        err = max(v for k, v in fa_errs.items() if k.startswith(key))
+        kernels.append(time_flash(
+            dev, launches_at(fam[arch]["flash_shapes"], shape), err, arch,
+            shape, "families" + ("" if arch != "whisper-medium"
+                                 else " " + key[len("whisper_"):])))
+    kernels.append(time_ssd(
+        dev, fam["mamba2-370m"]["launches"]["ssd_scan"],
+        max(v for k, v in ssd_errs.items()
+            if k.startswith("mamba2_bfloat16_S512")
+            and "chunked_bf16" not in k), "mamba2-370m", "families"))
     log({"phase": "timing", "ok": True, "warm_s": warm_stages(sz, stream,
                                                              out, dev),
          "walk_step_sync_us": sync_step_us(dev),

@@ -1,31 +1,34 @@
-"""Architecture registry of the port: the archs it serves so far and the
+"""Architecture registry of the port: the reference's ten archs and the
 reduced ("tiny") variants that drive the CPU tests (the port's own copy of
 ``repro.configs.registry.get_arch``/``tiny``).
 
-The hybrid zamba2-7b and the dense family (qwen2-7b, qwen3-1.7b,
-qwen1.5-32b, gemma3-27b) are here; the MoE, SSM, encoder-decoder and VLM
-archs come with the slices that serve them.
+Every family is here: dense (qwen2-7b, qwen3-1.7b, qwen1.5-32b,
+gemma3-27b), moe (qwen2-moe-a2.7b, arctic-480b), ssm (mamba2-370m),
+hybrid (zamba2-7b), encdec (whisper-medium) and vlm (internvl2-26b).
 """
 from __future__ import annotations
 
 import dataclasses
 
+from .arctic_480b import ARCTIC_480B
 from .base import ArchConfig
 from .gemma3_27b import GEMMA3_27B
+from .internvl2_26b import INTERNVL2_26B
+from .mamba2_370m import MAMBA2_370M
 from .qwen1_5_32b import QWEN1_5_32B
 from .qwen2_7b import QWEN2_7B
+from .qwen2_moe_a2_7b import QWEN2_MOE_A2_7B
 from .qwen3_1_7b import QWEN3_1_7B
+from .whisper_medium import WHISPER_MEDIUM
 from .zamba2_7b import ZAMBA2_7B
 
-ARCHS = {c.name: c for c in (GEMMA3_27B, QWEN3_1_7B, QWEN1_5_32B, QWEN2_7B,
-                             ZAMBA2_7B)}
+ARCHS = {c.name: c for c in (
+    WHISPER_MEDIUM, ARCTIC_480B, QWEN2_MOE_A2_7B, GEMMA3_27B, QWEN3_1_7B,
+    QWEN1_5_32B, QWEN2_7B, MAMBA2_370M, INTERNVL2_26B, ZAMBA2_7B,
+)}
 
 
 def get_arch(name: str) -> ArchConfig:
-    if name not in ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (later slice); the port "
-            f"serves {sorted(ARCHS)}")
     return ARCHS[name]
 
 

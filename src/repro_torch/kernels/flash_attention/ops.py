@@ -11,6 +11,8 @@ kernel's tiles are fixed and it masks ragged sequence ends itself.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from .kernel import flash_attention_kernel
@@ -21,11 +23,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B, Sq, H, dh]; k/v: [B, Sk, K, dh] (GQA).  Returns
     [B, Sq, H, dh] in the q dtype.  ``flash_attention.launches`` counts
-    the kernel launches made through this wrapper."""
+    the kernel launches made through this wrapper, and
+    ``flash_attention.shapes`` the same launches by
+    ``(B, Sq, Sk, H, K, dh, causal)``."""
     if q.is_cuda:
         out = flash_attention_kernel(q, k, v, causal=causal, window=window)
         if out.numel():
             flash_attention.launches += 1
+            flash_attention.shapes[(*q.shape[:2], k.shape[1], q.shape[2],
+                                    *k.shape[2:], bool(causal))] += 1
         return out
     if not (q.device.type == k.device.type == v.device.type == "cpu"):
         raise ValueError("q, k and v must be on one device (CUDA for the "
@@ -50,3 +56,4 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.shapes = Counter()

@@ -63,7 +63,12 @@
 // f32 -- `ssd_chunk_scan<float>`, the scalar kernel of the first port,
 // kept for the f32 checks (1e-4): one block of 256 threads per (batch,
 // head), everything in f32 shared memory (about 180 KB at Q = 128,
-// P = N = 64), scalar FMAs.
+// P = N = 64), scalar FMAs.  Where a head's P columns do not fit a
+// block's 232,448 bytes (mamba2-370m: Q = 128, P = 64, N = 128 needs
+// 265,984), the columns are split over blocks as the bf16 kernel splits
+// them: `f32_slice` halves the slice until it fits (16 there, 216,640
+// bytes), and each block recomputes the chunk's scores for its slice.
+// An unsplit head runs as before.
 //
 // Bound on this card: bytes.  At the serve shape (B = 4, S = 512,
 // H = 112, P = N = 64, chunk 128, bf16, prefill into a cache, so with an
@@ -100,10 +105,21 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
 
+constexpr size_t kSmemLimit = 232448;  // dynamic shared memory a block
+
+// The f32 kernel's dynamic shared memory for a block of P columns.
 size_t smem_bytes(int Q, int P, int N) {
   return sizeof(float) *
          ((size_t)Q * (P + 1) + 2 * (size_t)Q * (N + 1) +
           (size_t)Q * (Q + 1) + (size_t)P * (N + 1) + 3 * (size_t)Q);
+}
+
+// Columns of P a block of the f32 kernel owns: P, else P halved (rounded
+// up) until the block fits kSmemLimit; 0 when not even one column fits.
+int f32_slice(int Q, int P, int N) {
+  int w = P;
+  while (w > 1 && smem_bytes(Q, w, N) > kSmemLimit) w = (w + 1) / 2;
+  return smem_bytes(Q, w, N) <= kSmemLimit ? w : 0;
 }
 
 template <typename T>
@@ -112,34 +128,39 @@ ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ A, const T* __restrict__ Bm,
                const T* __restrict__ Cm, const float* __restrict__ init,
                T* __restrict__ y, float* __restrict__ final_state, int S,
-               int H, int P, int N, int Q, long long xsb, long long xst,
-               long long bsb, long long bst, long long csb, long long cst) {
+               int H, int P, int N, int Q, int PS, long long xsb,
+               long long xst, long long bsb, long long bst, long long csb,
+               long long cst) {
   extern __shared__ float smem[];
-  const int lx = P + 1, ln = N + 1, lq = Q + 1;
+  // this block's columns: [p0, p0 + pw) of the head's P, in slices of PS
+  const int n_slices = (P + PS - 1) / PS;
+  const int bh = blockIdx.x / n_slices;
+  const int p0 = (blockIdx.x - bh * n_slices) * PS;
+  const int pw = min(PS, P - p0);
+  const int lx = pw + 1, ln = N + 1, lq = Q + 1;
   float* sx = smem;                  // [Q][lx]
   float* sb = sx + Q * lx;           // [Q][ln]
   float* sc = sb + Q * ln;           // [Q][ln]
   float* ss = sc + Q * ln;           // [Q][lq] scores
-  float* st = ss + Q * lq;           // [P][ln] carried state
-  float* sdt = st + P * ln;          // [Q]
+  float* st = ss + Q * lq;           // [pw][ln] carried state
+  float* sdt = st + pw * ln;         // [Q]
   float* scum = sdt + Q;             // [Q]
   float* sw = scum + Q;              // [Q] exp(cum_last - cum_j) * dt_j
 
-  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int tid = threadIdx.x;
   const float a = A[h];
 
   const size_t x_row = (size_t)H * P;          // one token of y
-  const T* xb = x + b * xsb + (size_t)h * P;
-  T* yb = y + (size_t)b * S * x_row + (size_t)h * P;
+  const T* xb = x + b * xsb + (size_t)h * P + p0;
+  T* yb = y + (size_t)b * S * x_row + (size_t)h * P + p0;
   const float* dtb = dt + (size_t)b * S * H + h;
   const T* bb = Bm + b * bsb;
   const T* cb = Cm + b * csb;
-  const size_t state_off = (size_t)bh * P * N;
+  const size_t state_off = ((size_t)bh * P + p0) * N;
 
-  for (int i = tid; i < P * N; i += kThreads) {
+  for (int i = tid; i < pw * N; i += kThreads) {
     const int p = i / N, n = i - p * N;
     st[p * ln + n] = init ? init[state_off + i] : 0.f;
   }
@@ -148,8 +169,8 @@ ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ dt,
   for (int c = 0; c < n_chunks; ++c) {
     const int t0 = c * Q;
     __syncthreads();                 // the previous chunk is consumed
-    for (int i = tid; i < Q * P; i += kThreads) {
-      const int j = i / P, p = i - j * P;
+    for (int i = tid; i < Q * pw; i += kThreads) {
+      const int j = i / pw, p = i - j * pw;
       const int t = t0 + j;
       sx[j * lx + p] = t < S ? to_f32(xb[t * xst + p]) : 0.f;
     }
@@ -192,8 +213,8 @@ ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();
 
     // y = scores x + exp(cum) * (C state^T), from the state before update
-    for (int i = tid; i < Q * P; i += kThreads) {
-      const int r = i / P, p = i - r * P;
+    for (int i = tid; i < Q * pw; i += kThreads) {
+      const int r = i / pw, p = i - r * pw;
       const int t = t0 + r;
       if (t >= S) continue;
       const float* sr = ss + r * lq;
@@ -209,7 +230,7 @@ ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ dt,
 
     // state = exp(cum_last) * state + sum_j x_j (x) B_j * w_j
     const float decay = expf(cum_last);
-    for (int i = tid; i < P * N; i += kThreads) {
+    for (int i = tid; i < pw * N; i += kThreads) {
       const int p = i / N, n = i - p * N;
       float v = 0.f;
       for (int j = 0; j < Q; ++j)
@@ -218,7 +239,7 @@ ssd_chunk_scan(const T* __restrict__ x, const float* __restrict__ dt,
     }
   }
   __syncthreads();
-  for (int i = tid; i < P * N; i += kThreads) {
+  for (int i = tid; i < pw * N; i += kThreads) {
     const int p = i / N, n = i - p * N;
     final_state[state_off + i] = st[p * ln + n];
   }
@@ -229,15 +250,18 @@ int launch_f32(const void* x, const void* dt, const void* A, const void* Bm,
                int B, int S, int H, int P, int N, int Q, long long xsb,
                long long xst, long long bsb, long long bst, long long csb,
                long long cst, void* stream) {
-  const size_t smem = smem_bytes(Q, P, N);
+  const int PS = f32_slice(Q, P, N);
+  if (PS == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(Q, PS, N);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_chunk_scan<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ssd_chunk_scan<float><<<B * H, kThreads, smem, (cudaStream_t)stream>>>(
+  const int blocks = B * H * ((P + PS - 1) / PS);
+  ssd_chunk_scan<float><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)dt, (const float*)A, (const float*)Bm,
       (const float*)Cm, (const float*)init, (float*)y, (float*)final_state,
-      S, H, P, N, Q, xsb, xst, bsb, bst, csb, cst);
+      S, H, P, N, Q, PS, xsb, xst, bsb, bst, csb, cst);
   return (int)cudaGetLastError();
 }
 
@@ -713,8 +737,14 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of one block: dtype 0 = the f32 kernel, 1 = bf16.
+// Dynamic shared memory of one block: dtype 0 = the f32 kernel (a slice
+// of f32_slice columns), 1 = bf16.
 extern "C" long long ssd_scan_smem_bytes(int Q, int P, int N, int dtype) {
-  return (long long)(dtype == 0 ? smem_bytes(Q, P, N)
+  return (long long)(dtype == 0 ? smem_bytes(Q, f32_slice(Q, P, N), N)
                                 : tc_layout(Q, P, N).total);
+}
+
+// Columns of P a block of the f32 kernel owns (0: the chunk does not fit).
+extern "C" int ssd_scan_f32_slice(int Q, int P, int N) {
+  return f32_slice(Q, P, N);
 }

@@ -20,10 +20,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def smem_bytes(Q: int, P: int, N: int) -> int:
-    """The f32 kernel's dynamic shared memory (``smem_bytes`` in the
-    source)."""
+    """The f32 kernel's dynamic shared memory for a block of ``P``
+    columns (``smem_bytes`` in the source)."""
     return 4 * (Q * (P + 1) + 2 * Q * (N + 1) + Q * (Q + 1) + P * (N + 1)
                 + 3 * Q)
+
+
+def f32_slice_p(Q: int, P: int, N: int) -> int:
+    """Columns of P a block of the f32 kernel owns (``f32_slice`` in the
+    source): P, else P halved (rounded up) until the block fits
+    ``SMEM_LIMIT``; 0 when not even one column fits."""
+    w = P
+    while w > 1 and smem_bytes(Q, w, N) > SMEM_LIMIT:
+        w = (w + 1) // 2
+    return w if smem_bytes(Q, w, N) <= SMEM_LIMIT else 0
+
+
+def f32_smem_bytes(Q: int, P: int, N: int) -> int:
+    """The f32 kernel's dynamic shared memory a block, its P split as
+    :func:`f32_slice_p` splits it."""
+    return smem_bytes(Q, max(1, f32_slice_p(Q, P, N)), N)
 
 
 def tc_smem_bytes(Q: int, P: int, N: int) -> int:
@@ -51,9 +67,15 @@ def _library():
     lib.ssd_scan_launch.restype = ctypes.c_int
     lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
-    for shape in ((128, 64, 64), (32, 16, 8), (100, 200, 72)):
-        if (lib.ssd_scan_smem_bytes(*shape, 0), lib.ssd_scan_smem_bytes(
-                *shape, 1)) != (smem_bytes(*shape), tc_smem_bytes(*shape)):
+    lib.ssd_scan_f32_slice.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_f32_slice.restype = ctypes.c_int
+    for shape in ((128, 64, 64), (32, 16, 8), (100, 200, 72),
+                  (128, 64, 128)):
+        if (lib.ssd_scan_smem_bytes(*shape, 0),
+                lib.ssd_scan_smem_bytes(*shape, 1),
+                lib.ssd_scan_f32_slice(*shape)) != (
+                f32_smem_bytes(*shape), tc_smem_bytes(*shape),
+                f32_slice_p(*shape)):
             raise RuntimeError("ssd_scan library and smem_bytes disagree")
     return lib
 
@@ -124,11 +146,11 @@ def ssd_scan_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if tc and N > TC_MAX_STATE:
         raise ValueError(f"state size N={N} above {TC_MAX_STATE}, which "
                          f"the bf16 kernel holds in registers")
-    need = (tc_smem_bytes if tc else smem_bytes)(chunk, P, N)
+    need = (tc_smem_bytes if tc else f32_smem_bytes)(chunk, P, N)
     if need > SMEM_LIMIT:
         raise ValueError(f"chunk {chunk} with P={P}, N={N} needs {need} "
                          f"bytes of shared memory, more than {SMEM_LIMIT}")
-    if B * H * -(-P // TC_SLICE_P) >= 2**31 or B * S * H * P >= 2**62:
+    if B * H * P >= 2**31 or B * S * H * P >= 2**62:
         raise ValueError("shape too large for the kernel's grid")
     y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)

@@ -1,5 +1,5 @@
-"""Serving entry point: batched greedy requests against an arch the port
-serves (reduced or full config) with the durable request log.
+"""Serving entry point: batched greedy requests against any arch (reduced
+or full config) with the durable request log.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny:qwen2-7b \
         --requests 8 --new-tokens 8 [--crash-after 1] [--device cpu]
@@ -17,7 +17,7 @@ import torch
 
 from ..configs.registry import get_arch, tiny
 from ..core.batched import resolve_device
-from ..models.model import Model
+from ..models.model import Model, prefix_tokens
 from ..serving.engine import ServeEngine
 
 
@@ -46,8 +46,8 @@ def main(argv=None) -> None:
                                 size=args.prompt_len).astype(np.int32)
                 for i in range(args.requests)}
     log_dir = args.log_dir or tempfile.mkdtemp(prefix="serve_log_")
-    eng = ServeEngine(model, params, max_len=args.prompt_len
-                      + args.new_tokens, log_dir=log_dir,
+    max_len = args.prompt_len + args.new_tokens + prefix_tokens(cfg)
+    eng = ServeEngine(model, params, max_len=max_len, log_dir=log_dir,
                       batch_size=args.batch_size, device=dev)
     out = eng.serve(requests, n_new=args.new_tokens,
                     crash_after_batches=args.crash_after)

@@ -5,8 +5,9 @@ a leading ``L`` axis (``repro.models.transformer.stacked_params``).  Given
 that tree as numpy arrays (``jax.tree.map(np.asarray, params)``),
 :func:`params_from_numpy` builds the port's :class:`ParamTree` with the
 layer axis unrolled, so ``blocks/mamba/in_proj[3]`` becomes
-``blocks.mamba.3.in_proj`` (and a dense model's ``blocks/attn/wq[3]``
-``blocks.3.attn.wq``).  bf16 arrays (numpy's ``bfloat16`` extension
+``blocks.mamba.3.in_proj`` (a dense model's ``blocks/attn/wq[3]``
+``blocks.3.attn.wq``, an encoder-decoder's ``encoder/mlp/w_up[1]``
+``encoder.1.mlp.w_up``).  bf16 arrays (numpy's ``bfloat16`` extension
 dtype) arrive as torch bf16, bit for bit.
 """
 from __future__ import annotations
@@ -17,7 +18,10 @@ import torch
 from .model import ParamTree
 
 # subtrees whose leaves carry the stacked layer axis, per family
-STACKED = {"dense": (("blocks",),), "hybrid": (("blocks", "mamba"),)}
+STACKED = {"dense": (("blocks",),), "vlm": (("blocks",),),
+           "moe": (("blocks",),), "ssm": (("blocks",),),
+           "hybrid": (("blocks", "mamba"),),
+           "encdec": (("encoder",), ("blocks",))}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -51,9 +55,6 @@ def _unstack(tree: dict) -> list:
 
 def params_from_numpy(tree: dict, cfg, device) -> ParamTree:
     """The port's parameters from the reference's tree of numpy arrays."""
-    if cfg.family not in STACKED:
-        raise NotImplementedError(f"family {cfg.family!r}: later slice")
-
     def conv(t):
         return {k: conv(v) if isinstance(v, dict) else _tensor(v, device)
                 for k, v in t.items()}

@@ -1,17 +1,25 @@
-"""The model API of the port (port of ``repro.models.model`` for the
-dense and hybrid families)::
+"""The model API of the port over every family (port of
+``repro.models.model``)::
 
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
-    logits, caches = model.prefill(params, {"tokens": tokens}, max_len)
+    logits, caches = model.prefill(params, batch, max_len)
     logits, caches = model.decode_step(params, tokens, caches, pos)
+
+Batch conventions (the reference's):
+
+  * lm (dense/moe/ssm/hybrid): ``{"tokens": int[B, S]}``;
+  * encdec (whisper): ``{"frames": f[B, enc_seq, D] (conv-stub output),
+    "tokens": int[B, S]}``;
+  * vlm (internvl2): ``{"vis": f[B, vis_tokens, D] (ViT-stub output),
+    "tokens": int[B, S]}``; the vision prefix takes positions
+    ``0 .. vis_tokens - 1``, so decode writes at ``vis_tokens + S + i``.
 
 Parameters are a :class:`ParamTree`, an ``nn.Module`` whose names are the
 reference's tree paths with the stacked layer axis unrolled
-(``blocks.mamba.3.in_proj``, ``blocks.3.attn.wq``);
+(``blocks.mamba.3.in_proj``, ``blocks.3.attn.wq``, ``encoder.0.mlp.w_up``);
 :mod:`repro_torch.models.convert` builds one from the reference's
-parameters.  The MoE, SSM, encoder-decoder and VLM families raise
-``NotImplementedError`` until their slice.
+parameters.
 """
 from __future__ import annotations
 
@@ -25,9 +33,17 @@ from . import transformer as T
 from .layers import _zeros, dense_init, rms_norm
 from .mamba2 import mamba_params
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+def prefix_tokens(cfg) -> int:
+    """Positions a VLM's vision prefix takes before the prompt (0 for the
+    other families): decode writes at ``prefix_tokens + S + i``."""
+    return cfg.vis_tokens if cfg.family == "vlm" else 0
 
 
 def padded_vocab(cfg) -> int:
@@ -62,18 +78,13 @@ class ParamTree(nn.Module):
         return self[name] if name in self else default
 
 
-# the families the port serves, and the layer stack each runs
-STACKS = {"dense": T.dense_stack, "hybrid": T.hybrid_stack}
-
-
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: object
 
     def __post_init__(self):
-        if self.cfg.family not in STACKS:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r}: later slice")
+        if self.cfg.family not in FAMILIES:
+            raise ValueError(f"family {self.cfg.family!r}")
 
     def init(self, gen: torch.Generator) -> ParamTree:
         """Random parameters with the reference's shapes, dtypes and
@@ -85,19 +96,40 @@ class Model:
                 "final_norm": _zeros(gen, (D,), dt)}
         if not cfg.tie_embeddings:
             tree["lm_head"] = dense_init(gen, (D, V), dt)
-        if cfg.family == "dense":
+        fam, L = cfg.family, cfg.n_layers
+        if fam in ("dense", "vlm"):
             tree["blocks"] = [T.dense_block_params(gen, cfg, dt)
-                              for _ in range(cfg.n_layers)]
-        else:
+                              for _ in range(L)]
+        elif fam == "moe":
+            tree["blocks"] = [T.moe_block_params(gen, cfg, dt)
+                              for _ in range(L)]
+        elif fam == "ssm":
+            tree["blocks"] = [mamba_params(gen, cfg, dt) for _ in range(L)]
+        elif fam == "hybrid":
             tree["blocks"] = {
-                "mamba": [mamba_params(gen, cfg, dt)
-                          for _ in range(cfg.n_layers)],
+                "mamba": [mamba_params(gen, cfg, dt) for _ in range(L)],
                 "shared": T.dense_block_params(gen, cfg, dt)}
+        else:   # encdec
+            tree["encoder"] = [T.dense_block_params(gen, cfg, dt)
+                               for _ in range(cfg.enc_layers)]
+            tree["enc_pos"] = dense_init(gen, (cfg.enc_seq, D), dt,
+                                         scale=0.02)
+            tree["enc_norm"] = _zeros(gen, (D,), dt)
+            tree["blocks"] = [T.encdec_block_params(gen, cfg, dt)
+                              for _ in range(L)]
+            tree["dec_pos"] = dense_init(gen, (8192, D), dt, scale=0.02)
         return ParamTree(tree)
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        ct = _dtype(self.cfg.compute_dtype)
-        return F.embedding(tokens.long(), params["embed"].to(ct))
+    def _embed(self, params, tokens: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        ct = _dtype(cfg.compute_dtype)
+        x = F.embedding(tokens.long(), params["embed"].to(ct))
+        if cfg.family == "encdec" and cfg.rope_theta <= 0:
+            # absolute positional embeddings (whisper's decoder)
+            pe = params["dec_pos"].to(ct)
+            x = x + pe[positions.long().clamp(0, pe.shape[0] - 1)]
+        return x
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -112,41 +144,94 @@ class Model:
                 -1e30)
         return logits
 
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        ct = _dtype(cfg.compute_dtype)
+        x = frames.to(ct) + params["enc_pos"].to(ct)[None]
+        x = T.encoder_stack(params["encoder"], x, cfg)
+        return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _backbone(self, params, x: torch.Tensor, *, positions, mode: str,
+                  caches=None, cache_pos=None, enc_out=None):
+        """The family's layer stack; returns (x, caches), the caches
+        updated in place.  An encdec model's caches are
+        ``{"self", "cross"}``; its prefill gives the encoder output
+        ``enc_out``, which fills the cross caches."""
+        cfg, fam = self.cfg, self.cfg.family
+        if fam in ("dense", "vlm"):
+            x, _ = T.dense_stack(params["blocks"], x, cfg,
+                                 positions=positions, mode=mode,
+                                 caches=caches, cache_pos=cache_pos)
+        elif fam == "moe":
+            x, _, _ = T.moe_stack(params["blocks"], x, cfg,
+                                  positions=positions, mode=mode,
+                                  caches=caches, cache_pos=cache_pos)
+        elif fam == "ssm":
+            x, _ = T.ssm_stack(params["blocks"], x, cfg, caches=caches)
+        elif fam == "hybrid":
+            x, _ = T.hybrid_stack(params["blocks"], x, cfg,
+                                  positions=positions, mode=mode,
+                                  caches=caches, cache_pos=cache_pos)
+        else:   # encdec
+            x, _, _ = T.decoder_stack(
+                params["blocks"], x, cfg, positions=positions, mode=mode,
+                enc_out=enc_out,
+                xa_caches=caches["cross"], caches=caches["self"],
+                cache_pos=cache_pos)
+        return x, caches
+
     def init_caches(self, batch: int, max_len: int, device) -> dict:
         cfg = self.cfg
         ct = _dtype(cfg.compute_dtype)
-        if cfg.family == "dense":
-            return T.init_attn_caches(cfg, cfg.n_layers, batch, max_len, ct,
-                                      device)
-        n_inv = cfg.n_layers // cfg.shared_attn_every
-        return {"ssm": T.init_ssm_caches(cfg, cfg.n_layers, batch, ct,
-                                         device),
-                "attn": T.init_attn_caches(cfg, n_inv, batch, max_len, ct,
-                                           device)}
+        fam, L = cfg.family, cfg.n_layers
+        if fam in ("dense", "vlm", "moe"):
+            return T.init_attn_caches(cfg, L, batch, max_len, ct, device)
+        if fam == "ssm":
+            return T.init_ssm_caches(cfg, L, batch, ct, device)
+        if fam == "hybrid":
+            n_inv = L // cfg.shared_attn_every
+            return {"ssm": T.init_ssm_caches(cfg, L, batch, ct, device),
+                    "attn": T.init_attn_caches(cfg, n_inv, batch, max_len,
+                                               ct, device)}
+        # encdec: the cross buffers, sized to the encoder output, are
+        # filled by prefill with the projected encoder k/v
+        return {"self": T.init_attn_caches(cfg, L, batch, max_len, ct,
+                                           device),
+                "cross": T.init_attn_caches(cfg, L, batch, cfg.enc_seq, ct,
+                                            device)}
 
     def prefill(self, params, batch: dict, max_len: int):
-        """Forward over the prompt ``batch["tokens"]`` [B, S]; returns
-        (last-token logits [B, 1, V], caches)."""
+        """Forward over the prompt ``batch["tokens"]`` [B, S] (and the
+        family's ``vis`` or ``frames``); returns (last-token logits
+        [B, 1, V], caches)."""
+        cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
         dev = params["embed"].device
         positions = torch.arange(S, device=dev).expand(B, S)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, positions)
         caches = self.init_caches(B, max_len, dev)
-        x, caches = STACKS[self.cfg.family](
-            params["blocks"], x, self.cfg, positions=positions,
-            mode="causal", caches=caches)
+        if cfg.family == "vlm":
+            x = torch.cat([batch["vis"].to(x.dtype), x], dim=1)
+            Sv = x.shape[1]
+            positions = torch.arange(Sv, device=dev).expand(B, Sv)
+        enc_out = self._encode(params, batch["frames"]) \
+            if cfg.family == "encdec" else None
+        x, caches = self._backbone(params, x, positions=positions,
+                                   mode="causal", caches=caches,
+                                   enc_out=enc_out)
         return self._logits(params, x[:, -1:]), caches
 
     def decode_step(self, params, tokens: torch.Tensor, caches: dict,
                     pos: int):
         """One decode step.  tokens: [B]; pos: the position being written
-        (== current cache length).  The caches are updated in place."""
+        (== current cache length, the vision prefix included).  The
+        caches are updated in place."""
         B = tokens.shape[0]
         positions = torch.full((B, 1), int(pos), dtype=torch.int32,
                                device=params["embed"].device)
-        x = self._embed(params, tokens[:, None])
-        x, caches = STACKS[self.cfg.family](
-            params["blocks"], x, self.cfg, positions=positions,
-            mode="decode", caches=caches, cache_pos=pos)
+        x = self._embed(params, tokens[:, None], positions)
+        x, caches = self._backbone(params, x, positions=positions,
+                                   mode="decode", caches=caches,
+                                   cache_pos=pos)
         return self._logits(params, x), caches

@@ -1,7 +1,13 @@
-"""Layer stacks (port of ``repro.models.transformer`` for the dense and
-hybrid families): the dense block, its parameters, the dense stack (with
-gemma3's local:global window pattern), the zamba2 stack and the functions
-that allocate their caches.
+"""Layer stacks for every family (port of ``repro.models.transformer``):
+
+  * dense / vlm:  [attn -> mlp] x L, with gemma3's local:global window
+    pattern;
+  * moe:          [attn -> moe_ffn (+shared / +dense residual)] x L;
+  * ssm:          [mamba2 SSD] x L;
+  * hybrid:       mamba2 backbone with the tied shared block every k-th
+    layer (zamba2);
+  * encdec:       bidirectional encoder stack + causal decoder stack with
+    cross-attention (whisper).
 
 The reference scans over stacked per-layer parameters with ``lax.scan``,
 computes each layer's window as a traced scalar, and picks zamba2's
@@ -18,9 +24,10 @@ from typing import Optional
 
 import torch
 
-from .layers import _zeros, attn_params, mlp, mlp_params, rms_norm, \
-    self_attention
+from .layers import _zeros, attn_params, cross_attention, cross_kv, mlp, \
+    mlp_params, rms_norm, self_attention
 from .mamba2 import SSMCache, init_ssm_cache, mamba_block
+from .moe import moe_ffn, moe_params
 
 
 def dense_block(p, x: torch.Tensor, cfg, *, positions, mode: str,
@@ -36,10 +43,58 @@ def dense_block(p, x: torch.Tensor, cfg, *, positions, mode: str,
     return x, new_cache
 
 
+def moe_block(p, x: torch.Tensor, cfg, *, positions, mode: str,
+              cache: Optional[dict] = None, cache_pos=None):
+    h, new_cache = self_attention(p["attn"], rms_norm(x, p["ln1"],
+                                                      cfg.norm_eps),
+                                  cfg, positions=positions, mode=mode,
+                                  cache=cache, cache_pos=cache_pos)
+    x = x + h
+    y, aux = moe_ffn(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + y, new_cache, aux
+
+
+def encdec_block(p, x: torch.Tensor, cfg, *, positions, mode: str,
+                 cache: Optional[dict] = None, cache_pos=None,
+                 enc_out: Optional[torch.Tensor] = None,
+                 xa_cache: Optional[dict] = None):
+    """Whisper's decoder block: causal self-attention, cross-attention
+    over ``enc_out`` (prefill) or ``xa_cache`` (decode), MLP.  Returns
+    (x, cache, the cross k/v)."""
+    h, new_cache = self_attention(p["attn"], rms_norm(x, p["ln1"],
+                                                      cfg.norm_eps),
+                                  cfg, positions=positions, mode=mode,
+                                  cache=cache, cache_pos=cache_pos)
+    x = x + h
+    h, xa_kv = cross_attention(p["xattn"], rms_norm(x, p["ln_x"],
+                                                    cfg.norm_eps),
+                               cfg, kv=enc_out, kv_cache=xa_cache)
+    x = x + h
+    x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    return x, new_cache, xa_kv
+
+
 def dense_block_params(gen: torch.Generator, cfg, dtype) -> dict:
     return {"ln1": _zeros(gen, (cfg.d_model,), dtype),
             "ln2": _zeros(gen, (cfg.d_model,), dtype),
             "attn": attn_params(gen, cfg, dtype),
+            "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, cfg.act,
+                              fused=cfg.fused_gate_up)}
+
+
+def moe_block_params(gen: torch.Generator, cfg, dtype) -> dict:
+    return {"ln1": _zeros(gen, (cfg.d_model,), dtype),
+            "ln2": _zeros(gen, (cfg.d_model,), dtype),
+            "attn": attn_params(gen, cfg, dtype),
+            "moe": moe_params(gen, cfg, dtype)}
+
+
+def encdec_block_params(gen: torch.Generator, cfg, dtype) -> dict:
+    return {"ln1": _zeros(gen, (cfg.d_model,), dtype),
+            "ln2": _zeros(gen, (cfg.d_model,), dtype),
+            "ln_x": _zeros(gen, (cfg.d_model,), dtype),
+            "attn": attn_params(gen, cfg, dtype),
+            "xattn": attn_params(gen, cfg, dtype),
             "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, dtype, cfg.act,
                               fused=cfg.fused_gate_up)}
 
@@ -54,17 +109,59 @@ def _layer_window(cfg, idx: int) -> int:
     return 0 if idx % period == period - 1 else cfg.local_window
 
 
+def _layer_cache(caches: Optional[dict], idx: int) -> Optional[dict]:
+    """Layer ``idx``'s {'k','v'} views of stacked [L, ...] caches."""
+    return None if caches is None else {"k": caches["k"][idx],
+                                        "v": caches["v"][idx]}
+
+
 def dense_stack(params, x: torch.Tensor, cfg, *, positions, mode: str,
                 caches: Optional[dict] = None, cache_pos=None):
     """[attn -> mlp] x L.  ``params`` holds the L per-layer trees;
     ``caches = {'k','v'} [L, B, max_len, K, dh]`` or None, updated in
     place and returned."""
     for idx, lp in enumerate(params):
-        cache = None if caches is None else {
-            "k": caches["k"][idx], "v": caches["v"][idx]}
         x, _ = dense_block(lp, x, cfg, positions=positions, mode=mode,
-                           window=_layer_window(cfg, idx), cache=cache,
+                           window=_layer_window(cfg, idx),
+                           cache=_layer_cache(caches, idx),
                            cache_pos=cache_pos)
+    return x, caches
+
+
+def moe_stack(params, x: torch.Tensor, cfg, *, positions, mode: str,
+              caches: Optional[dict] = None, cache_pos=None):
+    """[attn -> moe_ffn] x L; returns (x, caches, the mean aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for idx, lp in enumerate(params):
+        x, _, a = moe_block(lp, x, cfg, positions=positions, mode=mode,
+                            cache=_layer_cache(caches, idx),
+                            cache_pos=cache_pos)
+        aux = aux + a
+    return x, caches, aux / len(params)
+
+
+def _ssm_layer_cache(caches: Optional[SSMCache], idx: int):
+    return None if caches is None else SSMCache(caches.state[idx],
+                                                caches.conv[idx])
+
+
+def _mamba_layer(lp, x: torch.Tensor, cfg, ssm: Optional[SSMCache]):
+    """x + mamba_block(rms_norm(x)), the layer's cache views updated in
+    place."""
+    h, new = mamba_block(lp, rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
+                         cache=ssm)
+    if new is not None:
+        ssm.state.copy_(new.state)
+        ssm.conv.copy_(new.conv)
+    return x + h
+
+
+def ssm_stack(params, x: torch.Tensor, cfg, *,
+              caches: Optional[SSMCache] = None):
+    """[mamba2 SSD] x L; ``caches`` an SSMCache of [L, ...] tensors or
+    None, updated in place and returned."""
+    for idx, lp in enumerate(params):
+        x = _mamba_layer(lp, x, cfg, _ssm_layer_cache(caches, idx))
     return x, caches
 
 
@@ -79,21 +176,58 @@ def hybrid_stack(params, x: torch.Tensor, cfg, *, positions, mode: str,
     k = cfg.shared_attn_every
     shared = params["shared"]
     for idx, lp in enumerate(params["mamba"]):
-        ssm = None if caches is None else SSMCache(
-            caches["ssm"].state[idx], caches["ssm"].conv[idx])
-        h, new_ssm = mamba_block(lp, rms_norm(x, lp["ln"], cfg.norm_eps),
-                                 cfg, cache=ssm)
-        x = x + h
-        if new_ssm is not None:
-            ssm.state.copy_(new_ssm.state)
-            ssm.conv.copy_(new_ssm.conv)
+        x = _mamba_layer(lp, x, cfg, None if caches is None
+                         else _ssm_layer_cache(caches["ssm"], idx))
         if k and idx % k == k - 1:
-            inv = idx // k
-            attn = None if caches is None else {
-                "k": caches["attn"]["k"][inv], "v": caches["attn"]["v"][inv]}
+            attn = None if caches is None else \
+                _layer_cache(caches["attn"], idx // k)
             x, _ = dense_block(shared, x, cfg, positions=positions,
                                mode=mode, cache=attn, cache_pos=cache_pos)
     return x, caches
+
+
+def encoder_stack(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The bidirectional encoder: dense blocks without positions or
+    caches."""
+    for lp in params:
+        x, _ = dense_block(lp, x, cfg, positions=None, mode="bidir")
+    return x
+
+
+def decoder_stack(params, x: torch.Tensor, cfg, *, positions, mode: str,
+                  enc_out: Optional[torch.Tensor] = None,
+                  xa_caches: Optional[dict] = None,
+                  caches: Optional[dict] = None, cache_pos=None):
+    """Whisper's decoder; returns (x, caches, xa_caches).
+
+    With ``enc_out`` (prefill) each layer projects its cross k/v from the
+    encoder output; they are written into ``xa_caches`` ({'k','v'}
+    [L, B, Se, K, dh] buffers) when given, else stacked into new ones.
+    Without it (decode) each layer attends over its slot of
+    ``xa_caches``.  ``caches`` are the self-attention caches; all are
+    updated in place."""
+    kvs = []
+    for idx, lp in enumerate(params):
+        xa = None if enc_out is not None else _layer_cache(xa_caches, idx)
+        x, _, xa_kv = encdec_block(lp, x, cfg, positions=positions,
+                                   mode=mode,
+                                   cache=_layer_cache(caches, idx),
+                                   cache_pos=cache_pos, enc_out=enc_out,
+                                   xa_cache=xa)
+        if enc_out is not None and xa_caches is not None:
+            xa_caches["k"][idx] = xa_kv["k"]
+            xa_caches["v"][idx] = xa_kv["v"]
+        elif enc_out is not None:
+            kvs.append(xa_kv)
+    if kvs:
+        xa_caches = {n: torch.stack([kv[n] for kv in kvs]) for n in "kv"}
+    return x, caches, xa_caches
+
+
+def precompute_cross_caches(params, enc_out: torch.Tensor, cfg) -> dict:
+    """[L]-stacked cross-attention k/v of the encoder output."""
+    kvs = [cross_kv(lp["xattn"], enc_out, cfg) for lp in params]
+    return {n: torch.stack([kv[n] for kv in kvs]) for n in "kv"}
 
 
 def init_attn_caches(cfg, n_layers: int, batch: int, max_len: int, dtype,

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.batched import resolve_device
+from ..models.model import prefix_tokens
 from ..obs.metrics import get_registry
 from ..obs.spans import PersistListener, Tracer
 from ..persistence.index import MembershipIndex, OrderedMembershipIndex
@@ -607,6 +608,20 @@ def _stack_batch(prompts: List[np.ndarray]) -> np.ndarray:
     return np.stack(prompts).astype(np.int32)
 
 
+def stub_inputs(cfg, batch: int, device) -> dict:
+    """The frontend stubs' inputs a prompt batch needs, zero in f32 as in
+    the reference: a VLM's ``vis`` [B, vis_tokens, D], an
+    encoder-decoder's ``frames`` [B, enc_seq, D]; none for the other
+    families."""
+    if cfg.family == "vlm":
+        return {"vis": torch.zeros((batch, cfg.vis_tokens, cfg.d_model),
+                                   device=device)}
+    if cfg.family == "encdec":
+        return {"frames": torch.zeros((batch, cfg.enc_seq, cfg.d_model),
+                                      device=device)}
+    return {}
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -675,16 +690,18 @@ class ServeEngine:
     @torch.no_grad()
     def _greedy_batch(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
         B, S = prompts.shape
-        tokens = torch.as_tensor(prompts, device=self.device)
+        batch = {"tokens": torch.as_tensor(prompts, device=self.device),
+                 **stub_inputs(self.model.cfg, B, self.device)}
         logits, caches = self._timed("prefill_s", lambda: self.model.prefill(
-            self.params, {"tokens": tokens}, self.max_len))
+            self.params, batch, self.max_len))
         out = []
         tok = torch.argmax(logits[:, -1], dim=-1)
+        prefix = prefix_tokens(self.model.cfg)
         for i in range(n_new):
             out.append(tok)
             logits, caches = self._timed(
                 "decode_step_s", lambda: self.model.decode_step(
-                    self.params, tok, caches, S + i))
+                    self.params, tok, caches, S + prefix + i))
             tok = torch.argmax(logits[:, 0], dim=-1)
         return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
 

@@ -224,3 +224,50 @@ def test_bf16_kernel_takes_any_head_dim(cuda_device):
         ref = flash_attention_plain(q.float(), k.float(), v.float(),
                                     causal=causal, window=window)
         torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(37, 100), (64, 150), (100, 100)])
+def test_non_causal_plain_version_with_ragged_keys_matches_jax(jx, Sq, Sk):
+    """The encoder's and the cross-attention's shapes, cut small:
+    non-causal, Sq != Sk, Sk not a multiple of 64 (whisper's 1500 is
+    not), d = 64 and GQA 6:1 (internvl2's head ratio), the plain version
+    the CPU runs against the reference's ``attention_ref``."""
+    B, H, K, dh = 2, 6, 1, 64
+    q, k, v = _qkv(Sq + Sk, B, Sq, Sk, H, K, dh)
+
+    def kl(a, n):          # model layout -> kernel layout [B*n, S, d]
+        return np.moveaxis(a, 2, 1).reshape(B * n, a.shape[1], dh)
+    want = np.asarray(jx.ref(*(jx.jnp.asarray(a) for a in (
+        kl(q, H), kl(k, K), kl(v, K))), causal=False))
+    got = flash_attention(*(torch.as_tensor(a) for a in (q, k, v)),
+                          causal=False)
+    got = got.transpose(1, 2).reshape(B * H, Sq, dh)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,H,K,dh,causal", [
+    (1500, 1500, 16, 16, 64, False),      # whisper's encoder
+    (512, 1500, 16, 16, 64, False),       # its cross-attention
+    (500, 1500, 16, 16, 64, False),
+    (512, 512, 16, 16, 64, True),         # its decoder
+    (768, 768, 48, 8, 128, True),         # internvl2 over its prefix
+    (512, 512, 56, 8, 128, True),         # arctic-480b
+])
+def test_bf16_kernel_at_the_family_shapes(cuda_device, Sq, Sk, H, K, dh,
+                                          causal):
+    """The bf16 tensor-core kernel at the new families' prefill shapes
+    (B = 2): non-causal with a ragged last KV tile (1500), Sq != Sk,
+    d = 64, GQA 6:1 and 7:1, within 2e-2 of the plain version in f32 on
+    the same values."""
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + Sk + H)
+    q = torch.randn((2, Sq, H, dh), generator=g, device=cuda_device)
+    k, v = (torch.randn((2, Sk, K, dh), generator=g, device=cuda_device)
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    ref = flash_attention_plain(q.float(), k.float(), v.float(),
+                                causal=causal)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)

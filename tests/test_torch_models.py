@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import registry as JR
 from repro.configs.registry import get_arch as jget_arch
 from repro.configs.registry import tiny as jtiny
 from repro.models import layers as JL
@@ -62,12 +63,7 @@ def test_configs_are_the_references():
         assert (t.head_dim, t.d_inner, t.ssm_heads, t.n_params()) == \
             (j.head_dim, j.d_inner, j.ssm_heads, j.n_params())
         assert dataclasses.asdict(TR.tiny(t)) == dataclasses.asdict(jtiny(j))
-    # the MoE, SSM, encoder-decoder and VLM archs wait for their slices
-    for name in ("qwen2-moe-a2.7b", "arctic-480b", "mamba2-370m",
-                 "whisper-medium", "internvl2-26b"):
-        jget_arch(name)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TR.get_arch(name)
+    assert sorted(TR.ARCHS) == sorted(JR.ARCHS)
 
 
 def test_rms_norm_and_rope_match_jax():
@@ -251,11 +247,33 @@ def test_port_init_has_the_reference_names_shapes_and_scales(env):
     assert bool((params["blocks.mamba.0.D"] == 1).all())
 
 
+FAMILY_ARCH = {"moe": "qwen2-moe-a2.7b", "ssm": "mamba2-370m",
+               "encdec": "whisper-medium", "vlm": "internvl2-26b"}
+
+
 @pytest.mark.parametrize("family", ["moe", "ssm", "encdec", "vlm"])
-def test_other_families_wait_for_their_slice(family):
-    cfg = dataclasses.replace(TR.tiny(TR.get_arch("zamba2-7b")),
-                              family=family)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Model(cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        params_from_numpy({}, cfg, "cpu")
+def test_every_family_builds_and_converts(family):
+    """``Model(cfg)``, ``init`` and ``params_from_numpy`` of the
+    reference's tiny tree all succeed for each family that once waited
+    for its slice, with the reference's leaf names (the stacked layer
+    axes unrolled), shapes and dtypes."""
+    name = FAMILY_ARCH[family]
+    cfg, jcfg = TR.tiny(TR.get_arch(name)), jtiny(jget_arch(name))
+    assert cfg.family == family
+    jp = build_model(jcfg).init(jax.random.PRNGKey(0))
+    want = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jp):
+        keys = [k.key for k in path]
+        if keys[0] in ("blocks", "encoder"):
+            for i in range(leaf.shape[0]):
+                want[".".join([keys[0], str(i)] + keys[1:])] = \
+                    (tuple(leaf.shape[1:]), str(leaf.dtype))
+        else:
+            want[".".join(keys)] = (tuple(leaf.shape), str(leaf.dtype))
+    own = Model(cfg).init(torch.Generator().manual_seed(0))
+    got = {n: (tuple(p.shape), str(p.dtype).replace("torch.", ""))
+           for n, p in own.named_parameters()}
+    assert got == want
+    conv = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    assert {n: (tuple(p.shape), str(p.dtype).replace("torch.", ""))
+            for n, p in conv.named_parameters()} == want

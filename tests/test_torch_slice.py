@@ -177,7 +177,12 @@ want = {"repro_torch.kernels._build", "repro_torch.models.model",
         "repro_torch.analysis.trace", "repro_torch.analysis.checker",
         "repro_torch.analysis.persistlint", "repro_torch.obs.windows",
         "repro_torch.obs.timeline", "repro_torch.obs.loadgen",
-        "repro_torch.configs.qwen2_7b", "repro_torch.configs.gemma3_27b"}
+        "repro_torch.configs.qwen2_7b", "repro_torch.configs.gemma3_27b",
+        "repro_torch.models.moe", "repro_torch.models.frontends",
+        "repro_torch.configs.qwen2_moe_a2_7b",
+        "repro_torch.configs.arctic_480b", "repro_torch.configs.mamba2_370m",
+        "repro_torch.configs.whisper_medium",
+        "repro_torch.configs.internvl2_26b"}
 print(sorted(want - set(names)))
 sys.exit(1 if bad or len(names) < 59 or want - set(names) else 0)
 """
@@ -199,6 +204,31 @@ def test_model_phase_serves_exactly_once_on_the_cpu():
     assert got["launches"] == {"flash_attention": 0, "ssd_scan": 0,
                                "nvt_probe": 0}      # the CPU launches none
     assert len(got["decode_step_s"]) == 2 * chip_smoke.SMALL.new_tokens
+
+
+def test_families_phase_serves_every_family_exactly_once_on_the_cpu():
+    """chip_smoke.py's families phase on the tiny archs: each served
+    through a crash (two prefills, four dedup hits, one record a batch),
+    no kernel launched on the CPU, and the launch counts a prefill the
+    card must see computed from the configs."""
+    got = chip_smoke.run_families(chip_smoke.SMALL, torch.device("cpu"), 3)
+    assert [a["arch"] for a in got["archs"]] == list(chip_smoke.FAMILY_ARCHS)
+    for a in got["archs"]:
+        assert (a["prefills"], a["dedup_hits"], a["records"]) == (2, 4, 2)
+        assert a["launches"] == {"flash_attention": 0, "ssd_scan": 0,
+                                 "nvt_probe": 0}
+    # on the card: full width, arctic-480b cut to one layer
+    full = {n: chip_smoke.model_config(chip_smoke.FULL, n)
+            for n in chip_smoke.FAMILY_ARCHS}
+    assert {n: (chip_smoke.attn_launches_per_prefill(c),
+                chip_smoke.ssd_launches_per_prefill(c))
+            for n, c in full.items()} == {
+        "qwen2-moe-a2.7b": (24, 0), "mamba2-370m": (0, 48),
+        "whisper-medium": (72, 0), "internvl2-26b": (48, 0),
+        "arctic-480b": (1, 0)}
+    reduced, = chip_smoke.families_reduced(chip_smoke.FULL)
+    assert reduced.startswith("arctic-480b: n_layers 35 -> 1")
+    assert "14.1 B parameters" in reduced
 
 
 def test_checks_phase_runs_on_the_cpu():

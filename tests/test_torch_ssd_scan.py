@@ -318,3 +318,77 @@ def test_bf16_kernel_takes_any_shape(cuda_device):
                              chunk, init_state=init)
         torch.testing.assert_close(y.float(), ry, atol=5e-2, rtol=5e-2)
         torch.testing.assert_close(final, rf, atol=5e-2, rtol=5e-2)
+
+
+def test_plain_scan_at_mamba2_state_size_matches_jax_ssd_ref(jx):
+    """mamba2-370m's N = 128 (its P = 64; two heads, a chunk of 32, a
+    ragged last chunk): the plain wrapper the CPU runs against the
+    reference's sequential ``ssd_ref`` on the kernel layout."""
+    B, S, H, P, N, chunk = 1, 72, 2, 64, 128, 32
+    xh, dt, A, Bm, Cm = _inputs(11, B, S, H, P, N)
+    pad = (-S) % chunk
+    C = (S + pad) // chunk
+
+    def lay(a, tail):      # [B,S,H,...] -> [B*H, C, Q, ...], zero-padded
+        a = np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+        return np.moveaxis(a, 2, 1).reshape((B * H, C, chunk) + tail)
+
+    dtk = lay(dt, ())
+    bc = [np.repeat(np.pad(m, [(0, 0), (0, pad), (0, 0)])[:, None], H,
+                    1).reshape(B * H, C, chunk, N) for m in (Bm, Cm)]
+    want = np.asarray(jx.ref(*(jx.jnp.asarray(a) for a in (
+        lay(xh, (P,)), dtk, dtk * np.tile(A, B)[:, None, None], *bc))))
+    want = np.moveaxis(want.reshape(B, H, C * chunk, P), 1, 2)[:, :S]
+    y, _ = ssd_scan(*_t(xh, dt, A, Bm, Cm), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_both_kernels_fit_shared_memory_at_every_served_ssm_shape():
+    """For every arch with an SSM (zamba2-7b: P = N = 64; mamba2-370m:
+    P = 64, N = 128) at its chunk, each kernel's block fits the card's
+    232,448 bytes: the f32 kernel splits mamba2's P into slices of 16
+    (216,640 bytes; 265,984 unsplit, 233,088 in slices of 32), zamba2's
+    runs unsplit as before; the bf16 kernel takes both whole."""
+    from repro_torch.configs.registry import ARCHS
+    served = {c.name: (c.ssm_chunk, c.ssm_head_dim, c.ssm_state)
+              for c in ARCHS.values() if c.ssm_state}
+    assert served == {"zamba2-7b": (128, 64, 64),
+                      "mamba2-370m": (128, 64, 128)}
+    for Q, P, N in served.values():
+        assert tkernel.f32_smem_bytes(Q, P, N) <= tkernel.SMEM_LIMIT
+        assert tkernel.tc_smem_bytes(Q, P, N) <= tkernel.SMEM_LIMIT
+        assert N <= tkernel.TC_MAX_STATE
+    assert tkernel.f32_slice_p(128, 64, 64) == 64
+    assert tkernel.f32_smem_bytes(128, 64, 64) == \
+        tkernel.smem_bytes(128, 64, 64) == 184_064
+    assert tkernel.f32_slice_p(128, 64, 128) == 16
+    assert (tkernel.smem_bytes(128, 64, 128), tkernel.smem_bytes(
+        128, 32, 128), tkernel.f32_smem_bytes(128, 64, 128)) == \
+        (265_984, 233_088, 216_640)
+    assert tkernel.tc_smem_bytes(128, 64, 128) == 165_392
+    # a chunk whose scores alone overflow a block has no slice
+    assert tkernel.f32_slice_p(256, 64, 64) == 0
+    assert tkernel.f32_smem_bytes(256, 64, 64) > tkernel.SMEM_LIMIT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [512, 500])
+def test_both_kernels_at_the_mamba2_shape(cuda_device, S):
+    """mamba2-370m's scan (B = 2 of its 32 heads: H = 4, P = 64,
+    N = 128, chunk 128, a carried-in state, ragged at S = 500): the bf16
+    tensor-core kernel (``ssd_scan_tc<16>``) within 5e-2 and the f32
+    kernel, its P split over four blocks, within 1e-4 of the plain
+    chunked version in f32 on the same values."""
+    B, H, P, N, Q = 2, 4, 64, 128, 128
+    ins = [torch.as_tensor(a, device=cuda_device)
+           for a in _inputs(S + 1, B, S, H, P, N)]
+    init = torch.randn((B, H, P, N), device=cuda_device) * 0.5
+    for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
+        xh, dt, A, Bm, Cm = ins
+        xh, Bm, Cm = (t.to(dtype) for t in (xh, Bm, Cm))
+        y, final = ssd_scan(xh, dt, A, Bm, Cm, chunk=Q, init_state=init)
+        torch.cuda.synchronize()
+        ry, rf = ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(), Q,
+                             init_state=init)
+        torch.testing.assert_close(y.float(), ry, atol=tol, rtol=tol)
+        torch.testing.assert_close(final, rf, atol=tol, rtol=tol)
