@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the NVTraverse map and its serving path,
-every model family of it, on the card.
+"""Drive the PyTorch/CUDA port of the NVTraverse map, its serving path over
+every model family, and its training, on the card.
 
     python3 chip_smoke.py                 # on the card, at full size
     python3 chip_smoke.py --device cpu    # rehearsal on the host, small
 
-Fourteen phases, each of which fails the run when it fails:
+Fifteen phases, each of which fails the run when it fails:
 
 1. ``build``  -- compile the three hand-written kernels from ``src/`` with
    nvcc, all at once, and report each compiled function's registers and
@@ -70,7 +70,22 @@ Fourteen phases, each of which fails the run when it fails:
    width and depth, and arctic-480b (moe, 128 experts top-2 and a dense
    residual, GQA 56:8; 1) at full width cut to one layer
    (``DEPTH_CUTS``); the same numbers as the model phase for each;
-7. ``load``   -- ``obs/loadgen.py``'s ``LoadHarness`` (the points of
+7. ``train``  -- qwen3-1.7b at full width and depth (bf16, 2.03 B
+   parameters, AdamW with f32 moments, ``remat="block"``) trained 3
+   steps through ``make_train_step`` on ``TokenPipeline`` batches of
+   train_4k's 4096 tokens, global batch 4 in the config's 2
+   microbatches, under deterministic algorithms: every step must launch
+   ``flash_attention`` 2 x 28 x 2 times (each layer's forward and its
+   remat recompute, a microbatch) and its backward kernels 28 x 2 times,
+   the loss must be finite and every layer's wq/wk/wv/q_norm/k_norm
+   gradient nonzero; a second run from the same seed must give the same
+   losses bit for bit.  Step seconds, tokens/s, peak memory and one
+   profiled step are printed.  Then ``run_training``'s crash/resume
+   recipe on tiny(qwen3-1.7b), in f32 and in bf16: 30 steps with a
+   checkpoint every 10, a crash before step 20's manifest publish, a
+   restart that resumes from step 10 and repeats the uninterrupted run's
+   losses bit for bit (``reduced``: ``train_reduced``);
+8. ``load``   -- ``obs/loadgen.py``'s ``LoadHarness`` (the points of
    ``benchmarks/loadtest.py``) against a ``RequestLog`` whose dedup map
    lives, and grows, on the card: batches of 1024 rids, a 2^16 retain
    window, a truncating snapshot every 20 commits; closed loop at zipf
@@ -85,7 +100,7 @@ Fourteen phases, each of which fails the run when it fails:
    ``flash_attention`` 28 times an update (warm-up included) and never on
    its reads, which are dedup hits.  p50/p99, sustained rids/s, excursions and their
    attribution, counters and growth events are printed;
-8. ``checkpoint`` -- zamba2-7b at full width (bf16, random weights from
+9. ``checkpoint`` -- zamba2-7b at full width (bf16, random weights from
    ``--seed``) cut to 12 layers, its parameters saved by a
    ``CheckpointManager`` as 4 steps, each changing one leaf (steps 2-4
    are delta saves), ``gc(keep=2)`` after step 3 and a crash
@@ -94,7 +109,7 @@ Fourteen phases, each of which fails the run when it fails:
    bit for bit, and a 4 x 512 prefill with them (through
    ``flash_attention`` and ``ssd_scan``) the in-memory step-3 model's
    logits; the Izraelevitz policy runs the same sequence for its fences;
-9. ``checks`` -- each new kernel against its plain versions at the serve
+10. ``checks`` -- each new kernel against its plain versions at the serve
    shapes and on the reference's sweep, and prefill (kernels) against
    prefill + one decode step (plain recurrent and attention steps) in f32
    at full width and depth 12, for zamba2-7b and qwen2-7b (whose bf16
@@ -106,7 +121,16 @@ Fourteen phases, each of which fails the run when it fails:
    1500 frames, its cross shape, Sq = 512 and 500 over Sk = 1500, and its
    decoder's at d = 64; internvl2's GQA 6:1 over 768; qwen2-moe's;
    arctic's GQA 7:1) and mamba2-370m's scan (N = 128) in bf16 and f32;
-10. ``ordered`` -- the map phase's stream on the ordered map at the same
+   the flash backward kernels through autograd against the plain
+   backward and against autograd through the plain forward, each
+   gradient within 2e-2 (bf16) or 1e-5 (f32) of its max magnitude, and
+   the forward's lse against the plain log-sum-exp, at qwen3-1.7b's
+   training shape, zamba2's d = 112, whisper's cross shape, a gemma3-27b
+   local layer (window 1024) and rows with no visible key; and
+   qwen3-1.7b's loss and every gradient in f32 at full width, 2 layers,
+   [1, 512], with the kernels against the plain attention (1e-4 of each
+   leaf's max);
+11. ``ordered`` -- the map phase's stream on the ordered map at the same
    scale (2^22 keys in a 2^23-node pool) through
    ``update_parallel_ordered``, the towers rebuilt after every batch,
    then 1024 zipf-placed ``range_query`` spans (``max_items`` 1024, one
@@ -119,19 +143,19 @@ Fourteen phases, each of which fails the run when it fails:
    batches of 2^16 ops, snapshots after the 4th, crashes at the publish
    of the 7th (``evict="random"``) and recovers: exactly the acked
    batches, arrays and towers equal to an uncrashed twin;
-11. ``migrate`` -- a journaled ``MigratingMap`` of 3 * 2^20 keys in a
+12. ``migrate`` -- a journaled ``MigratingMap`` of 3 * 2^20 keys in a
    2^22-node pool with 2^19 buckets takes a batch of 2^20 fresh keys that
    does not fit, grows to 2^23 nodes and 2^20 buckets in drain rounds of
    2^15 buckets between mixed rounds of 2^16 ops, and crashes
    (``evict="random"``) at the publish of its 9th journaled round;
    ``recover`` must equal an uncrashed twin at that boundary and finish
    equal to it and to a host dict replay;
-12. ``crash`` -- ``sweep`` of each crash scenario (``log``, ``log2``,
+13. ``crash`` -- ``sweep`` of each crash scenario (``log``, ``log2``,
    ``checkpoint``, ``migrate``, ``rebalance`` at 1 and at 4 shards,
    ``ordered``) at every site under the ``none``, ``random`` and ``torn``
    adversaries, with the site counts the CPU tests pin; any failure fails
    the run;
-13. ``paper`` -- the paper's transformation itself, on the host's
+14. ``paper`` -- the paper's transformation itself, on the host's
    instruction-level machine (``PMem`` is numpy by design: it runs one
    word at a time), bridged to the card's engines.  The count sweep of
    ``benchmarks/paper_figures.py:run_workload`` (the list at 256 and
@@ -152,7 +176,7 @@ Fourteen phases, each of which fails the run when it fails:
    ``DurableOrderedMap`` on the card crashed at each of 4 batches of
    2^12 ops, every recovered prefix durably linearizable; and
    ``SkipList.rebuild_index`` over 2^12 keys against ``build_towers``;
-14. ``timing`` -- each kernel's time (CUDA events), its plain version's,
+15. ``timing`` -- each kernel's time (CUDA events), its plain version's,
    one PyTorch library call's where one computes the same function, and
    its bound from the bytes it must move and the operations it must do;
    ``nvt_probe`` also with L2 flushed before each launch, and in turns
@@ -161,7 +185,9 @@ Fourteen phases, each of which fails the run when it fails:
    ``flash_attention`` once a main-path shape, each entry with the
    launches made at its shape: zamba2-7b's and qwen2-7b's serve shapes,
    the engine point's and the families' six (SDPA with the same mask, and
-   ``enable_gqa`` where K < H); ``ssd_scan`` at zamba2-7b's and
+   ``enable_gqa`` where K < H); at qwen3-1.7b's training shape the
+   forward and each backward kernel (``flash_bwd_dq``, ``flash_bwd_dkdv``,
+   beside SDPA's backward); ``ssd_scan`` at zamba2-7b's and
    mamba2-370m's, each also timed in f32.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit,
@@ -194,6 +220,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.analysis import check_events, trace_scenario  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.configs.registry import get_arch, tiny  # noqa: E402
 from repro_torch.core import batched as B  # noqa: E402
 from repro_torch.core import ordered as O  # noqa: E402
@@ -202,10 +229,12 @@ from repro_torch.core.migrate import (MigratingMap,  # noqa: E402
 from repro_torch.core.rebalance import (  # noqa: E402
     AutoRebalancePolicy, RebalancingShardedMap)
 from repro_torch.core.sharded import ShardedDurableMap  # noqa: E402
+from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_lse_plain, flash_attention_plain)
 from repro_torch.kernels.nvt_probe import kernel as probe_kernel  # noqa: E402
 from repro_torch.kernels.nvt_probe.ops import nvt_probe  # noqa: E402
 from repro_torch.kernels.nvt_probe.ref import (  # noqa: E402
@@ -213,6 +242,9 @@ from repro_torch.kernels.nvt_probe.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref  # noqa
+from repro_torch.launch.train import (CUBLAS_WORKSPACE,  # noqa: E402
+                                      deterministic, run_training)
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.frontends import (  # noqa: E402
     synth_audio_frames, synth_vision_patches)
 from repro_torch.models.model import (Model, padded_vocab,  # noqa: E402
@@ -227,11 +259,14 @@ from repro_torch.robustness.faultinject import (  # noqa: E402
     SCENARIOS, CrashPlan, CrashPoint, sweep)
 from repro_torch.serving.engine import (RequestLog,  # noqa: E402
                                         ServeEngine, stub_inputs)
+from repro_torch.training.optimizer import (Optimizer,  # noqa: E402
+                                            make_optimizer)
+from repro_torch.training.train_loop import make_train_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 KERNELS = (probe_kernel, fa_kernel, ssd_kernel)
-WRAPPERS = (nvt_probe, flash_attention, ssd_scan)
+WRAPPERS = (nvt_probe, flash_attention, flash_attention_bwd, ssd_scan)
 TENSOR_CORE_SOURCES = ("flash_attention", "ssd_scan")
 # the earlier one-warp-a-query nvt_probe, timed beside the kernel
 WARP_A_QUERY_PROBE = Path(__file__).resolve().parent / "build" / \
@@ -311,6 +346,14 @@ class Sizes:
     load_batch: int = 1024
     load_retain: int = 2**16
     load_capacity: int = 2**15
+    # train phase: qwen3-1.7b at full width and depth, steps of the
+    # train_4k sequence length at global batch 4 in the config's 2
+    # microbatches; the f32 check of its gradients at 2 layers, [1, 512]
+    train_seq: int = 4096
+    train_batch: int = 4
+    train_steps: int = 3
+    train_check_layers: int = 2
+    train_check_seq: int = 512
 
 
 FULL = Sizes()
@@ -328,7 +371,8 @@ SMALL = Sizes(capacity=2**12, n_buckets=2**8, prefill=2**10,
               paper_size=128, paper_ops=60, bridge_keys=2**8,
               bridge_buckets=2**5, hist_ops=2**8, hist_key_hi=2**9,
               prefix_ops=2**6, load_ops=24, load_open_ops=18,
-              load_batch=16, load_retain=256, load_capacity=64)
+              load_batch=16, load_retain=256, load_capacity=64,
+              train_seq=32, train_steps=2, train_check_seq=24)
 # crash sites of each ported scenario (tests/test_torch_faultinject.py
 # pins the same counts against the JAX scenarios)
 CRASH_SITES = {"log": 29, "log2": 31, "checkpoint": 19, "migrate": 25,
@@ -650,6 +694,7 @@ def reset_launches() -> None:
     for w in WRAPPERS:
         w.launches = 0
     flash_attention.shapes.clear()
+    flash_attention_bwd.shapes.clear()
 
 
 # full-width archs cut in depth to fit one card: (layers, why)
@@ -908,7 +953,201 @@ def run_families(sz: Sizes, dev, seed: int) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
-PORT_KERNELS = ("nvt_probe", "flash_fwd", "ssd_scan_tc", "ssd_chunk_scan")
+# --------------------------------------------------------------------- #
+# train phase: qwen3-1.7b trained at full width, and the crash/resume    #
+# recipe of run_training                                                #
+# --------------------------------------------------------------------- #
+TRAIN_ARCH = "qwen3-1.7b"
+# the attention leaves whose gradient flows only through flash_attention's
+# backward: each layer's must be nonzero
+ATTN_GRAD_LEAVES = ("wq", "wk", "wv", "q_norm", "k_norm")
+# run_training's crash/resume recipe (the README's train CLI example)
+RECIPE = dict(arch="tiny:qwen3-1.7b", steps=30, ckpt_every=10)
+RECIPE_CRASH = dict(crash_at=20, crash_phase="manifest")
+
+
+def train_config(sz: Sizes, **overrides):
+    """qwen3-1.7b (or its tiny form) with the config's 2 microbatches,
+    which tiny() would set to 1."""
+    return model_config(sz, TRAIN_ARCH, **{
+        "microbatches": get_arch(TRAIN_ARCH).microbatches, **overrides})
+
+
+def train_shape(sz: Sizes) -> tuple:
+    """(B, Sq, Sk, H, K, d, causal) of a training microbatch's attention
+    (flash_attention.shapes' key)."""
+    cfg = train_config(sz)
+    S = sz.train_seq
+    return (sz.train_batch // cfg.microbatches, S, S, cfg.n_heads,
+            cfg.n_kv_heads, cfg.head_dim, True)
+
+
+def train_reduced(sz: Sizes) -> list:
+    if sz.model_tiny:
+        return ["tiny(qwen3-1.7b), f32, sequences of "
+                f"{sz.train_seq}: a rehearsal"]
+    return ["global batch 256 -> 4 (train_4k's 256 sequences of 4096; "
+            "a smoke run has room for a few steps)",
+            "no checkpoint at this size: parameters and AdamW moments are "
+            "about 20 GB, and the checkpoint manager digests every byte on "
+            "the host (5-10 s per 2.74 GB), minutes a save; the crash/resume "
+            "recipe runs on tiny(qwen3-1.7b) instead",
+            f"the f32 gradient check: n_layers 28 -> "
+            f"{sz.train_check_layers}, one sequence of {sz.train_check_seq}"]
+
+
+def _train_run(sz: Sizes, dev, seed: int, profile: bool = False) -> dict:
+    """``sz.train_steps`` steps of qwen3-1.7b from the parameters of
+    ``seed`` through ``make_train_step`` (AdamW, remat, the config's
+    microbatches), deterministic on the card: losses, step seconds,
+    the kernel launches of the steps, the first step's attention
+    gradients that are zero, peak memory; with ``profile``, one more step
+    under ``torch.profiler`` after the counts are read."""
+    cfg = train_config(sz)
+    model = Model(cfg)
+    opt = make_optimizer(cfg)
+    nonzero = {}
+
+    def update(grads, state, params, step):
+        if not nonzero:            # the first step's, read after the run
+            nonzero.update({n: g.abs().max() > 0 for n, g in grads.items()
+                            if n.split(".")[-1] in ATTN_GRAD_LEAVES})
+        return opt.update(grads, state, params, step)
+    train_step = make_train_step(model, cfg, Optimizer(opt.init, update))
+    pipe = TokenPipeline(cfg, ShapeConfig("train_4k", sz.train_seq,
+                                          sz.train_batch, "train"),
+                         seed=seed, microbatches=cfg.microbatches)
+    out = {}
+    with deterministic(dev):
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                            trainable=True)
+        opt_state = opt.init(params)
+        _sync(dev)
+        out["init_s"] = time.perf_counter() - t0
+        out["n_params"] = sum(p.numel() for p in params.parameters())
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        losses, times = [], []
+        for step in range(sz.train_steps):
+            batch = pipe.next_batch()
+            _sync(dev)
+            t0 = time.perf_counter()
+            params, opt_state, metrics = train_step(params, opt_state,
+                                                    batch, step)
+            losses.append(float(metrics["loss"]))
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        out["launches"] = {"flash_attention": flash_attention.launches,
+                           "flash_attention_bwd": flash_attention_bwd.launches,
+                           "ssd_scan": ssd_scan.launches}
+        out["launches_at_shape"] = {
+            "flash_attention": flash_attention.shapes[train_shape(sz)],
+            "flash_attention_bwd": flash_attention_bwd.shapes[
+                train_shape(sz)]}
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else None
+        out["zero_attn_grads"] = sorted(n for n, nz in nonzero.items()
+                                        if not bool(nz))
+        out["attn_grad_leaves"] = len(nonzero)
+        if profile and dev.type == "cuda":
+            batch = pipe.next_batch()
+            out["profile"] = profile_step(lambda: train_step(
+                params, opt_state, batch, sz.train_steps), dev, top=10)
+    del params, opt_state
+    free_card(dev)
+    out.update(losses=losses, step_s=times)
+    return out
+
+
+def train_recipe(dev, seed: int) -> dict:
+    """``run_training``'s crash/resume recipe on ``dev``, in f32 (the
+    scalar kernels on the card) and bf16 (the tensor-core kernels): an
+    uninterrupted run of RECIPE, a run crashed before step 20's manifest
+    publish, and its restart, which must log "resumed from committed step
+    10" and repeat every loss of the uninterrupted run bit for bit."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        kw = dict(RECIPE, device=dev, dtype=dtype, seed=seed)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            ref = run_training(ckpt_dir=f"{d}/ref", **kw)
+            crashed = run_training(ckpt_dir=f"{d}/crash", **RECIPE_CRASH,
+                                   **kw)
+            resumed = run_training(ckpt_dir=f"{d}/crash", **kw)
+        if crashed.get("crashed_at") != RECIPE_CRASH["crash_at"]:
+            raise AssertionError(f"recipe {dtype}: no crash at step 20")
+        if resumed["log"] != ["resumed from committed step 10"]:
+            raise AssertionError(f"recipe {dtype}: {resumed['log']}")
+        if any(resumed["losses"][s] != ref["losses"][s]
+               for s in resumed["losses"]) or \
+                resumed["final_loss"] != ref["final_loss"] or \
+                resumed["final_step"] != RECIPE["steps"]:
+            raise AssertionError(f"recipe {dtype}: the resumed losses are "
+                                 f"not the uninterrupted run's")
+        out[dtype] = {"final_loss": resumed["final_loss"],
+                      "first_loss": ref["losses"][1],
+                      "resumed_steps": len(resumed["losses"]),
+                      "fences": resumed["io"]["fences"],
+                      "seconds": time.perf_counter() - t0}
+    return out
+
+
+def run_train(sz: Sizes, dev, seed: int) -> dict:
+    """qwen3-1.7b trained ``sz.train_steps`` steps twice from the same
+    seed: finite losses, the same bits in both runs, every layer's
+    attention gradients nonzero, and on the card the flash_attention
+    launches a step (each layer's forward and its remat recompute a
+    microbatch: 2 L M) and backward launches (L M); then the crash/resume
+    recipe."""
+    t0 = time.perf_counter()
+    cfg = train_config(sz)
+    first = _train_run(sz, dev, seed, profile=True)
+    again = _train_run(sz, dev, seed)
+    losses = first["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses {losses}")
+    if again["losses"] != losses:
+        raise AssertionError(f"two runs from seed {seed} differ: {losses} "
+                             f"and {again['losses']}")
+    if first["zero_attn_grads"] or first["attn_grad_leaves"] != \
+            cfg.n_layers * len(ATTN_GRAD_LEAVES):
+        raise AssertionError(f"attention gradients zero or missing: "
+                             f"{first['zero_attn_grads']}")
+    L, M, steps = cfg.n_layers, cfg.microbatches, sz.train_steps
+    want = {"flash_attention": 2 * L * M * steps,
+            "flash_attention_bwd": L * M * steps}
+    if dev.type == "cuda" and (
+            any(first["launches"][k] != n for k, n in want.items())
+            or first["launches"]["ssd_scan"]
+            or first["launches_at_shape"] != want):
+        raise AssertionError(f"train launches {first['launches']} "
+                             f"({first['launches_at_shape']} at "
+                             f"{train_shape(sz)}), not {want}")
+    tokens = sz.train_batch * sz.train_seq
+    step_s = first["step_s"]
+    recipe = train_recipe(dev, seed)
+    return {"arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
+            "dtype": cfg.compute_dtype, "microbatches": M,
+            "global_batch": sz.train_batch, "seq_len": sz.train_seq,
+            "n_params": first["n_params"], "init_s": first["init_s"],
+            "losses": losses, "rerun_losses_equal": True,
+            "step_s": step_s, "step_s_rerun": again["step_s"],
+            "tokens_per_step": tokens,
+            "tokens_per_s": tokens / float(np.median(step_s)),
+            "peak_bytes": first["peak_bytes"],
+            "launches": first["launches"],
+            "launches_per_step": {k: v / steps
+                                  for k, v in first["launches"].items()},
+            "attn_grad_leaves_nonzero": first["attn_grad_leaves"],
+            "profile": first.get("profile"), "recipe": recipe,
+            "reduced": train_reduced(sz),
+            "phase_s": time.perf_counter() - t0}
+
+
+PORT_KERNELS = ("nvt_probe", "flash_fwd", "flash_bwd", "ssd_scan_tc",
+                "ssd_chunk_scan")
 
 
 def profile_step(fn, dev, top: int = 8) -> dict:
@@ -1048,6 +1287,169 @@ def check_flash(sz: Sizes, dev) -> dict:
             "flash f32 window", flash_attention(q, k, v, window=window),
             flash_attention_plain(q, k, v, window=window), 2e-5)
     return errs
+
+
+# the backward's tolerances, each gradient's max error over its max
+# magnitude (an all-zero gradient would pass an abs-plus-rel test): bf16
+# rounds P and dS to bf16 before the tensor-core products; f32 sums in
+# another order
+FLASH_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+LSE_TOL = 1e-4
+
+
+def flash_bwd_shapes(sz: Sizes) -> dict:
+    """(B, Sq, Sk, H, K, d, causal, window) of the backward checks: a
+    qwen3-1.7b training microbatch, zamba2-7b's d = 112, whisper-medium's
+    cross shape (non-causal, Sq != Sk, a ragged last tile), a gemma3-27b
+    local layer (its window over twice its length) and rows with no
+    visible key (ROADMAP Queue 3's case)."""
+    S = max(sz.check_lens)
+    z = model_config(sz, "zamba2-7b")
+    w = model_config(sz, "whisper-medium")
+    g = model_config(sz, "gemma3-27b")
+    return {"qwen3_train": train_shape(sz) + (0,),
+            "zamba2_d112": (sz.model_batch, S, S, z.n_heads, z.n_kv_heads,
+                            z.head_dim, True, 0),
+            "whisper_cross": (sz.model_batch, min(sz.check_lens), w.enc_seq,
+                              w.n_heads, w.n_kv_heads, w.head_dim, False,
+                              0),
+            "gemma3_window": (1, 2 * g.local_window, 2 * g.local_window,
+                              g.n_heads, g.n_kv_heads, g.head_dim, True,
+                              g.local_window),
+            "no_visible_key": (1, 48, 16, 2, 2, 8, False, 8)}
+
+
+def _scaled(got, want) -> tuple:
+    """max|got - want| / max|want|, max|want| and max|got - want|."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    return err / scale if scale else float("inf"), scale, err
+
+
+def check_flash_bwd(sz: Sizes, dev) -> dict:
+    """The backward kernels, through ``flash_attention``'s autograd
+    Function, against the plain backward from the same o and lse
+    (``flash_attention_bwd_plain``) and against autograd through
+    ``flash_attention_plain``, all in f32 on the same values, at each of
+    flash_bwd_shapes in bf16 and f32: each gradient within
+    ``FLASH_BWD_TOL * max|ref|`` and ``max|ref| > 0``; the forward's lse
+    against the plain log-sum-exp (LSE_TOL abs + rel, +inf exactly where
+    a row sees no key) and its o against the plain forward."""
+    out = {}
+    for key, (B, Sq, Sk, H, K, d, causal, window) in \
+            flash_bwd_shapes(sz).items():
+        for dtype, tol in FLASH_BWD_TOL.items():
+            tag = f"{key}_{str(dtype)[6:]}"
+            q, k, v = flash_inputs(dev, B, Sq, H, d, dtype, Sq + Sk, K, Sk)
+            do = flash_inputs(dev, B, Sq, H, d, dtype, Sq + Sk + 1)[0]
+            mask = dict(causal=causal, window=window)
+            if dev.type == "cuda":
+                o, lse = fa_kernel.flash_attention_kernel(q, k, v, **mask,
+                                                          with_lse=True)
+            else:          # the rehearsal: the plain versions' o and lse
+                o = flash_attention_plain(q, k, v, **mask)
+                lse = flash_attention_lse_plain(q.float(), k.float(), **mask)
+            ref_o = flash_attention_plain(q.float(), k.float(), v.float(),
+                                          **mask)
+            fwd_err = _check_close(f"flash fwd {tag}", o, ref_o,
+                                   2e-2 if dtype == torch.bfloat16 else 2e-5)
+            want_lse = flash_attention_lse_plain(q.float(), k.float(), **mask)
+            fin = torch.isfinite(want_lse)
+            if not torch.equal(fin, torch.isfinite(lse)):
+                raise AssertionError(f"flash lse {tag}: +inf rows differ")
+            lse_err = _check_close(f"flash lse {tag}", lse[fin],
+                                   want_lse[fin], LSE_TOL) if fin.any() \
+                else 0.0
+            qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+            got = torch.autograd.grad(flash_attention(qg, kg, vg, **mask),
+                                      (qg, kg, vg), do)
+            plain = flash_attention_bwd_plain(
+                q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                **mask)
+            q32, k32, v32 = (t.float().requires_grad_(True)
+                             for t in (q, k, v))
+            auto = torch.autograd.grad(flash_attention_plain(
+                q32, k32, v32, **mask), (q32, k32, v32), do.float())
+            errs = {}
+            for name, a, wp, wa in zip(("dq", "dk", "dv"), got, plain, auto):
+                for ref_name, w in (("plain", wp), ("autograd", wa)):
+                    rel, scale, err = _scaled(a, w)
+                    if not scale > 0 or not rel <= tol:
+                        raise AssertionError(
+                            f"flash bwd {tag} {name} vs {ref_name}: "
+                            f"{err} = {rel} x max|ref| {scale}, tol {tol}")
+                    errs[f"{name}_vs_{ref_name}"] = rel
+                errs[f"{name}_max_abs_err"] = _scaled(a, wp)[2]
+            out[tag] = {"shape": [B, Sq, Sk, H, K, d], "causal": causal,
+                        "window": window, "tol": tol, "fwd_err": fwd_err,
+                        "lse_err": lse_err,
+                        "inf_rows": int((~fin).sum()), **errs}
+            del q, k, v, do, o, lse, got, plain, auto, q32, k32, v32
+    free_card(dev)
+    return out
+
+
+class plain_attention:
+    """Within the block, the models attend through
+    ``flash_attention_plain`` instead of the kernels (the f32 gradient
+    check's other side)."""
+
+    def __enter__(self):
+        self.saved = model_layers.flash_attention
+        model_layers.flash_attention = flash_attention_plain
+
+    def __exit__(self, *exc):
+        model_layers.flash_attention = self.saved
+
+
+TRAIN_CONSISTENCY_TOL = 1e-4
+
+
+def check_train_consistency(sz: Sizes, dev, seed: int) -> dict:
+    """qwen3-1.7b's loss and every parameter's gradient, in f32 at full
+    width cut to ``train_check_layers`` over one sequence of
+    ``train_check_seq``, with the flash kernels (forward and backward,
+    remat recompute included) against the plain attention: the loss
+    within 1e-5 (abs and rel), each leaf within TRAIN_CONSISTENCY_TOL x
+    its max magnitude, which must be nonzero (f32 sums in other orders;
+    a dropped or wrong attention gradient moves a leaf by O(1))."""
+    cfg = train_config(sz, n_layers=sz.train_check_layers,
+                       param_dtype="float32", compute_dtype="float32",
+                       microbatches=1)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed + 2),
+                        trainable=True)
+    named = dict(params.named_parameters())
+    batch = {"tokens": np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab, size=(1, sz.train_check_seq + 1)).astype(np.int32)}
+
+    def loss_and_grads():
+        loss = model.loss(params, batch)
+        return loss.detach(), torch.autograd.grad(loss, list(named.values()))
+    before = flash_attention_bwd.launches
+    lk, gk = loss_and_grads()
+    if dev.type == "cuda" and flash_attention_bwd.launches - before != \
+            cfg.n_layers:
+        raise AssertionError("the kernel side did not run the backward "
+                             "kernels")
+    with plain_attention():
+        lp, gp = loss_and_grads()
+    loss_err = _check_close("train consistency loss", lk, lp, 1e-5)
+    worst, worst_leaf = 0.0, None
+    for n, a, w in zip(named, gk, gp):
+        rel, scale, _ = _scaled(a, w)
+        if not scale > 0 or not rel <= TRAIN_CONSISTENCY_TOL:
+            raise AssertionError(f"train consistency {n}: {rel} x max|ref| "
+                                 f"{scale}, tol {TRAIN_CONSISTENCY_TOL}")
+        if rel >= worst:
+            worst, worst_leaf = rel, n
+    del params, named, gk, gp
+    free_card(dev)
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "S": sz.train_check_seq,
+            "loss": float(lk), "loss_err": loss_err,
+            "worst_grad_rel_err": worst, "worst_leaf": worst_leaf,
+            "tol": TRAIN_CONSISTENCY_TOL}
 
 
 def ssd_inputs(dev, B, S, H, P, N, dtype, seed):
@@ -2844,6 +3246,92 @@ def time_flash(dev, launches: int, err: float, arch: str = "zamba2-7b",
             "dtype": "bfloat16"}
 
 
+def flash_bwd_bounds(shape) -> dict:
+    """The least time of each backward kernel's function and of the
+    pair's at ``shape`` = (B, Sq, Sk, H, K, d, causal), bf16: 2 d flops a
+    visible (query, key) pair for each product it needs (dq: S, dP, dQ;
+    dkdv: S, dP, dV, dK; the pair: S, dP, dV, dQ, dK) at the bf16 peak, or
+    its bytes (each input read once, each output written once; dq and
+    dkdv pass the f32 row sums D between them) at the HBM rate, the
+    longer."""
+    B, Sq, Sk, H, K, d, causal = shape
+    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+    e = 2                                      # bf16 bytes
+    n_q, n_kv, n_rows = B * Sq * H * d, B * Sk * K * d, B * H * Sq
+    work = {"dq": (3, (4 * n_q + 2 * n_kv) * e + 8 * n_rows),
+            "dkdv": (4, (2 * n_q + 4 * n_kv) * e + 8 * n_rows),
+            "pair": (5, (4 * n_q + 4 * n_kv) * e + 4 * n_rows)}
+    bounds = {}
+    for n, (products, nbytes) in work.items():
+        flops = products * 2 * d * pairs
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+        bounds[n] = {"bound_ms": max(t_b, t_o) * 1e3,
+                     "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "flops": flops, "bytes": nbytes}
+    return bounds
+
+
+def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes) -> list:
+    """The backward kernels at the training shape, bf16 (CUDA events):
+    ``flash_bwd_dq`` alone, ``flash_bwd_dkdv`` alone (on the row sums the
+    first wrote), and the pair; the plain backward; SDPA's backward
+    (``torch.autograd.grad`` of ``scaled_dot_product_attention(...,
+    is_causal=True, enable_gqa=True)`` on the same tensors, the library
+    call that computes the pair's function).  Bounds: each kernel's
+    function's least products at the bf16 peak (2 d flops a visible
+    (query, key) pair a product: S, dP and dQ for dq; S, dP, dV and dK for
+    dkdv; the pair's function S, dP, dV, dQ and dK, 2.5x the forward), or
+    its bytes (each input read once, each output written once) at the HBM
+    rate, the longer (:func:`flash_bwd_bounds`)."""
+    B, Sq, Sk, H, K, d, causal = train_shape(sz)
+    q, k, v = flash_inputs(dev, B, Sq, H, d, torch.bfloat16, 0, K, Sk)
+    do = flash_inputs(dev, B, Sq, H, d, torch.bfloat16, 1)[0]
+    o, lse = fa_kernel.flash_attention_kernel(q, k, v, causal=causal,
+                                              with_lse=True)
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    bwd = fa_kernel.flash_attention_bwd_kernel
+    bwd(q, k, v, o, lse, do, causal=causal, scratch=D)
+    ms = {n: cuda_ms(lambda: bwd(q, k, v, o, lse, do, causal=causal,
+                                 parts=parts, scratch=D))
+          for n, parts in (("dq", 1), ("dkdv", 2), ("pair", 3))}
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, o, lse, do, causal=causal), iters=3)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=K < H)
+    dot = do.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa, (qt, kt, vt), dot, retain_graph=True))
+    bounds = flash_bwd_bounds(train_shape(sz))
+    tag = "qwen3_train_bfloat16"
+    out = []
+    for n in ("dq", "dkdv"):
+        grads = ("dq",) if n == "dq" else ("dk", "dv")
+        out.append({
+            "name": f"flash_bwd_{n}", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
+            "replaces_note": "the reference has no backward kernel: its "
+                             "training differentiates attention_blocked "
+                             "(src/repro/models/layers.py:128)",
+            "design": "FlashAttention-2 split on mma.sync bf16, no atomics",
+            "arch": TRAIN_ARCH, "path": "train", "launches": launches,
+            "max_abs_err": max(errs[tag][f"{g}_max_abs_err"]
+                               for g in grads),
+            "max_rel_err": max(errs[tag][f"{g}_vs_plain"] for g in grads),
+            "ms": ms[n], "plain_ms": plain_ms, **bounds[n],
+            "library_ms": library_ms,
+            "library": "torch.autograd.grad of scaled_dot_product_attention"
+                       "(is_causal=True, enable_gqa=True): the pair's "
+                       "function",
+            "pair_ms": ms["pair"], "pair_bound_ms": bounds["pair"]["bound_ms"],
+            "shape": [B, Sq, Sk, H, K, d], "causal": causal,
+            "dtype": "bfloat16"})
+    return out
+
+
 def ssd_flops(B: int, S: int, H: int, P: int, N: int, Q: int) -> int:
     """The chunk GEMMs the scan needs: C B^T on the lower triangle once
     per batch row and chunk (B/C are shared by the heads), and per head
@@ -2931,6 +3419,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
+    # the train phase runs deterministic on the card: cuBLAS's workspace
+    # must be fixed before CUDA starts (repro_torch.launch.train)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     on_card = args.device == "cuda"
     if on_card and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (use --device cpu to rehearse "
@@ -3016,21 +3507,27 @@ def main(argv=None) -> int:
     log({"phase": "families", "ok": True, **families})
     fam = {a["arch"]: a for a in families["archs"]}
 
-    # 7. load: LoadHarness points against the card's log and a qwen2-7b
+    # 7. train: qwen3-1.7b trained at full width through the flash
+    # forward and backward kernels, launch counts from 0 (inside
+    # _train_run), twice from one seed; the crash/resume recipe
+    train = run_train(sz, dev, args.seed)
+    log({"phase": "train", "ok": True, **train})
+
+    # 8. load: LoadHarness points against the card's log and a qwen2-7b
     # engine, launch counts from 0 (inside run_engine_point)
     t0 = time.perf_counter()
     load = run_load(sz, dev, args.seed)
     log({"phase": "load", "ok": True, **load,
          "phase_s": time.perf_counter() - t0})
 
-    # 8. checkpoint: zamba2-7b's parameters saved, crashed, recovered,
+    # 9. checkpoint: zamba2-7b's parameters saved, crashed, recovered,
     # restored onto the card and served by a prefill
     t0 = time.perf_counter()
     log({"phase": "checkpoint", "ok": True,
          **run_checkpoint(sz, dev, args.seed),
          "phase_s": time.perf_counter() - t0})
 
-    # 9. checks: kernels against their plain versions, and consistency
+    # 10. checks: kernels against their plain versions, and consistency
     t0 = time.perf_counter()
     fa_errs = check_flash(sz, dev)
     ssd_errs = check_ssd(sz, dev)
@@ -3038,17 +3535,23 @@ def main(argv=None) -> int:
     dense_cons = check_consistency(sz, dev, args.seed, "qwen2-7b")
     fam_cons = {arch: check_consistency(sz, dev, args.seed, arch)
                 for arch in CONSISTENCY_ARCHS}
+    bwd_errs = check_flash_bwd(sz, dev)
+    train_cons = check_train_consistency(sz, dev, args.seed)
     log({"phase": "checks", "ok": True, "flash_attention": fa_errs,
+         "flash_attention_bwd": bwd_errs,
+         "consistency_train_qwen3-1.7b": train_cons,
          "ssd_scan": ssd_errs, "consistency": cons,
          "consistency_qwen2-7b": dense_cons,
          **{f"consistency_{a}": c for a, c in fam_cons.items()},
          "reduced": [f"{a} consistency: capacity_factor "
                      f"{get_arch(a).capacity_factor} -> "
                      f"{c['capacity_factor']} (no token dropped)"
-                     for a, c in fam_cons.items() if "capacity_factor" in c],
+                     for a, c in fam_cons.items() if "capacity_factor" in c]
+         + [f"qwen3-1.7b gradient check: n_layers 28 -> "
+            f"{train_cons['n_layers']}, one sequence of {train_cons['S']}"],
          "check_s": time.perf_counter() - t0})
 
-    # 10. ordered: the map's stream on the ordered map, its reads, and the
+    # 11. ordered: the map's stream on the ordered map, its reads, and the
     # journaled durable ordered map through a crash (no kernel launches)
     reset_launches()
     ordered = run_ordered(sz, stream, dev, args.seed)
@@ -3061,17 +3564,17 @@ def main(argv=None) -> int:
          "launches": {w.__name__: w.launches for w in WRAPPERS}})
     del ordered
 
-    # 11. migrate: journaled growth through a crash and a recovery
+    # 12. migrate: journaled growth through a crash and a recovery
     reset_launches()
     log({"phase": "migrate", "ok": True, **run_migrate(sz, dev, args.seed),
          "launches": {w.__name__: w.launches for w in WRAPPERS}})
 
-    # 12. crash: every crash scenario at every site x adversary
+    # 13. crash: every crash scenario at every site x adversary
     t0 = time.perf_counter()
     log({"phase": "crash", "ok": True, "scenarios": run_crash(dev),
          "crash_s": time.perf_counter() - t0})
 
-    # 13. paper: the instruction-level structures, checkers and traces on
+    # 14. paper: the instruction-level structures, checkers and traces on
     # the host, bridged to the card's engines (nvt_probe launched once)
     reset_launches()
     t0 = time.perf_counter()
@@ -3082,7 +3585,7 @@ def main(argv=None) -> int:
     log({"phase": "paper", "ok": True, **paper, "launches": paper_launches,
          "phase_s": time.perf_counter() - t0})
 
-    # 14. timing
+    # 15. timing
     if not on_card:
         log({"phase": "timing", "skipped": "no card"})
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
@@ -3117,6 +3620,15 @@ def main(argv=None) -> int:
             dev, launches_at(fam[arch]["flash_shapes"], shape), err, arch,
             shape, "families" + ("" if arch != "whisper-medium"
                                  else " " + key[len("whisper_"):])))
+    # the training shape: the forward (each layer's and its remat
+    # recompute) and the two backward kernels, with the train phase's
+    # launches at that shape
+    kernels.append(time_flash(
+        dev, train["launches"]["flash_attention"],
+        bwd_errs["qwen3_train_bfloat16"]["fwd_err"], TRAIN_ARCH,
+        train_shape(sz), "train"))
+    kernels.extend(time_flash_bwd(
+        dev, train["launches"]["flash_attention_bwd"], bwd_errs, sz))
     kernels.append(time_ssd(
         dev, fam["mamba2-370m"]["launches"]["ssd_scan"],
         max(v for k, v in ssd_errs.items()

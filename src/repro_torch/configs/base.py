@@ -1,10 +1,11 @@
-"""Architecture configuration schema (the port's own copy of
-``repro.configs.base.ArchConfig``).
+"""Architecture and shape configuration schema (the port's own copy of
+``repro.configs.base.ArchConfig`` and ``ShapeConfig``).
 
-Every architecture the port serves is an :class:`ArchConfig`.  The fields
-and the derived sizes are the reference's, so a configuration reads the
-same in both packages; the distribution and compile knobs are kept as data
-(the port's eager PyTorch path does not read them).
+Every architecture the port serves or trains is an :class:`ArchConfig`;
+every input shape a :class:`ShapeConfig`.  The fields and the derived
+sizes are the reference's, so a configuration reads the same in both
+packages; the distribution and compile knobs are kept as data (the port's
+eager PyTorch path reads only ``remat`` and ``microbatches`` of them).
 """
 from __future__ import annotations
 
@@ -151,3 +152,23 @@ class ArchConfig:
         routed_all = 3 * D * F * self.n_experts
         routed_active = 3 * D * F * self.top_k
         return self.n_params() - self.n_layers * (routed_all - routed_active)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# archs whose attention is pure full attention skip long_500k (quadratic
+# history, no sub-quadratic structure)
+FULL_ATTENTION_SKIP = ("long_500k",)

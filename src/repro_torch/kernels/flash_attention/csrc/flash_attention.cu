@@ -1,5 +1,6 @@
 // flash_attention for Hopper (sm_90a): forward blocked online-softmax
-// attention with GQA, causal and sliding-window masks.
+// attention with GQA, causal and sliding-window masks, and its backward
+// (the second half of this file), which training differentiates through.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py (`_kernel`, launched by
@@ -91,8 +92,9 @@ size_t smem_bytes(int d) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-          int H, int K, int d, int causal, int window, float scale) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int Sq, int Sk, int H, int K, int d,
+          int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* sq = smem;                  // [kBQ][ld]
@@ -197,6 +199,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  if (lse != nullptr && qpos < Sq && sub == 0)
+    lse[(size_t)bh * Sq + qpos] = l > 0.f ? m + logf(l) : CUDART_INF_F;
   if (qpos < Sq) {
     const float inv = 1.f / (l == 0.f ? 1.f : l);
     T* orow = o + ((size_t)b * Sq + qpos) * q_row + (size_t)h * d;
@@ -209,17 +213,17 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int K, int d, int causal, int window,
-           float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           float* lse, int B, int Sq, int Sk, int H, int K, int d,
+           int causal, int window, float scale, void* stream) {
   const size_t smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_fwd<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, K, d, causal,
-      window, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, H, K, d,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -230,6 +234,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 constexpr int kTcWarps = 4;                 // 16 query rows each
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
@@ -268,9 +273,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 template <int DP>   // head dim rounded up to a multiple of 16
 __global__ void __launch_bounds__(kTcThreads)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
-             int Sk, int H, int K, int d, int causal, int window,
-             float scale_log2, int vec) {
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Sk, int H, int K, int d,
+             int causal, int window, float scale_log2, int vec) {
   constexpr int KS = DP / 16;        // k-steps of Q K^T
   constexpr int DT = DP / 8;         // n8-tiles of O
   constexpr int NT = kBK / 8;        // n8-tiles of S
@@ -454,6 +459,17 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  // the rows' log-sum-exp in natural units (m is in log2 units of the
+  // scaled scores); +inf for a row with no visible key, whose backward
+  // probabilities exp(s - lse) are then all 0
+  if (lse != nullptr && (lane & 3) == 0) {
+    if (r0 < Sq)
+      lse[(size_t)bh * Sq + r0] =
+          l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : CUDART_INF_F;
+    if (r1 < Sq)
+      lse[(size_t)bh * Sq + r1] =
+          l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : CUDART_INF_F;
+  }
   const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
   const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
 #pragma unroll
@@ -478,9 +494,9 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DP>
-int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-              int Sq, int Sk, int H, int K, int d, int causal, int window,
-              float scale, void* stream) {
+int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+              float* lse, int B, int Sq, int Sk, int H, int K, int d,
+              int causal, int window, float scale, void* stream) {
   const size_t smem = tc_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -490,7 +506,772 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
       d % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd_tc<DP><<<grid, kTcThreads, smem, (cudaStream_t)stream>>>(
-      q, k, v, o, Sq, Sk, H, K, d, causal, window, scale * kLog2e, vec);
+      q, k, v, o, lse, Sq, Sk, H, K, d, causal, window, scale * kLog2e,
+      vec);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward: dQ, dK, dV of o = softmax(mask(q k^T / sqrt(d))) v
+// ---------------------------------------------------------------------------
+//
+// The TPU package has no backward kernel (its training differentiates the
+// jnp attention_blocked); this is FlashAttention-2's split, each kernel
+// recomputing the probabilities from the forward's row log-sum-exp
+// (P = exp(S * scale - lse), exactly 0 where masked or where a row sees no
+// key, lse = +inf) and D = rowsum(dO o O):
+//
+//   `flash_bwd_dq`   one block per (batch*head, 64-row query tile), launched
+//                    first: D of its rows (written for the next kernel), then
+//                    over the KV tiles its rows can see, dS = P o (dO V^T - D)
+//                    and dQ += dS K; dQ written once.
+//   `flash_bwd_dkdv` one block per (batch*kv head, 64-key tile): over the
+//                    group's H / K query heads and the query tiles that can
+//                    see its keys, dV += P^T dO and dK += dS^T Q; each
+//                    written once, so GQA's sum over the group is in the
+//                    block's registers.
+//
+// No atomics: every sum has a fixed order and a step repeats its bits.
+// bf16 runs on the tensor cores (mma.sync, fragments as in the forward:
+// the dkdv kernel computes S^T and dP^T with its keys as the A rows, so
+// P^T and dS^T feed the next products from registers); f32 runs scalar
+// kernels, four threads a row as in the forward.
+//
+// Bound on this card: operations.  At qwen3-1.7b's training shape
+// (B = 2, S = 4096, H = 16, K = 8, d = 128, causal) the function's least
+// work is 2.5x the forward's (dV, dP, dQ, dK and S once), 344 GFLOP, 0.347
+// ms at the bf16 peak; this split recomputes S in both kernels and dP in
+// both, 481 GFLOP.  Its bytes (q, k, v, o, dO, lse read once, dq, dk, dv
+// written once) are about 0.2 GB.  A simple kernel: mma.sync reaches a
+// part of the wgmma rate, Q/dO tiles are re-read from L2 by every key
+// tile; wgmma with TMA rings is the next step.
+
+static_assert(kBQ == kBK, "the scalar backward gives each thread kKeys "
+                           "queries or keys of a tile");
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ o,
+             const T* __restrict__ dout, const float* __restrict__ lse,
+             T* __restrict__ dq, float* __restrict__ Dbuf, int Sq, int Sk,
+             int H, int K, int d, int causal, int window, float scale) {
+  extern __shared__ float smem[];
+  const int ld = d + 1;
+  float* sq = smem;                  // [kBQ][ld]
+  float* sdo = sq + kBQ * ld;        // [kBQ][ld]
+  float* sk = sdo + kBQ * ld;        // [kBK][ld]
+  float* sv = sk + kBK * ld;         // [kBK][ld]
+  float* sp = sv + kBK * ld;         // [kBQ][kBK + 1] dS
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kh = h / (H / K);
+  const int q0 = blockIdx.x * kBQ;
+  const int tid = threadIdx.x;
+  const int row = tid >> 2;
+  const int sub = tid & 3;
+  const int qpos = q0 + row;
+
+  const size_t q_row = (size_t)H * d;
+  const size_t kv_row = (size_t)K * d;
+  const T* qb = q + (size_t)b * Sq * q_row + (size_t)h * d;
+  const T* ob = o + (size_t)b * Sq * q_row + (size_t)h * d;
+  const T* dob = dout + (size_t)b * Sq * q_row + (size_t)h * d;
+  const T* kb = k + (size_t)b * Sk * kv_row + (size_t)kh * d;
+  const T* vb = v + (size_t)b * Sk * kv_row + (size_t)kh * d;
+
+  for (int i = tid; i < kBQ * d; i += kThreads) {
+    const int r = i / d, c = i - r * d;
+    const int s = q0 + r;
+    const bool in = s < Sq;
+    sq[r * ld + c] = in ? to_f32(qb[(size_t)s * q_row + c]) : 0.f;
+    sdo[r * ld + c] = in ? to_f32(dob[(size_t)s * q_row + c]) : 0.f;
+  }
+  float Dr = 0.f;
+  if (qpos < Sq)
+    for (int c = sub; c < d; c += 4)
+      Dr = fmaf(to_f32(dob[(size_t)qpos * q_row + c]),
+                to_f32(ob[(size_t)qpos * q_row + c]), Dr);
+  Dr += __shfl_xor_sync(0xffffffffu, Dr, 1);
+  Dr += __shfl_xor_sync(0xffffffffu, Dr, 2);
+  if (qpos < Sq && sub == 0) Dbuf[(size_t)bh * Sq + qpos] = Dr;
+  const float lr = qpos < Sq ? lse[(size_t)bh * Sq + qpos] : CUDART_INF_F;
+
+  float acc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
+
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int n_tiles = (Sk + kBK - 1) / kBK;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    if (causal && k0 > q_last) break;
+    if (window > 0 && k0 + kBK - 1 <= q0 - window) continue;
+
+    __syncthreads();                 // the previous tile is consumed
+    for (int i = tid; i < kBK * d; i += kThreads) {
+      const int r = i / d, c = i - r * d;
+      const int s = k0 + r;
+      const bool in = s < Sk;
+      sk[r * ld + c] = in ? to_f32(kb[(size_t)s * kv_row + c]) : 0.f;
+      sv[r * ld + c] = in ? to_f32(vb[(size_t)s * kv_row + c]) : 0.f;
+    }
+    __syncthreads();
+
+    // S and dP of this row against keys k0 + sub + 4 * jj
+    float s[kKeys], dp[kKeys];
+#pragma unroll
+    for (int jj = 0; jj < kKeys; ++jj) s[jj] = dp[jj] = 0.f;
+    const float* qr = sq + row * ld;
+    const float* dr = sdo + row * ld;
+    for (int e = 0; e < d; ++e) {
+      const float qe = qr[e], de = dr[e];
+#pragma unroll
+      for (int jj = 0; jj < kKeys; ++jj) {
+        s[jj] = fmaf(qe, sk[(sub + 4 * jj) * ld + e], s[jj]);
+        dp[jj] = fmaf(de, sv[(sub + 4 * jj) * ld + e], dp[jj]);
+      }
+    }
+    float* pr = sp + row * (kBK + 1);
+#pragma unroll
+    for (int jj = 0; jj < kKeys; ++jj) {
+      const int kpos = k0 + sub + 4 * jj;
+      const bool vis = kpos < Sk && (!causal || kpos <= qpos) &&
+                       (window <= 0 || kpos > qpos - window);
+      const float p = vis ? expf(s[jj] * scale - lr) : 0.f;
+      pr[sub + 4 * jj] = p * (dp[jj] - Dr);
+    }
+    __syncwarp();                    // the row's four threads share pr
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float ds = pr[kk];
+      const float* kr = sk + kk * ld + sub;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (sub + 4 * j < d) acc[j] = fmaf(ds, kr[4 * j], acc[j]);
+    }
+  }
+
+  if (qpos < Sq) {
+    T* drow = dq + ((size_t)b * Sq + qpos) * q_row + (size_t)h * d;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = sub + 4 * j;
+      if (c < d) drow[c] = from_f32<T>(acc[j] * scale);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ Dbuf, T* __restrict__ dk,
+               T* __restrict__ dv, int Sq, int Sk, int H, int K, int d,
+               int causal, int window, float scale) {
+  extern __shared__ float smem[];
+  const int ld = d + 1;
+  float* sk = smem;                  // [kBK][ld]
+  float* sv = sk + kBK * ld;         // [kBK][ld]
+  float* sq = sv + kBK * ld;         // [kBQ][ld]
+  float* sdo = sq + kBQ * ld;        // [kBQ][ld]
+  float* sp = sdo + kBQ * ld;        // [kBK][kBQ + 1] P^T
+  float* sds = sp + kBK * (kBQ + 1); // [kBK][kBQ + 1] dS^T
+  float* sl = sds + kBK * (kBQ + 1); // [kBQ] lse
+  float* sD = sl + kBQ;              // [kBQ] D
+
+  const int bk = blockIdx.y;
+  const int b = bk / K;
+  const int kh = bk - b * K;
+  const int G = H / K;
+  const int k0 = blockIdx.x * kBK;
+  const int tid = threadIdx.x;
+  const int row = tid >> 2;          // this thread's key
+  const int sub = tid & 3;
+  const int kpos = k0 + row;
+
+  const size_t q_row = (size_t)H * d;
+  const size_t kv_row = (size_t)K * d;
+  const T* kb = k + (size_t)b * Sk * kv_row + (size_t)kh * d;
+  const T* vb = v + (size_t)b * Sk * kv_row + (size_t)kh * d;
+  for (int i = tid; i < kBK * d; i += kThreads) {
+    const int r = i / d, c = i - r * d;
+    const int s = k0 + r;
+    const bool in = s < Sk;
+    sk[r * ld + c] = in ? to_f32(kb[(size_t)s * kv_row + c]) : 0.f;
+    sv[r * ld + c] = in ? to_f32(vb[(size_t)s * kv_row + c]) : 0.f;
+  }
+
+  float acck[kCols], accv[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) acck[j] = accv[j] = 0.f;
+
+  // the query tiles that can see this key tile
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(Sq, k0 + kBK - 1 + window) : Sq;
+  const int t_lo = q_lo / kBQ, t_hi = (q_hi + kBQ - 1) / kBQ;
+  for (int g = 0; g < G; ++g) {
+    const int h = kh * G + g;
+    const size_t bh = (size_t)b * H + h;
+    const T* qb = q + (size_t)b * Sq * q_row + (size_t)h * d;
+    const T* dob = dout + (size_t)b * Sq * q_row + (size_t)h * d;
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int q0 = t * kBQ;
+      __syncthreads();               // the previous tile is consumed
+      for (int i = tid; i < kBQ * d; i += kThreads) {
+        const int r = i / d, c = i - r * d;
+        const int s = q0 + r;
+        const bool in = s < Sq;
+        sq[r * ld + c] = in ? to_f32(qb[(size_t)s * q_row + c]) : 0.f;
+        sdo[r * ld + c] = in ? to_f32(dob[(size_t)s * q_row + c]) : 0.f;
+      }
+      for (int i = tid; i < kBQ; i += kThreads) {
+        const bool in = q0 + i < Sq;
+        sl[i] = in ? lse[bh * Sq + q0 + i] : CUDART_INF_F;
+        sD[i] = in ? Dbuf[bh * Sq + q0 + i] : 0.f;
+      }
+      __syncthreads();
+
+      // P^T and dP^T of this key against queries q0 + sub + 4 * jj
+      float s[kKeys], dp[kKeys];
+#pragma unroll
+      for (int jj = 0; jj < kKeys; ++jj) s[jj] = dp[jj] = 0.f;
+      const float* kr = sk + row * ld;
+      const float* vr = sv + row * ld;
+      for (int e = 0; e < d; ++e) {
+        const float ke = kr[e], ve = vr[e];
+#pragma unroll
+        for (int jj = 0; jj < kKeys; ++jj) {
+          s[jj] = fmaf(ke, sq[(sub + 4 * jj) * ld + e], s[jj]);
+          dp[jj] = fmaf(ve, sdo[(sub + 4 * jj) * ld + e], dp[jj]);
+        }
+      }
+      float* pr = sp + row * (kBQ + 1);
+      float* dsr = sds + row * (kBQ + 1);
+#pragma unroll
+      for (int jj = 0; jj < kKeys; ++jj) {
+        const int qq = sub + 4 * jj, qpos = q0 + qq;
+        const bool vis = qpos < Sq && kpos < Sk &&
+                         (!causal || kpos <= qpos) &&
+                         (window <= 0 || kpos > qpos - window);
+        const float p = vis ? expf(s[jj] * scale - sl[qq]) : 0.f;
+        pr[qq] = p;
+        dsr[qq] = p * (dp[jj] - sD[qq]);
+      }
+      __syncwarp();                  // the key's four threads share pr
+      for (int qq = 0; qq < kBQ; ++qq) {
+        const float p = pr[qq], ds = dsr[qq];
+        const float* dor = sdo + qq * ld + sub;
+        const float* qr = sq + qq * ld + sub;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          if (sub + 4 * j < d) {
+            accv[j] = fmaf(p, dor[4 * j], accv[j]);
+            acck[j] = fmaf(ds, qr[4 * j], acck[j]);
+          }
+      }
+    }
+  }
+
+  if (kpos < Sk) {
+    const size_t off = ((size_t)b * Sk + kpos) * kv_row + (size_t)kh * d;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = sub + 4 * j;
+      if (c < d) {
+        dk[off + c] = from_f32<T>(acck[j] * scale);
+        dv[off + c] = from_f32<T>(accv[j]);
+      }
+    }
+  }
+}
+
+size_t bwd_dq_smem_bytes(int d) {
+  return sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * (d + 1) +
+                          (size_t)kBQ * (kBK + 1));
+}
+
+size_t bwd_dkdv_smem_bytes(int d) {
+  return sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * (d + 1) +
+                          2 * (size_t)kBK * (kBQ + 1) + 2 * kBQ);
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, void* dq, void* dk,
+               void* dv, float* Dbuf, int parts, int B, int Sq, int Sk,
+               int H, int K, int d, int causal, int window, float scale,
+               void* stream) {
+  const size_t s_dq = bwd_dq_smem_bytes(d), s_kv = bwd_dkdv_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)s_dq);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)s_kv);
+  if (err != cudaSuccess) return (int)err;
+  if (parts & 1) {
+    flash_bwd_dq<T><<<dim3((Sq + kBQ - 1) / kBQ, B * H), kThreads, s_dq,
+                      (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
+        lse, (T*)dq, Dbuf, Sq, Sk, H, K, d, causal, window, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 2)
+    flash_bwd_dkdv<T><<<dim3((Sk + kBK - 1) / kBK, B * K), kThreads, s_kv,
+                        (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, Dbuf,
+        (T*)dk, (T*)dv, Sq, Sk, H, K, d, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// bf16 backward on the tensor cores.  Shared memory: six [64][pitch] bf16
+// tiles (dq: Q, dO and two stages of K and V; dkdv: K, V and two stages of
+// Q and dO) and four [64] f32 rows (lse and D).
+size_t tc_bwd_smem_bytes(int d) {
+  const int dp = (d + 15) / 16 * 16;
+  return sizeof(bf16) * 6 * (size_t)kBK * tc::tile_pitch(dp) +
+         sizeof(float) * 4 * kBQ;
+}
+
+// zero the padding columns [d, DP) of the first `tiles` tiles: no load
+// writes them, and a pad must not meet the other operand's zeros as NaN
+template <int DP>
+__device__ __forceinline__ void zero_pad_columns(bf16* sbuf, int tiles,
+                                                 int d) {
+  constexpr int PITCH = tc::tile_pitch(DP);
+  constexpr int SWZ = tc::tile_swz(DP);
+  if (d < DP) {
+    const int w = DP - d;
+    for (int i = threadIdx.x; i < tiles * kBK * w; i += kTcThreads) {
+      const int r = i / w, c = d + (i - r * w);
+      sbuf[(r / kBK) * kBK * PITCH + tc::tile_off(r % kBK, c, PITCH, SWZ)] =
+          __float2bfloat16(0.f);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ o,
+                const bf16* __restrict__ dout,
+                const float* __restrict__ lse, bf16* __restrict__ dq,
+                float* __restrict__ Dbuf, int Sq, int Sk, int H, int K,
+                int d, int causal, int window, float scale_log2,
+                float scale, int vec) {
+  constexpr int KS = DP / 16;
+  constexpr int DT = DP / 8;
+  constexpr int NT = kBK / 8;
+  constexpr int PITCH = tc::tile_pitch(DP);
+  constexpr int SWZ = tc::tile_swz(DP);
+  constexpr int TILE = kBK * PITCH;
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  bf16* const sbuf = reinterpret_cast<bf16*>(fa_smem);
+  bf16* const sQ = sbuf;             // then dO at + TILE; stage s of K at
+  bf16* const sdO = sbuf + TILE;     // + (2 + 2 s) TILE, V after it
+  float* const sl = reinterpret_cast<float*>(sbuf + 6 * TILE);
+  float* const sD = sl + kBQ;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // longest first
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kh = h / (H / K);
+  const size_t q_row = (size_t)H * d, kv_row = (size_t)K * d;
+  const size_t q_base = (size_t)b * Sq * q_row + (size_t)h * d;
+  const bf16* kb = k + (size_t)b * Sk * kv_row + (size_t)kh * d;
+  const bf16* vb = v + (size_t)b * Sk * kv_row + (size_t)kh * d;
+
+  zero_pad_columns<DP>(sbuf, 6, d);
+
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  int t_end = (Sk + kBK - 1) / kBK;
+  if (causal) t_end = min(t_end, q_last / kBK + 1);
+  int t_begin = 0;
+  if (window > 0 && q0 - window - (kBK - 1) >= 0)
+    t_begin = (q0 - window - (kBK - 1)) / kBK + 1;
+
+  load_tile(sQ, q + q_base, q_row, q0, Sq, d, PITCH, SWZ, vec);
+  load_tile(sdO, dout + q_base, q_row, q0, Sq, d, PITCH, SWZ, vec);
+  if (t_begin < t_end) {
+    load_tile(sbuf + 2 * TILE, kb, kv_row, t_begin * kBK, Sk, d, PITCH, SWZ,
+              vec);
+    load_tile(sbuf + 3 * TILE, vb, kv_row, t_begin * kBK, Sk, d, PITCH, SWZ,
+              vec);
+  }
+  tc::cp_async_commit();
+  {                                  // D and lse of the block's rows
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+    const int qp = q0 + r;
+    float acc = 0.f;
+    if (qp < Sq) {
+      const bf16* orow = o + q_base + (size_t)qp * q_row;
+      const bf16* drow = dout + q_base + (size_t)qp * q_row;
+      for (int c = half; c < d; c += 2)
+        acc = fmaf(__bfloat162float(drow[c]), __bfloat162float(orow[c]), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      sD[r] = acc;
+      sl[r] = qp < Sq ? lse[(size_t)bh * Sq + qp] * kLog2e : CUDART_INF_F;
+      if (qp < Sq) Dbuf[(size_t)bh * Sq + qp] = acc;
+    }
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  const int l0r = warp * 16 + (lane >> 2), l1r = l0r + 8;
+  const float lse0 = sl[l0r], lse1 = sl[l1r];
+  const float D0 = sD[l0r], D1 = sD[l1r];
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int w_first = q0 + warp * 16, w_last = w_first + 15;
+  const int r0 = q0 + l0r, r1 = q0 + l1r;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) & 1;
+    if (t + 1 < t_end) {             // prefetch the next K/V tile
+      bf16* nk = sbuf + (2 + 2 * (st ^ 1)) * TILE;
+      load_tile(nk, kb, kv_row, (t + 1) * kBK, Sk, d, PITCH, SWZ, vec);
+      load_tile(nk + TILE, vb, kv_row, (t + 1) * kBK, Sk, d, PITCH, SWZ,
+                vec);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sk = sbuf + (2 + 2 * st) * TILE;
+    const bf16* sv = sk + TILE;
+    const int k0 = t * kBK;
+    const bool skip = (causal && k0 > w_last) ||
+                      (window > 0 && k0 + kBK - 1 <= w_first - window);
+    if (!skip) {                     // warp-uniform
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[4], da[4];
+        const int off = tc::tile_off(warp * 16 + (lane & 15),
+                                     ks * 16 + (lane >> 4) * 8, PITCH, SWZ);
+        tc::ldsm_x4(qa, sQ + off);
+        tc::ldsm_x4(da, sdO + off);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          const int boff = tc::tile_off(np * 16 + (lane & 7) + (lane >> 4) * 8,
+                                        ks * 16 + ((lane >> 3) & 1) * 8,
+                                        PITCH, SWZ);
+          uint32_t bk[4], bv[4];
+          tc::ldsm_x4(bk, sk + boff);
+          tc::ldsm_x4(bv, sv + boff);
+          tc::mma(s[2 * np], qa, bk[0], bk[1]);
+          tc::mma(s[2 * np + 1], qa, bk[2], bk[3]);
+          tc::mma(dp[2 * np], da, bv[0], bv[1]);
+          tc::mma(dp[2 * np + 1], da, bv[2], bv[3]);
+        }
+      }
+      const bool full = k0 + kBK <= Sk &&
+                        (!causal || k0 + kBK - 1 <= w_first) &&
+                        (window <= 0 || k0 > w_last - window);
+      // dS = P o (dP - D), in s
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+          const int qp = e < 2 ? r0 : r1;
+          const bool vis = full || (kp < Sk && (!causal || kp <= qp) &&
+                                    (window <= 0 || kp > qp - window));
+          const float p =
+              vis ? exp2f(s[j][e] * scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
+          s[j][e] = p * (dp[j][e] - (e < 2 ? D0 : D1));
+        }
+      }
+      // dQ += dS K, dS rounded to bf16 in registers
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint32_t pa[4] = {
+            tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp2 = 0; dp2 < DT / 2; ++dp2) {
+          uint32_t bk[4];
+          tc::ldsm_x4_t(bk, sk + tc::tile_off(
+                                   kk * 16 + (lane & 7) +
+                                       ((lane >> 3) & 1) * 8,
+                                   dp2 * 16 + (lane >> 4) * 8, PITCH, SWZ));
+          tc::mma(acc[2 * dp2], pa, bk[0], bk[1]);
+          tc::mma(acc[2 * dp2 + 1], pa, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();                 // this stage is consumed
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qp = half ? r1 : r0;
+    if (qp >= Sq) continue;
+    bf16* drow = dq + q_base + (size_t)qp * q_row;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int c = j * 8 + (lane & 3) * 2;
+      const float x0 = acc[j][2 * half] * scale;
+      const float x1 = acc[j][2 * half + 1] * scale;
+      if (c + 1 < d && (d & 1) == 0) {
+        *reinterpret_cast<uint32_t*>(drow + c) = tc::pack_bf16(x0, x1);
+      } else {
+        if (c < d) drow[c] = __float2bfloat16(x0);
+        if (c + 1 < d) drow[c + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+constexpr int kHalfQ = 32;           // queries a dkdv sub-step
+
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ Dbuf, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int Sq, int Sk, int H, int K, int d,
+                  int causal, int window, float scale_log2, float scale,
+                  int vec) {
+  constexpr int KS = DP / 16;
+  constexpr int DT = DP / 8;
+  constexpr int NH = kHalfQ / 8;     // n8-tiles of a sub-step's S^T
+  constexpr int PITCH = tc::tile_pitch(DP);
+  constexpr int SWZ = tc::tile_swz(DP);
+  constexpr int TILE = kBK * PITCH;
+  extern __shared__ __align__(128) unsigned char fa_smem[];
+  bf16* const sbuf = reinterpret_cast<bf16*>(fa_smem);
+  bf16* const sK = sbuf;             // then V; stage s of Q at
+  bf16* const sV = sbuf + TILE;      // + (2 + 2 s) TILE, dO after it
+  float* const sl = reinterpret_cast<float*>(sbuf + 6 * TILE);   // [2][64]
+  float* const sD = sl + 2 * kBQ;                                // [2][64]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k0 = blockIdx.y * kBK;   // the first key tiles see the most
+  const int bk = blockIdx.x;
+  const int b = bk / K;
+  const int kh = bk - b * K;
+  const int G = H / K;
+  const size_t q_row = (size_t)H * d, kv_row = (size_t)K * d;
+  const size_t kv_base = (size_t)b * Sk * kv_row + (size_t)kh * d;
+
+  zero_pad_columns<DP>(sbuf, 6, d);
+
+  // the query tiles that can see this key tile, for each of the group's
+  // heads: iteration it is head kh * G + it / nt, tile t_lo + it % nt
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(Sq, k0 + kBK - 1 + window) : Sq;
+  const int t_lo = q_lo / kBQ;
+  const int nt = max(0, (q_hi + kBQ - 1) / kBQ - t_lo);
+  const int n_it = G * nt;
+  auto load_stage = [&](int it, int stage) {
+    const int h = kh * G + it / nt, q0 = (t_lo + it % nt) * kBQ;
+    const size_t bh = (size_t)b * H + h;
+    const size_t q_base = (size_t)b * Sq * q_row + (size_t)h * d;
+    bf16* dst = sbuf + (2 + 2 * stage) * TILE;
+    load_tile(dst, q + q_base, q_row, q0, Sq, d, PITCH, SWZ, vec);
+    load_tile(dst + TILE, dout + q_base, q_row, q0, Sq, d, PITCH, SWZ, vec);
+    for (int i = threadIdx.x; i < kBQ; i += kTcThreads) {
+      const bool in = q0 + i < Sq;
+      tc::cp_async4(sl + stage * kBQ + i, in ? lse + bh * Sq + q0 + i : lse,
+                    in ? 4 : 0);
+      tc::cp_async4(sD + stage * kBQ + i, in ? Dbuf + bh * Sq + q0 + i : Dbuf,
+                    in ? 4 : 0);
+    }
+  };
+
+  load_tile(sK, k + kv_base, kv_row, k0, Sk, d, PITCH, SWZ, vec);
+  load_tile(sV, v + kv_base, kv_row, k0, Sk, d, PITCH, SWZ, vec);
+  if (n_it > 0) load_stage(0, 0);
+  tc::cp_async_commit();
+
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  const int kw_first = k0 + warp * 16, kw_last = kw_first + 15;
+  const int kr0 = kw_first + (lane >> 2), kr1 = kr0 + 8;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) {             // prefetch the next Q/dO tile
+      load_stage(it + 1, st ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sQ = sbuf + (2 + 2 * st) * TILE;
+    const bf16* sdO = sQ + TILE;
+    const float* slse = sl + st * kBQ;
+    const float* sDD = sD + st * kBQ;
+    const int q0 = (t_lo + it % nt) * kBQ;
+#pragma unroll 1
+    for (int hq = 0; hq < kBQ / kHalfQ; ++hq) {
+      const int qf = q0 + hq * kHalfQ, ql = qf + kHalfQ - 1;
+      const bool skip = qf >= Sq || (causal && ql < kw_first) ||
+                        (window > 0 && kw_last <= qf - window);
+      if (skip) continue;            // warp-uniform
+      const bool full = ql < Sq && kw_last < Sk &&
+                        (!causal || qf >= kw_last) &&
+                        (window <= 0 || kw_first > ql - window);
+      // S^T = K Q^T: this warp's 16 keys against the sub-step's queries
+      float sT[NH][4], dpT[NH][4];
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ka[4], va[4];
+        const int off = tc::tile_off(warp * 16 + (lane & 15),
+                                     ks * 16 + (lane >> 4) * 8, PITCH, SWZ);
+        tc::ldsm_x4(ka, sK + off);
+        tc::ldsm_x4(va, sV + off);
+#pragma unroll
+        for (int np = 0; np < NH / 2; ++np) {
+          const int boff = tc::tile_off(
+              hq * kHalfQ + np * 16 + (lane & 7) + (lane >> 4) * 8,
+              ks * 16 + ((lane >> 3) & 1) * 8, PITCH, SWZ);
+          uint32_t bq[4], bo[4];
+          tc::ldsm_x4(bq, sQ + boff);
+          tc::ldsm_x4(bo, sdO + boff);
+          tc::mma(sT[2 * np], ka, bq[0], bq[1]);
+          tc::mma(sT[2 * np + 1], ka, bq[2], bq[3]);
+          tc::mma(dpT[2 * np], va, bo[0], bo[1]);
+          tc::mma(dpT[2 * np + 1], va, bo[2], bo[3]);
+        }
+      }
+      // P^T in sT, dS^T = P^T o (dP^T - D) in dpT
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql_i = hq * kHalfQ + j * 8 + (lane & 3) * 2 + (e & 1);
+          const int qp = q0 + ql_i;
+          const int kp = e < 2 ? kr0 : kr1;
+          const bool vis = full || (qp < Sq && kp < Sk &&
+                                    (!causal || kp <= qp) &&
+                                    (window <= 0 || kp > qp - window));
+          const float p =
+              vis ? exp2f(sT[j][e] * scale_log2 - slse[ql_i] * kLog2e) : 0.f;
+          sT[j][e] = p;
+          dpT[j][e] = p * (dpT[j][e] - sDD[ql_i]);
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 in
+      // registers (the sub-step's queries are the k dimension)
+#pragma unroll
+      for (int kk = 0; kk < kHalfQ / 16; ++kk) {
+        const uint32_t pa[4] = {
+            tc::pack_bf16(sT[2 * kk][0], sT[2 * kk][1]),
+            tc::pack_bf16(sT[2 * kk][2], sT[2 * kk][3]),
+            tc::pack_bf16(sT[2 * kk + 1][0], sT[2 * kk + 1][1]),
+            tc::pack_bf16(sT[2 * kk + 1][2], sT[2 * kk + 1][3])};
+        const uint32_t sa[4] = {
+            tc::pack_bf16(dpT[2 * kk][0], dpT[2 * kk][1]),
+            tc::pack_bf16(dpT[2 * kk][2], dpT[2 * kk][3]),
+            tc::pack_bf16(dpT[2 * kk + 1][0], dpT[2 * kk + 1][1]),
+            tc::pack_bf16(dpT[2 * kk + 1][2], dpT[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp2 = 0; dp2 < DT / 2; ++dp2) {
+          const int boff = tc::tile_off(
+              hq * kHalfQ + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+              dp2 * 16 + (lane >> 4) * 8, PITCH, SWZ);
+          uint32_t bo[4], bq[4];
+          tc::ldsm_x4_t(bo, sdO + boff);
+          tc::ldsm_x4_t(bq, sQ + boff);
+          tc::mma(dva[2 * dp2], pa, bo[0], bo[1]);
+          tc::mma(dva[2 * dp2 + 1], pa, bo[2], bo[3]);
+          tc::mma(dka[2 * dp2], sa, bq[0], bq[1]);
+          tc::mma(dka[2 * dp2 + 1], sa, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();                 // this stage is consumed
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kp = half ? kr1 : kr0;
+    if (kp >= Sk) continue;
+    bf16* krow = dk + kv_base + (size_t)kp * kv_row;
+    bf16* vrow = dv + kv_base + (size_t)kp * kv_row;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int c = j * 8 + (lane & 3) * 2;
+      const float k0v = dka[j][2 * half] * scale;
+      const float k1v = dka[j][2 * half + 1] * scale;
+      const float v0v = dva[j][2 * half], v1v = dva[j][2 * half + 1];
+      if (c + 1 < d && (d & 1) == 0) {
+        *reinterpret_cast<uint32_t*>(krow + c) = tc::pack_bf16(k0v, k1v);
+        *reinterpret_cast<uint32_t*>(vrow + c) = tc::pack_bf16(v0v, v1v);
+      } else {
+        if (c < d) {
+          krow[c] = __float2bfloat16(k0v);
+          vrow[c] = __float2bfloat16(v0v);
+        }
+        if (c + 1 < d) {
+          krow[c + 1] = __float2bfloat16(k1v);
+          vrow[c + 1] = __float2bfloat16(v1v);
+        }
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_bwd_tc(const bf16* q, const bf16* k, const bf16* v,
+                  const bf16* o, const bf16* dout, const float* lse,
+                  bf16* dq, bf16* dk, bf16* dv, float* Dbuf, int parts,
+                  int B, int Sq, int Sk, int H, int K, int d, int causal,
+                  int window, float scale, void* stream) {
+  const size_t smem = tc_bwd_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<DP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = d % 8 == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                   (uintptr_t)dout) % 16 == 0;
+  if (parts & 1) {
+    flash_bwd_dq_tc<DP><<<dim3(B * H, (Sq + kBQ - 1) / kBQ), kTcThreads,
+                          smem, (cudaStream_t)stream>>>(
+        q, k, v, o, dout, lse, dq, Dbuf, Sq, Sk, H, K, d, causal, window,
+        scale * kLog2e, scale, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (parts & 2)
+    flash_bwd_dkdv_tc<DP><<<dim3(B * K, (Sk + kBK - 1) / kBK), kTcThreads,
+                            smem, (cudaStream_t)stream>>>(
+        q, k, v, dout, lse, Dbuf, dk, dv, Sq, Sk, H, K, d, causal, window,
+        scale * kLog2e, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -498,22 +1279,25 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
 
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel).
 // q/o: [B, Sq, H, d]; k/v: [B, Sk, K, d], all contiguous; H % K == 0;
-// 1 <= d <= 128; scale = 1 / sqrt(d).
+// 1 <= d <= 128; scale = 1 / sqrt(d).  lse: null, or f32 [B, H, Sq] that
+// receives each row's log-sum-exp of the scaled, masked scores (+inf for a
+// row with no visible key); o's bits do not depend on it.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
-                                      int B, int Sq, int Sk, int H, int K,
-                                      int d, int causal, int window,
-                                      float scale, void* stream) {
+                                      const void* v, void* o, float* lse,
+                                      int dtype, int B, int Sq, int Sk,
+                                      int H, int K, int d, int causal,
+                                      int window, float scale,
+                                      void* stream) {
   if (dtype == 0)
-    return launch<float>(q, k, v, o, B, Sq, Sk, H, K, d, causal, window,
-                         scale, stream);
+    return launch<float>(q, k, v, o, lse, B, Sq, Sk, H, K, d, causal,
+                         window, scale, stream);
   const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v;
   bf16* ob = (bf16*)o;
   switch ((d + 15) / 16) {
 #define FA_TC_CASE(n)                                                       \
   case n:                                                                   \
-    return launch_tc<16 * n>(qb, kb, vb, ob, B, Sq, Sk, H, K, d, causal,    \
-                             window, scale, stream);
+    return launch_tc<16 * n>(qb, kb, vb, ob, lse, B, Sq, Sk, H, K, d,       \
+                             causal, window, scale, stream);
     FA_TC_CASE(1)
     FA_TC_CASE(2)
     FA_TC_CASE(3)
@@ -523,6 +1307,42 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     FA_TC_CASE(7)
     FA_TC_CASE(8)
 #undef FA_TC_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward: dq [B, Sq, H, d] and dk/dv [B, Sk, K, d] in the dtype of
+// q, from q, k, v, the forward's o and lse, and dout (dL/do, the layout of
+// o); D is f32 scratch [B, H, Sq] (rowsum(dout o o), written by the first
+// kernel, read by the second).  Launches flash_bwd_dq (parts bit 0), then
+// flash_bwd_dkdv (bit 1), on `stream`; training passes 3, a timing of one
+// kernel alone 1 or 2 (2 after a call that filled D).
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, void* dq, void* dk, void* dv,
+    float* D, int dtype, int parts, int B, int Sq, int Sk, int H, int K,
+    int d, int causal, int window, float scale, void* stream) {
+  if (dtype == 0)
+    return launch_bwd<float>(q, k, v, o, dout, lse, dq, dk, dv, D, parts, B,
+                             Sq, Sk, H, K, d, causal, window, scale,
+                             stream);
+  switch ((d + 15) / 16) {
+#define FA_BWD_CASE(n)                                                      \
+  case n:                                                                   \
+    return launch_bwd_tc<16 * n>(                                           \
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,     \
+        (const bf16*)dout, lse, (bf16*)dq, (bf16*)dk, (bf16*)dv, D, parts,  \
+        B, Sq, Sk, H, K, d, causal, window, scale, stream);
+    FA_BWD_CASE(1)
+    FA_BWD_CASE(2)
+    FA_BWD_CASE(3)
+    FA_BWD_CASE(4)
+    FA_BWD_CASE(5)
+    FA_BWD_CASE(6)
+    FA_BWD_CASE(7)
+    FA_BWD_CASE(8)
+#undef FA_BWD_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

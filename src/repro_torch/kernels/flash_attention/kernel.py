@@ -1,5 +1,6 @@
 """ctypes binding of the hand-written Hopper flash-attention kernels
-(``csrc/flash_attention.cu``: bf16 on the tensor cores, f32 scalar), built
+(``csrc/flash_attention.cu``: bf16 on the tensor cores, f32 scalar; the
+forward, optionally with each row's log-sum-exp, and the backward), built
 at first use by :mod:`repro_torch.kernels._build`."""
 from __future__ import annotations
 
@@ -19,9 +20,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 @functools.cache
 def _library():
     lib = _build.load(SOURCE)
-    lib.flash_attention_launch.argtypes = [ctypes.c_void_p] * 4 + \
+    lib.flash_attention_launch.argtypes = [ctypes.c_void_p] * 5 + \
         [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_launch.argtypes = [ctypes.c_void_p] * 10 + \
+        [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
     lib.flash_attention_max_head_dim.argtypes = []
     lib.flash_attention_max_head_dim.restype = ctypes.c_int
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
@@ -59,30 +63,86 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q heads {H} are not a multiple of kv heads {K}")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
-    if max(B * H, -(-Sq // 64)) >= 65536 or \
+    if max(B * H, -(-Sq // 64), -(-Sk // 64)) >= 65536 or \
             max(B * Sq * H * d, B * Sk * K * d) >= 2**62:
         raise ValueError("shape too large for the kernel's grid")
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
-                           window: int = 0) -> torch.Tensor:
-    """Launch the kernel on PyTorch's current stream (the tensor-core
-    kernel for bf16, the scalar one for f32): ``o [B,Sq,H,d]`` in the q
-    dtype.  Layout and semantics as ``ops.flash_attention``."""
+                           window: int = 0, with_lse: bool = False):
+    """Launch the forward kernel on PyTorch's current stream (the
+    tensor-core kernel for bf16, the scalar one for f32): ``o [B,Sq,H,d]``
+    in the q dtype, and with ``with_lse`` also ``lse`` f32 [B, H, Sq], each
+    row's log-sum-exp of its scaled, masked scores (+inf where a row sees
+    no key); ``o`` is the same bits either way.  Layout and semantics as
+    ``ops.flash_attention``."""
     _check_inputs(q, k, v)
     B, Sq, H, d = q.shape
     Sk, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if out.numel():
+        lib = _library()
+        with torch.cuda.device(q.device):
+            err = lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                _DTYPES[q.dtype], B, Sq, Sk, H, K, d, int(bool(causal)),
+                int(window), 1.0 / (d ** 0.5), _stream(q))
+        if err != 0:
+            raise RuntimeError(f"flash_attention launch failed: "
+                               f"cudaError {err}")
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, o: torch.Tensor,
+                               lse: torch.Tensor, dout: torch.Tensor, *,
+                               causal: bool = True, window: int = 0,
+                               parts: int = 3, scratch=None):
+    """Launch the backward kernels on PyTorch's current stream,
+    ``flash_bwd_dq`` then ``flash_bwd_dkdv`` (the tensor-core pair for
+    bf16, the scalar pair for f32): ``(dq, dk, dv)`` in the layouts and
+    dtype of q, k, v, from the forward's ``o`` and ``lse`` and ``dout``
+    (the gradient of o).  ``parts`` 1 or 2 launches only the first or the
+    second kernel (to time one alone; the second reads the row sums D
+    that the first wrote into ``scratch``, f32 [B, H, Sq], so it takes
+    the ``scratch`` of an earlier call); the gradients the skipped kernel
+    writes are then left unset."""
+    _check_inputs(q, k, v)
+    B, Sq, H, d = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or \
+                t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous, shaped and typed "
+                             f"as q {tuple(q.shape)}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or \
+            lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous f32 [{B}, {H}, {Sq}]")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if scratch is None else scratch
+    if D.shape != (B, H, Sq) or D.dtype != torch.float32 or parts not in (
+            1, 2, 3):
+        raise ValueError("scratch must be f32 [B, H, Sq], parts 1, 2 or 3")
     lib = _library()
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, Sq, Sk, H, K, d, int(bool(causal)),
-            int(window), 1.0 / (d ** 0.5),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), D.data_ptr(), _DTYPES[q.dtype], parts, B, Sq, Sk,
+            H, K, d, int(bool(causal)), int(window), 1.0 / (d ** 0.5),
+            _stream(q))
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
-    return out
+        raise RuntimeError(f"flash_attention backward launch failed: "
+                           f"cudaError {err}")
+    return dq, dk, dv

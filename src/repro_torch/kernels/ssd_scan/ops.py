@@ -4,7 +4,8 @@
 A CUDA tensor launches a hand-written kernel (``kernel.py``): the
 tensor-core kernel for bf16, the scalar one for f32.  A CPU tensor takes
 the plain version, the model's chunked SSD (``ref.ssd_chunked``).  There
-is no fallback from one to the other.  Unlike the TPU wrapper, which
+is no fallback from one to the other, and no gradient on the card: a
+CUDA call whose inputs need one raises.  Unlike the TPU wrapper, which
 returned y only, both return the final carried state as well, which
 prefill with a cache needs; and the kernel reads x and the one group's
 B/C rows in place, through their strides, instead of a copy per head.
@@ -31,6 +32,15 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``ssd_scan.launches`` counts the kernel launches made through this
     wrapper."""
     if xh.is_cuda:
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (xh, dt, A, Bm, Cm, init_state)):
+            # the kernel's output carries no gradient: fail rather than
+            # train with the SSM's gradients silently dropped
+            raise NotImplementedError(
+                "ssd_scan has no backward kernel on the card yet "
+                "(ROADMAP.md, Queue 1 item 8: training the SSM and hybrid "
+                "families); run training of mamba2/zamba2 on the CPU")
         f32 = torch.float32
         y, final = ssd_scan_kernel(
             xh, dt.to(f32).contiguous(), A.to(f32).contiguous(), Bm, Cm,

@@ -1,1 +1,1 @@
-"""The model substrate of the port: the hybrid (zamba2) family so far."""
+"""The model substrate of the port: every family, served and trained."""

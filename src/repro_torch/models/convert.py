@@ -8,7 +8,9 @@ layer axis unrolled, so ``blocks/mamba/in_proj[3]`` becomes
 ``blocks.mamba.3.in_proj`` (a dense model's ``blocks/attn/wq[3]``
 ``blocks.3.attn.wq``, an encoder-decoder's ``encoder/mlp/w_up[1]``
 ``encoder.1.mlp.w_up``).  bf16 arrays (numpy's ``bfloat16`` extension
-dtype) arrive as torch bf16, bit for bit.
+dtype) arrive as torch bf16, bit for bit.  :func:`grads_from_numpy` and
+:func:`opt_state_from_numpy` carry a gradient and an optimizer state across
+the same way, keyed by the port's parameter names.
 """
 from __future__ import annotations
 
@@ -53,8 +55,9 @@ def _unstack(tree: dict) -> list:
     return [pick(tree, i) for i in range(sizes.pop())]
 
 
-def params_from_numpy(tree: dict, cfg, device) -> ParamTree:
-    """The port's parameters from the reference's tree of numpy arrays."""
+def _unstacked(tree: dict, cfg, device) -> dict:
+    """The reference's tree of numpy arrays as tensors on ``device``, the
+    family's stacked subtrees unrolled into lists of per-layer trees."""
     def conv(t):
         return {k: conv(v) if isinstance(v, dict) else _tensor(v, device)
                 for k, v in t.items()}
@@ -64,4 +67,45 @@ def params_from_numpy(tree: dict, cfg, device) -> ParamTree:
         for key in path[:-1]:
             parent = parent[key]
         parent[path[-1]] = _unstack(parent[path[-1]])
-    return ParamTree(out)
+    return out
+
+
+def params_from_numpy(tree: dict, cfg, device,
+                      trainable: bool = False) -> ParamTree:
+    """The port's parameters from the reference's tree of numpy arrays;
+    frozen unless ``trainable``."""
+    return ParamTree(_unstacked(tree, cfg, device), trainable)
+
+
+def grads_from_numpy(tree: dict, cfg, device) -> dict:
+    """A gradient (or any tree shaped like the parameters) from the
+    reference's tree of numpy arrays: the flat ``{name: tensor}`` keyed
+    by the port's parameter names."""
+    return {n: p.detach() for n, p in
+            ParamTree(_unstacked(tree, cfg, device)).named_parameters()}
+
+
+def opt_state_from_numpy(state: dict, cfg, device) -> dict:
+    """The port's optimizer state from the reference's (numpy arrays).
+
+    AdamW's ``{"mu", "nu"}`` trees are unstacked as the parameters are,
+    each into a flat ``{name: tensor}``.  Adafactor's slots keep the
+    reference's stacked layer axis, ``{reference path: {"vr", "vc"} or
+    {"v"}}`` with the path's keys joined by dots: the reference factors
+    a stacked leaf as one array (a stacked norm weight [L, D] is a matrix
+    whose ``vc`` is shared by the layers), and the port's Adafactor
+    updates each stacked group as that array
+    (:func:`repro_torch.training.optimizer.layer_groups`)."""
+    if set(state) == {"mu", "nu"}:
+        return {k: grads_from_numpy(v, cfg, device) for k, v in state.items()}
+
+    def slots(t, prefix=""):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict) and set(v) in ({"vr", "vc"}, {"v"}):
+                out[prefix + k] = {n: _tensor(a, device)
+                                   for n, a in v.items()}
+            else:
+                out.update(slots(v, prefix + k + "."))
+        return out
+    return slots(state)

@@ -3,10 +3,12 @@
 
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    loss = model.loss(params, batch)        # train step body
     logits, caches = model.prefill(params, batch, max_len)
     logits, caches = model.decode_step(params, tokens, caches, pos)
 
-Batch conventions (the reference's):
+Batch conventions (the reference's; ``loss`` takes ``tokens`` [B, S+1]
+and predicts each next token, numpy arrays or tensors):
 
   * lm (dense/moe/ssm/hybrid): ``{"tokens": int[B, S]}``;
   * encdec (whisper): ``{"frames": f[B, enc_seq, D] (conv-stub output),
@@ -19,7 +21,8 @@ Parameters are a :class:`ParamTree`, an ``nn.Module`` whose names are the
 reference's tree paths with the stacked layer axis unrolled
 (``blocks.mamba.3.in_proj``, ``blocks.3.attn.wq``, ``encoder.0.mlp.w_up``);
 :mod:`repro_torch.models.convert` builds one from the reference's
-parameters.
+parameters.  They are frozen unless built with ``trainable=True``: the
+serving path takes no gradient, training takes them all.
 """
 from __future__ import annotations
 
@@ -53,20 +56,23 @@ def padded_vocab(cfg) -> int:
 
 class ParamTree(nn.Module):
     """A nested parameter tree as an ``nn.Module``: dicts become
-    submodules, lists ``nn.ModuleList``s, tensors frozen parameters (the
-    serving path takes no gradient).  ``p[name]``, ``name in p`` and
-    ``p.get(name)`` read it as the reference's functions read a dict."""
+    submodules, lists ``nn.ModuleList``s, tensors parameters, frozen (the
+    serving path takes no gradient) unless ``trainable``.  ``p[name]``,
+    ``name in p`` and ``p.get(name)`` read it as the reference's functions
+    read a dict; ``dict(p.named_parameters())`` is the flat state dict that
+    the optimizer and ``run_training``'s checkpoints key by name."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for name, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(name, ParamTree(v))
+                self.add_module(name, ParamTree(v, trainable))
             elif isinstance(v, (list, tuple)):
-                self.add_module(name, nn.ModuleList(ParamTree(e) for e in v))
+                self.add_module(name, nn.ModuleList(ParamTree(e, trainable)
+                                                    for e in v))
             else:
                 self.register_parameter(
-                    name, nn.Parameter(v, requires_grad=False))
+                    name, nn.Parameter(v, requires_grad=trainable))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -86,9 +92,11 @@ class Model:
         if self.cfg.family not in FAMILIES:
             raise ValueError(f"family {self.cfg.family!r}")
 
-    def init(self, gen: torch.Generator) -> ParamTree:
+    def init(self, gen: torch.Generator,
+             trainable: bool = False) -> ParamTree:
         """Random parameters with the reference's shapes, dtypes and
-        ``dense_init`` scales, drawn from ``gen`` on its device."""
+        ``dense_init`` scales, drawn from ``gen`` on its device; frozen
+        unless ``trainable``."""
         cfg = self.cfg
         dt = _dtype(cfg.param_dtype)
         D, V = cfg.d_model, padded_vocab(cfg)
@@ -118,7 +126,7 @@ class Model:
             tree["blocks"] = [T.encdec_block_params(gen, cfg, dt)
                               for _ in range(L)]
             tree["dec_pos"] = dense_init(gen, (8192, D), dt, scale=0.02)
-        return ParamTree(tree)
+        return ParamTree(tree, trainable)
 
     def _embed(self, params, tokens: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
@@ -153,19 +161,21 @@ class Model:
 
     def _backbone(self, params, x: torch.Tensor, *, positions, mode: str,
                   caches=None, cache_pos=None, enc_out=None):
-        """The family's layer stack; returns (x, caches), the caches
-        updated in place.  An encdec model's caches are
-        ``{"self", "cross"}``; its prefill gives the encoder output
-        ``enc_out``, which fills the cross caches."""
+        """The family's layer stack; returns (x, caches, the MoE aux loss
+        (0 for the other families)), the caches updated in place.  An
+        encdec model's caches are ``{"self", "cross"}`` or None; its
+        prefill and its loss give the encoder output ``enc_out``, which
+        fills the cross caches when they are given."""
         cfg, fam = self.cfg, self.cfg.family
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if fam in ("dense", "vlm"):
             x, _ = T.dense_stack(params["blocks"], x, cfg,
                                  positions=positions, mode=mode,
                                  caches=caches, cache_pos=cache_pos)
         elif fam == "moe":
-            x, _, _ = T.moe_stack(params["blocks"], x, cfg,
-                                  positions=positions, mode=mode,
-                                  caches=caches, cache_pos=cache_pos)
+            x, _, aux = T.moe_stack(params["blocks"], x, cfg,
+                                    positions=positions, mode=mode,
+                                    caches=caches, cache_pos=cache_pos)
         elif fam == "ssm":
             x, _ = T.ssm_stack(params["blocks"], x, cfg, caches=caches)
         elif fam == "hybrid":
@@ -176,9 +186,50 @@ class Model:
             x, _, _ = T.decoder_stack(
                 params["blocks"], x, cfg, positions=positions, mode=mode,
                 enc_out=enc_out,
-                xa_caches=caches["cross"], caches=caches["self"],
+                xa_caches=None if caches is None else caches["cross"],
+                caches=None if caches is None else caches["self"],
                 cache_pos=cache_pos)
-        return x, caches
+        return x, caches, aux
+
+    def loss(self, params, batch: dict) -> torch.Tensor:
+        """Mean next-token NLL of ``batch["tokens"]`` [B, S+1] (and the
+        family's ``vis`` or ``frames``), in f32: a VLM's vision prefix is
+        prepended and dropped from the logits, an encoder-decoder's frames
+        run through the encoder, and a MoE adds ``0.01 * aux``.  Batch
+        leaves may be numpy arrays; they are moved to the parameters'
+        device."""
+        cfg = self.cfg
+        dev = params["embed"].device
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        inp, labels = tokens[:, :-1], tokens[:, 1:]
+        B, S = inp.shape
+        positions = torch.arange(S, device=dev).expand(B, S)
+        x = self._embed(params, inp, positions)
+        n_prefix, enc_out = 0, None
+        if cfg.family == "vlm":
+            vis = torch.as_tensor(batch["vis"], device=dev)
+            x = torch.cat([vis.to(x.dtype), x], dim=1)
+            n_prefix = vis.shape[1]
+            positions = torch.arange(n_prefix + S, device=dev).expand(
+                B, n_prefix + S)
+        if cfg.family == "encdec":
+            enc_out = self._encode(params, torch.as_tensor(
+                batch["frames"], device=dev))
+        x, _, aux = self._backbone(params, x, positions=positions,
+                                   mode="causal", enc_out=enc_out)
+        if n_prefix:
+            x = x[:, n_prefix:]
+        logits = self._logits(params, x).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        # The label's logit by a gather where the reference contracts a
+        # one-hot over the vocab: the same number (every other term of the
+        # one-hot sum is an exact zero), without the [B, S, V] f32 one-hot
+        # (5 GB at qwen3-1.7b's B = 2, S = 4096).
+        picked = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        loss = torch.mean(lse - picked)
+        if cfg.family == "moe":
+            loss = loss + 0.01 * aux
+        return loss
 
     def init_caches(self, batch: int, max_len: int, device) -> dict:
         cfg = self.cfg
@@ -217,9 +268,9 @@ class Model:
             positions = torch.arange(Sv, device=dev).expand(B, Sv)
         enc_out = self._encode(params, batch["frames"]) \
             if cfg.family == "encdec" else None
-        x, caches = self._backbone(params, x, positions=positions,
-                                   mode="causal", caches=caches,
-                                   enc_out=enc_out)
+        x, caches, _ = self._backbone(params, x, positions=positions,
+                                      mode="causal", caches=caches,
+                                      enc_out=enc_out)
         return self._logits(params, x[:, -1:]), caches
 
     def decode_step(self, params, tokens: torch.Tensor, caches: dict,
@@ -231,7 +282,7 @@ class Model:
         positions = torch.full((B, 1), int(pos), dtype=torch.int32,
                                device=params["embed"].device)
         x = self._embed(params, tokens[:, None], positions)
-        x, caches = self._backbone(params, x, positions=positions,
-                                   mode="decode", caches=caches,
-                                   cache_pos=pos)
+        x, caches, _ = self._backbone(params, x, positions=positions,
+                                      mode="decode", caches=caches,
+                                      cache_pos=pos)
         return self._logits(params, x), caches

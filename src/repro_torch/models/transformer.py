@@ -16,13 +16,15 @@ is a Python loop over the per-layer parameter trees: dense layer ``idx``
 attends with :func:`_layer_window`'s window and cache slot ``idx``;
 hybrid layer ``idx`` runs the tied shared block after its Mamba2 block
 when ``idx % k == k - 1``, with attention cache slot ``idx // k``.  Caches
-are stacked tensors updated in place.
+are stacked tensors updated in place.  In training each layer runs under
+:func:`_maybe_remat`, the reference's activation checkpointing.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .layers import _zeros, attn_params, cross_attention, cross_kv, mlp, \
     mlp_params, rms_norm, self_attention
@@ -109,6 +111,21 @@ def _layer_window(cfg, idx: int) -> int:
     return 0 if idx % period == period - 1 else cfg.local_window
 
 
+def _maybe_remat(cfg, fn: Callable, x: torch.Tensor):
+    """``fn(x)``, one layer of a stack, under activation checkpointing when
+    it trains (grad enabled and ``x`` needs a gradient) and ``cfg.remat``
+    asks for it: the reference's ``_maybe_remat``.  Only the layer's input
+    is kept; its forward runs again in the backward, through the same
+    kernels, so the recomputed activations are the same bits.  ``"dots"``
+    (the reference saves the matmul outputs) behaves as ``"block"`` here:
+    it changes memory, not values.  Serving (no gradient) calls ``fn``
+    as it is."""
+    if cfg.remat in ("block", "dots") and torch.is_grad_enabled() \
+            and x.requires_grad:
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
+
+
 def _layer_cache(caches: Optional[dict], idx: int) -> Optional[dict]:
     """Layer ``idx``'s {'k','v'} views of stacked [L, ...] caches."""
     return None if caches is None else {"k": caches["k"][idx],
@@ -121,10 +138,10 @@ def dense_stack(params, x: torch.Tensor, cfg, *, positions, mode: str,
     ``caches = {'k','v'} [L, B, max_len, K, dh]`` or None, updated in
     place and returned."""
     for idx, lp in enumerate(params):
-        x, _ = dense_block(lp, x, cfg, positions=positions, mode=mode,
-                           window=_layer_window(cfg, idx),
-                           cache=_layer_cache(caches, idx),
-                           cache_pos=cache_pos)
+        x = _maybe_remat(cfg, lambda x, lp=lp, idx=idx: dense_block(
+            lp, x, cfg, positions=positions, mode=mode,
+            window=_layer_window(cfg, idx), cache=_layer_cache(caches, idx),
+            cache_pos=cache_pos)[0], x)
     return x, caches
 
 
@@ -133,9 +150,9 @@ def moe_stack(params, x: torch.Tensor, cfg, *, positions, mode: str,
     """[attn -> moe_ffn] x L; returns (x, caches, the mean aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for idx, lp in enumerate(params):
-        x, _, a = moe_block(lp, x, cfg, positions=positions, mode=mode,
-                            cache=_layer_cache(caches, idx),
-                            cache_pos=cache_pos)
+        x, _, a = _maybe_remat(cfg, lambda x, lp=lp, idx=idx: moe_block(
+            lp, x, cfg, positions=positions, mode=mode,
+            cache=_layer_cache(caches, idx), cache_pos=cache_pos), x)
         aux = aux + a
     return x, caches, aux / len(params)
 
@@ -161,7 +178,8 @@ def ssm_stack(params, x: torch.Tensor, cfg, *,
     """[mamba2 SSD] x L; ``caches`` an SSMCache of [L, ...] tensors or
     None, updated in place and returned."""
     for idx, lp in enumerate(params):
-        x = _mamba_layer(lp, x, cfg, _ssm_layer_cache(caches, idx))
+        x = _maybe_remat(cfg, lambda x, lp=lp, idx=idx: _mamba_layer(
+            lp, x, cfg, _ssm_layer_cache(caches, idx)), x)
     return x, caches
 
 
@@ -175,7 +193,8 @@ def hybrid_stack(params, x: torch.Tensor, cfg, *, positions, mode: str,
     are updated in place and returned."""
     k = cfg.shared_attn_every
     shared = params["shared"]
-    for idx, lp in enumerate(params["mamba"]):
+
+    def layer(x, lp, idx):
         x = _mamba_layer(lp, x, cfg, None if caches is None
                          else _ssm_layer_cache(caches["ssm"], idx))
         if k and idx % k == k - 1:
@@ -183,6 +202,9 @@ def hybrid_stack(params, x: torch.Tensor, cfg, *, positions, mode: str,
                 _layer_cache(caches["attn"], idx // k)
             x, _ = dense_block(shared, x, cfg, positions=positions,
                                mode=mode, cache=attn, cache_pos=cache_pos)
+        return x
+    for idx, lp in enumerate(params["mamba"]):
+        x = _maybe_remat(cfg, lambda x, lp=lp, idx=idx: layer(x, lp, idx), x)
     return x, caches
 
 
@@ -190,7 +212,8 @@ def encoder_stack(params, x: torch.Tensor, cfg) -> torch.Tensor:
     """The bidirectional encoder: dense blocks without positions or
     caches."""
     for lp in params:
-        x, _ = dense_block(lp, x, cfg, positions=None, mode="bidir")
+        x = _maybe_remat(cfg, lambda x, lp=lp: dense_block(
+            lp, x, cfg, positions=None, mode="bidir")[0], x)
     return x
 
 
@@ -209,11 +232,11 @@ def decoder_stack(params, x: torch.Tensor, cfg, *, positions, mode: str,
     kvs = []
     for idx, lp in enumerate(params):
         xa = None if enc_out is not None else _layer_cache(xa_caches, idx)
-        x, _, xa_kv = encdec_block(lp, x, cfg, positions=positions,
-                                   mode=mode,
-                                   cache=_layer_cache(caches, idx),
-                                   cache_pos=cache_pos, enc_out=enc_out,
-                                   xa_cache=xa)
+        x, _, xa_kv = _maybe_remat(cfg, lambda x, lp=lp, idx=idx, xa=xa:
+                                   encdec_block(
+            lp, x, cfg, positions=positions, mode=mode,
+            cache=_layer_cache(caches, idx), cache_pos=cache_pos,
+            enc_out=enc_out, xa_cache=xa), x)
         if enc_out is not None and xa_caches is not None:
             xa_caches["k"][idx] = xa_kv["k"]
             xa_caches["v"][idx] = xa_kv["v"]

@@ -271,3 +271,188 @@ def test_bf16_kernel_at_the_family_shapes(cuda_device, Sq, Sk, H, K, dh,
     ref = flash_attention_plain(q.float(), k.float(), v.float(),
                                 causal=causal)
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+# --------------------------------------------------------------------- #
+# the backward: plain version against autograd and jax.grad on the CPU,  #
+# the kernels against it on the card                                     #
+# --------------------------------------------------------------------- #
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_lse_plain)
+
+# (B, Sq, Sk, H, K, dh, causal, window): causal, GQA 2:1 and 4:1,
+# windows, non-causal, Sq != Sk (ragged), and the no-visible-key rows of
+# test_rows_with_no_visible_key_give_zero (non-causal, window 8, 48 x 16)
+BWD_CASES = [
+    (2, 40, 40, 4, 2, 16, True, 0),
+    (1, 64, 64, 8, 2, 8, True, 16),
+    (2, 37, 53, 6, 1, 8, False, 0),
+    (1, 33, 90, 2, 2, 16, False, 24),
+    (1, 48, 16, 2, 2, 8, False, 8),
+]
+BWD_IDS = ["causal_gqa", "window", "noncausal_ragged", "noncausal_window",
+           "no_visible_key"]
+# f32 on both sides, sums in other orders
+BWD_TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _bwd_inputs(case, seed=0):
+    B, Sq, Sk, H, K, dh, causal, window = case
+    q, k, v = _qkv(seed, B, Sq, Sk, H, K, dh)
+    do = np.random.default_rng(seed + 1).standard_normal(
+        (B, Sq, H, dh)).astype(np.float32)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_bwd_plain_matches_autograd_through_the_plain_forward(case):
+    """flash_attention_bwd_plain, from the forward's o and lse, against
+    autograd through flash_attention_plain (which the CPU trains with),
+    and the wrapper's CPU path against it; f32 at 2e-5."""
+    B, Sq, Sk, H, K, dh, causal, window = case
+    q, k, v, do = (torch.as_tensor(a) for a in _bwd_inputs(case))
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = flash_attention(qg, kg, vg, causal=causal, window=window)
+    want = torch.autograd.grad(o, (qg, kg, vg), do)
+    lse = flash_attention_lse_plain(q, k, causal=causal, window=window)
+    assert lse.shape == (B, H, Sq)
+    got = flash_attention_bwd_plain(q, k, v, o.detach(), lse, do,
+                                    causal=causal, window=window)
+    wrapped = flash_attention_bwd(q, k, v, o.detach(), lse, do,
+                                  causal=causal, window=window)
+    for g, w, x in zip(got, want, wrapped):
+        assert g.shape == w.shape and bool(w.abs().max() > 0)
+        torch.testing.assert_close(g, w, **BWD_TOL)
+        assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_bwd_plain_matches_jax_grad(jx, case):
+    """The plain backward against ``jax.vjp`` of the reference's
+    ``attention_ref`` (kernel layout, every case) and, where every row
+    sees a key, of ``models.layers.attention_blocked`` (the function the
+    reference's training differentiates: kv repeated to H, so dk/dv are
+    summed over each group here); the lse against ``jax.nn.logsumexp`` of
+    the masked scores.  f32 at 2e-5."""
+    import jax
+    from repro.models.layers import attention_blocked
+    B, Sq, Sk, H, K, dh, causal, window = case
+    q, k, v, do = _bwd_inputs(case)
+    kl = lambda a: np.moveaxis(a, 2, 1).reshape(-1, a.shape[1], dh)  # noqa
+    jq, jk, jv, jdo = (jx.jnp.asarray(kl(a)) for a in (q, k, v, do))
+    o, vjp = jax.vjp(lambda a, b, c: jx.ref(a, b, c, causal=causal,
+                                            window=window), jq, jk, jv)
+    want = [np.asarray(g) for g in vjp(jdo)]
+    tq, tk, tv, tdo = (torch.as_tensor(a) for a in (q, k, v, do))
+    lse = flash_attention_lse_plain(tq, tk, causal=causal, window=window)
+    got = flash_attention_bwd_plain(tq, tk, tv, torch.as_tensor(np.array(
+        np.moveaxis(np.asarray(o).reshape(B, H, Sq, dh), 1, 2))), lse, tdo,
+        causal=causal, window=window)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(
+            np.moveaxis(g.numpy(), 2, 1).reshape(w.shape), w, **BWD_TOL)
+    # lse against the masked scores' logsumexp
+    qpos, kpos = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    mask = np.ones((Sq, Sk), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = jx.jnp.einsum("bqd,bkd->bqk", jq, jx.jnp.repeat(jk, H // K, 0)) \
+        / dh ** 0.5
+    jl = np.asarray(jax.nn.logsumexp(jx.jnp.where(mask, s, -np.inf), -1))
+    jl = np.where(mask.any(-1), jl, np.inf).reshape(B, H, Sq)
+    np.testing.assert_allclose(lse.numpy(), jl, **BWD_TOL)
+    if not mask.any(-1).all():
+        assert np.isinf(lse.numpy()).any()
+        return
+    # attention_blocked: [B, S, H, dh] with kv repeated to H
+    rep = lambda a: jx.jnp.repeat(jx.jnp.asarray(a), H // K, axis=2)  # noqa
+    _, vjp = jax.vjp(lambda a, b, c: attention_blocked(
+        a, b, c, causal=causal, window=window or None, chunk=16),
+        jx.jnp.asarray(q), rep(k), rep(v))
+    bq, bk, bv = (np.asarray(g) for g in vjp(jx.jnp.asarray(do)))
+    sum_group = lambda g: g.reshape(B, Sk, K, H // K, dh).sum(3)  # noqa
+    for g, w in zip(got, (bq, sum_group(bk), sum_group(bv))):
+        np.testing.assert_allclose(g.numpy(), w, **BWD_TOL)
+
+
+def test_flash_attention_under_grad_on_the_cpu_has_nonzero_grads():
+    """On the CPU a gradient reaches q, k and v through the plain
+    version: nonzero, and no kernel launch counted."""
+    q, k, v = (torch.as_tensor(a).requires_grad_(True)
+               for a in _qkv(4, 1, 24, 24, 4, 2, 16))
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    for t in (q, k, v):
+        assert bool(t.grad.abs().max() > 0)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == \
+        (f0, b0)
+
+
+def _scaled_err(got, want):
+    """max|got - want| / max|want|, and max|want| (a zero gradient would
+    pass an absolute-plus-relative test)."""
+    scale = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / scale, scale
+
+
+# the card's backward cases: the training shape of qwen3-1.7b (cut to
+# B = 1, S = 1024 here; chip_smoke.py checks the full one), zamba2's
+# d = 112, whisper's cross shape (non-causal, Sq != Sk, ragged), a gemma3
+# window (1024 over 1536) and the no-visible-key rows
+GPU_BWD_CASES = [
+    (1, 1024, 1024, 16, 8, 128, True, 0),
+    (1, 300, 300, 4, 4, 112, True, 0),
+    (1, 200, 1500, 4, 4, 64, False, 0),
+    (1, 1536, 1536, 4, 2, 128, True, 1024),
+    (1, 48, 16, 2, 2, 8, False, 8),
+] + BWD_CASES[:4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_bwd_kernels_match_the_plain_version_on_card(cuda_device, dtype,
+                                                     tol):
+    """The backward kernels through autograd against the plain backward
+    on the same values (f32, from the same o and lse): each gradient
+    within ``tol * max|ref|`` and ``max|ref| > 0``; the forward's lse
+    against the plain log-sum-exp (+inf rows where no key is visible);
+    two backward calls give the same bits (no atomics)."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    for B, Sq, Sk, H, K, dh, causal, window in GPU_BWD_CASES:
+        q = torch.randn((B, Sq, H, dh), generator=g, device=cuda_device)
+        k = torch.randn((B, Sk, K, dh), generator=g, device=cuda_device)
+        v = torch.randn((B, Sk, K, dh), generator=g, device=cuda_device)
+        do = torch.randn((B, Sq, H, dh), generator=g, device=cuda_device)
+        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+        o, lse = tkernel.flash_attention_kernel(q, k, v, causal=causal,
+                                                window=window, with_lse=True)
+        assert torch.equal(o, flash_attention(q, k, v, causal=causal,
+                                              window=window))
+        want_lse = flash_attention_lse_plain(q.float(), k.float(),
+                                             causal=causal, window=window)
+        assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+        fin = torch.isfinite(want_lse)
+        torch.testing.assert_close(lse[fin], want_lse[fin], atol=1e-4,
+                                   rtol=1e-5)
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        before = flash_attention_bwd.launches
+        out = flash_attention(qg, kg, vg, causal=causal, window=window)
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out, (qg, kg, vg), do)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.launches == before + 1
+        want = flash_attention_bwd_plain(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+            causal=causal, window=window)
+        for name, a, w in zip("qkv", got, want):
+            err, scale = _scaled_err(a, w)
+            assert scale > 0 and err <= tol, (name, err, B, Sq, Sk, dh)
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    window=window)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -241,6 +241,71 @@ def test_checks_phase_runs_on_the_cpu():
     assert cons["max_abs_err"] < cons["tol"] and cons["shared_attn_calls"]
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The train phase's tiny steps on one intra-op thread: the suite's
+    parallel workers share the cores, and with 8 threads each step waits
+    on threads other workers hold (tests/test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_train_phase_trains_twice_alike_and_resumes_on_the_cpu():
+    """chip_smoke.py's train phase on tiny(qwen3-1.7b) at SMALL: two runs
+    from one seed with the same losses, every layer's attention gradients
+    nonzero, no kernel launched on the CPU, and the crash/resume recipe in
+    f32 and bf16; the full-size phase's config and shape."""
+    sz = chip_smoke.SMALL
+    got = chip_smoke.run_train(sz, torch.device("cpu"), 3)
+    assert got["rerun_losses_equal"] and len(got["losses"]) == \
+        sz.train_steps and got["microbatches"] == 2
+    assert got["attn_grad_leaves_nonzero"] == 4 * 5
+    assert got["launches"] == {"flash_attention": 0,
+                               "flash_attention_bwd": 0, "ssd_scan": 0}
+    assert sorted(got["recipe"]) == ["bfloat16", "float32"]
+    assert all(r["resumed_steps"] == 20 for r in got["recipe"].values())
+    full = chip_smoke.train_config(chip_smoke.FULL)
+    assert (full.n_layers, full.microbatches, full.remat,
+            full.compute_dtype) == (28, 2, "block", "bfloat16")
+    assert chip_smoke.train_shape(chip_smoke.FULL) == \
+        (2, 4096, 4096, 16, 8, 128, True)
+    assert any("global batch 256 -> 4" in r
+               for r in chip_smoke.train_reduced(chip_smoke.FULL))
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_train_checks_run_on_the_cpu():
+    """The checks phase's backward checks (every shape, bf16 and f32, the
+    no-visible-key rows with +inf lse) and the f32 gradient check on the
+    CPU, where both sides are the plain versions."""
+    sz, cpu = chip_smoke.SMALL, torch.device("cpu")
+    bwd = chip_smoke.check_flash_bwd(sz, cpu)
+    assert set(bwd) == {f"{k}_{t}" for k in chip_smoke.flash_bwd_shapes(sz)
+                        for t in ("bfloat16", "float32")}
+    assert bwd["no_visible_key_float32"]["inf_rows"] > 0
+    assert bwd["whisper_cross_bfloat16"]["shape"][1:3] == [37, 24]
+    cons = chip_smoke.check_train_consistency(sz, cpu, 1)
+    assert cons["n_layers"] == 2 and cons["worst_grad_rel_err"] <= \
+        cons["tol"]
+
+
+def test_flash_bounds_at_the_training_shape():
+    """The bounds reckoned for the training shape: the forward's 137
+    GFLOP (0.139 ms at 989 TFLOP/s), the backward's least work 2.5x that
+    (0.347 ms), the two-kernel split's 3.5x (481 GFLOP); compute-bound."""
+    shape = chip_smoke.train_shape(chip_smoke.FULL)
+    b = chip_smoke.flash_bwd_bounds(shape)
+    fwd = 4 * 128 * 2 * 16 * (4096 * 4097 // 2)
+    assert round(fwd / 1e9) == 137
+    assert b["pair"]["flops"] == 2.5 * fwd
+    assert b["dq"]["flops"] + b["dkdv"]["flops"] == 3.5 * fwd
+    assert abs(b["pair"]["bound_ms"] - 0.3475) < 1e-4
+    assert all(v["bound_by"] == "operations" for v in b.values())
+
+
 def test_ssd_flop_count_matches_the_chunk_gemms():
     # one full chunk: C B^T and scores x on the lower triangle, C S^T and
     # the state update in full

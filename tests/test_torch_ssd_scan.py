@@ -392,3 +392,21 @@ def test_both_kernels_at_the_mamba2_shape(cuda_device, S):
                              init_state=init)
         torch.testing.assert_close(y.float(), ry, atol=tol, rtol=tol)
         torch.testing.assert_close(final, rf, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_raises_where_a_gradient_is_needed(cuda_device):
+    """The kernel has no backward yet: under grad with an input that
+    needs a gradient the CUDA wrapper raises instead of dropping it;
+    without one it runs."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    xh = torch.randn((1, 32, 2, 16), generator=g, device=cuda_device)
+    dt = torch.rand((1, 32, 2), generator=g, device=cuda_device)
+    A = -torch.rand((2,), generator=g, device=cuda_device)
+    Bm, Cm = (torch.randn((1, 32, 8), generator=g, device=cuda_device)
+              for _ in range(2))
+    with pytest.raises(NotImplementedError, match="backward"):
+        ssd_scan(xh.requires_grad_(True), dt, A, Bm, Cm, chunk=16)
+    with torch.no_grad():
+        y, _ = ssd_scan(xh, dt, A, Bm, Cm, chunk=16)
+    assert y.shape == xh.shape
