@@ -9,10 +9,12 @@ Fifteen phases, each of which fails the run when it fails:
 
 1. ``build``  -- compile the three hand-written kernels from ``src/`` with
    nvcc, all at once, and report each compiled function's registers and
-   spills (``ptxas -v``) and tensor-core instructions (``HMMA``/``HGMMA``
-   in ``cuobjdump --dump-sass``); ``flash_attention`` and ``ssd_scan``
-   must have some (their bf16 kernels run on ``mma.sync``), and no
-   ``nvt_probe`` function may spill;
+   spills (``ptxas -v``) and tensor-core instructions (``HMMA`` and
+   ``HGMMA`` in ``cuobjdump --dump-sass``); ``flash_attention`` and
+   ``ssd_scan`` must have some (their bf16 kernels run on ``mma.sync``),
+   each function of the wgmma backward pair (``flash_bwd_dq_wg`` and
+   ``flash_bwd_dkdv_wg`` at d = 64 and 128) must have ``HGMMA`` and no
+   spill, and no ``nvt_probe`` function may spill;
 2. ``map``    -- the main path at card scale: a durable index of 2^22
    keys (2^23-node pool, 2^20 buckets) takes the repo's mixed workload
    (uniform keys in ``[1, 2*prefill)``, updates split between inserts
@@ -123,10 +125,12 @@ Fifteen phases, each of which fails the run when it fails:
    arctic's GQA 7:1) and mamba2-370m's scan (N = 128) in bf16 and f32;
    the flash backward kernels through autograd against the plain
    backward and against autograd through the plain forward, each
-   gradient within 2e-2 (bf16) or 1e-5 (f32) of its max magnitude, and
-   the forward's lse against the plain log-sum-exp, at qwen3-1.7b's
-   training shape, zamba2's d = 112, whisper's cross shape, a gemma3-27b
-   local layer (window 1024) and rows with no visible key; and
+   gradient within 2e-2 (bf16) or 1e-5 (f32) of its max magnitude, two
+   calls repeating their bits, and the forward's lse against the plain
+   log-sum-exp, at qwen3-1.7b's training shape, zamba2's d = 112,
+   whisper's cross shape, a gemma3-27b local layer (window 1024) and rows
+   with no visible key, each with the backward route it took
+   (``kernel.bwd_route``: wgmma, mma.sync or scalar); and
    qwen3-1.7b's loss and every gradient in f32 at full width, 2 layers,
    [1, 512], with the kernels against the plain attention (1e-4 of each
    leaf's max);
@@ -1332,9 +1336,12 @@ def check_flash_bwd(sz: Sizes, dev) -> dict:
     (``flash_attention_bwd_plain``) and against autograd through
     ``flash_attention_plain``, all in f32 on the same values, at each of
     flash_bwd_shapes in bf16 and f32: each gradient within
-    ``FLASH_BWD_TOL * max|ref|`` and ``max|ref| > 0``; the forward's lse
-    against the plain log-sum-exp (LSE_TOL abs + rel, +inf exactly where
-    a row sees no key) and its o against the plain forward."""
+    ``FLASH_BWD_TOL * max|ref|`` and ``max|ref| > 0``, and a second
+    backward call the same bits (no atomics); the forward's lse against
+    the plain log-sum-exp (LSE_TOL abs + rel, +inf exactly where a row
+    sees no key) and its o against the plain forward.  Each shape reports
+    the backward route its dtype and head dim take
+    (``kernel.bwd_route``)."""
     out = {}
     for key, (B, Sq, Sk, H, K, d, causal, window) in \
             flash_bwd_shapes(sz).items():
@@ -1361,8 +1368,11 @@ def check_flash_bwd(sz: Sizes, dev) -> dict:
                                    want_lse[fin], LSE_TOL) if fin.any() \
                 else 0.0
             qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-            got = torch.autograd.grad(flash_attention(qg, kg, vg, **mask),
-                                      (qg, kg, vg), do)
+            got, again = (torch.autograd.grad(
+                flash_attention(qg, kg, vg, **mask), (qg, kg, vg), do)
+                for _ in range(2))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash bwd {tag}: two calls differ")
             plain = flash_attention_bwd_plain(
                 q.float(), k.float(), v.float(), o.float(), lse, do.float(),
                 **mask)
@@ -1381,10 +1391,13 @@ def check_flash_bwd(sz: Sizes, dev) -> dict:
                     errs[f"{name}_vs_{ref_name}"] = rel
                 errs[f"{name}_max_abs_err"] = _scaled(a, wp)[2]
             out[tag] = {"shape": [B, Sq, Sk, H, K, d], "causal": causal,
-                        "window": window, "tol": tol, "fwd_err": fwd_err,
+                        "window": window,
+                        "route": fa_kernel.bwd_route(d, dtype),
+                        "bitwise_repeat": True, "tol": tol,
+                        "fwd_err": fwd_err,
                         "lse_err": lse_err,
                         "inf_rows": int((~fin).sum()), **errs}
-            del q, k, v, do, o, lse, got, plain, auto, q32, k32, v32
+            del q, k, v, do, o, lse, got, again, plain, auto, q32, k32, v32
     free_card(dev)
     return out
 
@@ -3271,10 +3284,14 @@ def flash_bwd_bounds(shape) -> dict:
     return bounds
 
 
-def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes) -> list:
-    """The backward kernels at the training shape, bf16 (CUDA events):
-    ``flash_bwd_dq`` alone, ``flash_bwd_dkdv`` alone (on the row sums the
-    first wrote), and the pair; the plain backward; SDPA's backward
+def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes,
+                   build_rows: dict) -> list:
+    """The backward kernels at the training shape, bf16 (CUDA events), on
+    the route ``kernel.bwd_route`` gives it (at d = 128 the wgmma pair:
+    TMA rings, warp-specialised, no atomics; ``build_rows`` holds its
+    functions' registers): ``flash_bwd_dq`` alone, ``flash_bwd_dkdv``
+    alone (on the row sums the first wrote), and the pair; the plain
+    backward; SDPA's backward
     (``torch.autograd.grad`` of ``scaled_dot_product_attention(...,
     is_causal=True, enable_gqa=True)`` on the same tensors, the library
     call that computes the pair's function).  Bounds: each kernel's
@@ -3305,9 +3322,16 @@ def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes) -> list:
         sdpa, (qt, kt, vt), dot, retain_graph=True))
     bounds = flash_bwd_bounds(train_shape(sz))
     tag = "qwen3_train_bfloat16"
+    bwd_route = fa_kernel.bwd_route(d, torch.bfloat16)
+    design = {"wgmma": "FlashAttention-2 split on wgmma fed by TMA rings, "
+                       "warp-specialised (a producer warp, two consumer "
+                       "warpgroups), no atomics",
+              "mma_sync": "FlashAttention-2 split on mma.sync bf16, no "
+                          "atomics"}[bwd_route]
     out = []
     for n in ("dq", "dkdv"):
         grads = ("dq",) if n == "dq" else ("dk", "dv")
+        row = build_rows.get(f"flash_bwd_{n}_wg<{d}>", {})
         out.append({
             "name": f"flash_bwd_{n}", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3316,7 +3340,10 @@ def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes) -> list:
             "replaces_note": "the reference has no backward kernel: its "
                              "training differentiates attention_blocked "
                              "(src/repro/models/layers.py:128)",
-            "design": "FlashAttention-2 split on mma.sync bf16, no atomics",
+            "design": design, "bwd_route": bwd_route,
+            "registers": row.get("registers"),
+            "spill_bytes": row.get("spill_bytes"),
+            "hgmma_instr": row.get("hgmma_instr"),
             "arch": TRAIN_ARCH, "path": "train", "launches": launches,
             "max_abs_err": max(errs[tag][f"{g}_max_abs_err"]
                                for g in grads),
@@ -3387,10 +3414,10 @@ def build_report(so: Path, ptxas: str) -> list:
     """Per compiled function of one library: registers and spill bytes
     (from the ``ptxas -v`` report) and the count of tensor-core
     instructions in its SASS (``HMMA`` from ``mma.sync``, ``HGMMA`` from
-    ``wgmma``)."""
+    ``wgmma``), and of the ``HGMMA`` alone."""
     funcs = _build.ptxas_functions(ptxas)
     for f in funcs.values():
-        f["tensor_core_instr"] = 0
+        f["tensor_core_instr"] = f["hgmma_instr"] = 0
     sass = subprocess.run(
         [str(Path(_build._nvcc()).parent / "cuobjdump"), "--dump-sass",
          str(so)], capture_output=True, text=True, check=True).stdout
@@ -3401,10 +3428,32 @@ def build_report(so: Path, ptxas: str) -> list:
             cur = funcs.setdefault(m.group(1), {
                 "kernel": _build.readable_name(m.group(1)),
                 "registers": None, "spill_bytes": None,
-                "tensor_core_instr": 0})
+                "tensor_core_instr": 0, "hgmma_instr": 0})
         elif cur is not None and re.search(r"\bH(G)?MMA\b", line):
             cur["tensor_core_instr"] += 1
+            cur["hgmma_instr"] += "HGMMA" in line
     return sorted(funcs.values(), key=lambda f: f["kernel"])
+
+
+WGMMA_BWD_FUNCTIONS = tuple(f"flash_bwd_{k}_wg<{d}>" for k in ("dq", "dkdv")
+                            for d in fa_kernel.WGMMA_HEAD_DIMS)
+
+
+def check_wgmma_bwd_build(functions: list) -> dict:
+    """Each function of the wgmma backward pair (at every head dim it
+    takes) is in the library, has ``HGMMA`` instructions and no spill;
+    their build rows by name."""
+    rows = {f["kernel"]: f for f in functions
+            if f["kernel"] in WGMMA_BWD_FUNCTIONS}
+    missing = set(WGMMA_BWD_FUNCTIONS) - set(rows)
+    if missing:
+        raise AssertionError(f"flash_attention lacks {sorted(missing)}")
+    for name, f in rows.items():
+        if not f["hgmma_instr"]:
+            raise AssertionError(f"{name} has no HGMMA instruction")
+        if f["spill_bytes"] != 0:
+            raise AssertionError(f"{name} spills {f['spill_bytes']} bytes")
+    return rows
 
 
 def card_name_and_limit() -> str:
@@ -3447,6 +3496,7 @@ def main(argv=None) -> int:
                   if f["spill_bytes"]]
         if spills:
             raise AssertionError(f"nvt_probe functions spill: {spills}")
+        wgmma_bwd = check_wgmma_bwd_build(functions["flash_attention"])
         log({"phase": "build", "ok": True,
              "kernels": [k.SOURCE.stem for k in KERNELS],
              "libraries": [so.name for so, _ in built],
@@ -3454,6 +3504,7 @@ def main(argv=None) -> int:
     else:
         log({"phase": "build", "skipped": "no card: --device cpu runs "
              "the plain versions"})
+        wgmma_bwd = {}
 
     # 2. map: the map's main path, with every kernel's launch count from 0
     stream = make_stream(sz, args.seed)
@@ -3628,7 +3679,8 @@ def main(argv=None) -> int:
         bwd_errs["qwen3_train_bfloat16"]["fwd_err"], TRAIN_ARCH,
         train_shape(sz), "train"))
     kernels.extend(time_flash_bwd(
-        dev, train["launches"]["flash_attention_bwd"], bwd_errs, sz))
+        dev, train["launches"]["flash_attention_bwd"], bwd_errs, sz,
+        wgmma_bwd))
     kernels.append(time_ssd(
         dev, fam["mamba2-370m"]["launches"]["ssd_scan"],
         max(v for k, v in ssd_errs.items()

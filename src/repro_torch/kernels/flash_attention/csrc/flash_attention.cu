@@ -66,6 +66,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_tma_wgmma.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -515,36 +516,74 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 // Backward: dQ, dK, dV of o = softmax(mask(q k^T / sqrt(d))) v
 // ---------------------------------------------------------------------------
 //
-// The TPU package has no backward kernel (its training differentiates the
-// jnp attention_blocked); this is FlashAttention-2's split, each kernel
+// Replaces no TPU kernel: it is the gradient of the function of the Pallas
+// kernel's `_kernel` (src/repro/kernels/flash_attention/kernel.py), which
+// the reference's training takes through the jnp attention_blocked
+// (src/repro/models/layers.py).  FlashAttention-2's split, each kernel
 // recomputing the probabilities from the forward's row log-sum-exp
 // (P = exp(S * scale - lse), exactly 0 where masked or where a row sees no
 // key, lse = +inf) and D = rowsum(dO o O):
 //
-//   `flash_bwd_dq`   one block per (batch*head, 64-row query tile), launched
-//                    first: D of its rows (written for the next kernel), then
-//                    over the KV tiles its rows can see, dS = P o (dO V^T - D)
-//                    and dQ += dS K; dQ written once.
-//   `flash_bwd_dkdv` one block per (batch*kv head, 64-key tile): over the
+//   `flash_bwd_dq`   launched first: D of its rows (written for the next
+//                    kernel), then over the key tiles its rows can see,
+//                    dS = P o (dP - D) and dQ += dS K; dQ written once.
+//   `flash_bwd_dkdv` one block per (batch*kv head, key block): over the
 //                    group's H / K query heads and the query tiles that can
 //                    see its keys, dV += P^T dO and dK += dS^T Q; each
 //                    written once, so GQA's sum over the group is in the
 //                    block's registers.
 //
 // No atomics: every sum has a fixed order and a step repeats its bits.
-// bf16 runs on the tensor cores (mma.sync, fragments as in the forward:
-// the dkdv kernel computes S^T and dP^T with its keys as the A rows, so
-// P^T and dS^T feed the next products from registers); f32 runs scalar
-// kernels, four threads a row as in the forward.
+// The dtype and d pick one of three routes (`bwd_route`; kernel.py's
+// `bwd_route` holds the same rule and checks it against this library):
+//
+//   wgmma    bf16 at d = 64 or 128 (every served arch but zamba2):
+//            `flash_bwd_dq_wg<d>` and `flash_bwd_dkdv_wg<d>`, below;
+//   mma.sync bf16 at any other d (zamba2's 112): `flash_bwd_dq_tc` and
+//            `flash_bwd_dkdv_tc`, 4 warps and 64-row tiles, K/V (or Q/dO)
+//            double-buffered by cp.async and read by ldmatrix;
+//   scalar   f32: `flash_bwd_dq<float>` and `flash_bwd_dkdv<float>`, four
+//            threads a row as in the forward.
 //
 // Bound on this card: operations.  At qwen3-1.7b's training shape
 // (B = 2, S = 4096, H = 16, K = 8, d = 128, causal) the function's least
-// work is 2.5x the forward's (dV, dP, dQ, dK and S once), 344 GFLOP, 0.347
-// ms at the bf16 peak; this split recomputes S in both kernels and dP in
-// both, 481 GFLOP.  Its bytes (q, k, v, o, dO, lse read once, dq, dk, dv
-// written once) are about 0.2 GB.  A simple kernel: mma.sync reaches a
-// part of the wgmma rate, Q/dO tiles are re-read from L2 by every key
-// tile; wgmma with TMA rings is the next step.
+// work is 2.5x the forward's (S, dP, dV, dQ and dK once), 344 GFLOP, 0.347
+// ms at the bf16 peak; the split recomputes S and dP in both kernels, 481
+// GFLOP.  Its bytes (q, k, v, o, dO, lse read once, dq, dk, dv written
+// once) are about 0.2 GB.  What held the mma.sync pair at 6x its bound,
+// and what the wgmma pair does about it:
+//
+//   * mma.sync m16n8k16 reaches only part of the tensor cores' rate: the
+//     products are wgmma m64nNk16, issued by a warpgroup, S^T/dP^T (S/dP)
+//     with both operands in shared memory, dV/dK (dQ) with P^T and dS^T
+//     (dS) rounded to bf16 in registers as the A operand -- the
+//     accumulator's layout is the register-A layout -- and B read through
+//     the transpose bit;
+//   * 4 warps of 238-246 registers held an SM to 8-16 warps with little
+//     latency hidden: a block is two consumer warpgroups (128 keys or
+//     queries, 64 each) and a producer warpgroup, setmaxnreg moving the
+//     producer's registers to the consumers, one block an SM; the two
+//     consumer groups' exp2 and wgmma overlap on the SM;
+//   * per-thread cp.async and ldmatrix cost registers and instructions:
+//     one producer thread issues TMA box loads into 128B-swizzled tiles,
+//     rings of two or three stages with full and empty mbarriers, and
+//     wgmma reads the swizzle through its descriptors, so no consumer
+//     thread computes an address or touches the tiles;
+//   * dkdv re-read the Q and dO tiles of the query tiles that see each
+//     64-key tile from L2: a block now owns 128 keys, so each Q/dO tile is
+//     fetched once for twice the keys (and dq's K/V tiles once for 128
+//     queries);
+//   * the split's recomputation (481 against 344 GFLOP) stays: removing it
+//     takes dQ's atomic accumulation across key blocks (FlashAttention-3),
+//     whose order changes from run to run.
+//
+// Two more things decide its speed on the card: the probabilities' 2^x by
+// the SFU alone (exp2f's slow-case handling cost a fifth of the time) and
+// the mask's per-element test only on tiles that cross an edge (evaluated
+// on every tile, it cost a third).  Rows and columns past the ends arrive
+// from the TMA as zeros.  The operands stay in shared memory: dq's Q and
+// dO held in registers across its loop as wgmma's A came out wrong at
+// d = 64 (reloaded every tile they were right, and slower).
 
 static_assert(kBQ == kBK, "the scalar backward gives each thread kKeys "
                            "queries or keys of a tile");
@@ -1275,6 +1314,552 @@ int launch_bwd_tc(const bf16* q, const bf16* k, const bf16* v,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 at d = 64 and d = 128: wgmma fed by TMA rings, warp-specialised
+// ---------------------------------------------------------------------------
+//
+// Every tile is [64 rows][DP] bf16 in DP / 64 boxes of [64][64], each 8 KB
+// and 128B-swizzled by the TMA (hopper_tma_wgmma.cuh); a 128-row operand is
+// two such tiles, one for each consumer warpgroup.  A block has 384
+// threads: consumer warpgroups 0 and 1 (setmaxnreg up to kWgConsumerRegs)
+// and producer warpgroup 2 (down to kWgProducerRegs), whose first warp
+// alone issues the copies.  The ring's `full` barrier completes when a
+// stage's bytes have landed, its `empty` barrier when each of the eight
+// consumer warps has finished with it.
+
+constexpr int kWgThreads = 384;
+constexpr int kWgConsumerThreads = 256;
+constexpr int kWgRows = 64;            // rows (queries or keys) of a tile
+constexpr int kDqStages = 3;           // ring depth: K and V tiles
+constexpr int kDkdvStages = 2;         // ring depth: Q and dO tiles
+constexpr int kWgProducerRegs = 40;
+constexpr int kWgConsumerRegs = 232;   // 2x128x232 + 128x40 = 384 x 168
+
+__host__ __device__ constexpr int wg_tile_bytes(int DP) {
+  return DP / 64 * hop::kBox64Bytes;
+}
+
+// Dynamic shared memory of the two kernels (1024 bytes of slack align the
+// base): dq holds Q and dO of 128 rows, a ring of K and V tiles, D of its
+// rows and 2 kDqStages + 1 barriers; dkdv holds K and V of 128 keys, a
+// ring of Q and dO tiles with their lse and D rows, and its barriers.
+size_t wg_dq_smem_bytes(int DP) {
+  return 1024 + (size_t)(4 + 2 * kDqStages) * wg_tile_bytes(DP) +
+         sizeof(float) * 2 * kWgRows + 8 * (2 * kDqStages + 1);
+}
+size_t wg_dkdv_smem_bytes(int DP) {
+  return 1024 + (size_t)(4 + 2 * kDkdvStages) * wg_tile_bytes(DP) +
+         sizeof(float) * 2 * kDkdvStages * kWgRows +
+         8 * (2 * kDkdvStages + 1);
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = hop::smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// a tile's TMA loads: DP / 64 boxes of rows [s0, s0 + 64) of one head
+template <int DP>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int head, int s0,
+                                         int b) {
+#pragma unroll
+  for (int c = 0; c < DP / 64; ++c)
+    hop::tma_load_4d(dst + c * hop::kBox64Bytes, map, bar, c * 64, head, s0,
+                     b);
+}
+
+// acc[32] (+)= A B^T over the DP columns: A and B are [64][DP] tiles, the
+// 64 x 64 product accumulated over DP / 16 k-steps of 32 bytes each
+template <int DP>
+__device__ __forceinline__ void wg_product_abt(float (&acc)[32],
+                                               const unsigned char* a,
+                                               const unsigned char* b) {
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    const int off = (ks >> 2) * hop::kBox64Bytes + (ks & 3) * 32;
+    hop::wgmma_ss(acc, hop::desc_k_sw128(a + off), hop::desc_k_sw128(b + off),
+                  ks > 0);
+  }
+}
+
+// acc[DP / 2] += A B: A [64 x 64] in registers (a[kk] the k-step's
+// fragment), B a [64][DP] tile whose rows are the k dimension
+template <int DP>
+__device__ __forceinline__ void wg_product_ab(float (&acc)[DP / 2],
+                                              const uint32_t (&a)[4][4],
+                                              const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hop::wgmma_rs(acc, a[kk],
+                  hop::desc_mn_sw128(b + kk * 16 * 128, hop::kBox64Bytes), 1);
+}
+
+// The A fragments of a 64 x 64 accumulator, rounded to bf16: k-step kk is
+// its n8 blocks 2 kk and 2 kk + 1
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = tc::pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// rows r0 (registers e < 2) and r0 + 8 (e >= 2) of a [64 x DP] f32
+// accumulator, times `mul`, rounded to bf16 into [., d] rows of `out`
+// (row stride `stride` elements); rows at or past `rows` are skipped
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* out, size_t stride,
+                                           const float (&acc)[DP / 2],
+                                           int r0, int rows, float mul,
+                                           int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= rows) continue;
+    bf16* row = out + (size_t)r * stride;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + j * 8 + (lane & 3) * 2) =
+          tc::pack_bf16(acc[4 * j + 2 * half] * mul,
+                        acc[4 * j + 2 * half + 1] * mul);
+  }
+}
+
+// 2^x by the SFU alone (ex2.approx.ftz: about 2 ulp, subnormal results
+// flushed to 0, exp2(-inf) = 0), without exp2f's slow-case handling
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int DP>   // 64 or 128 (== d)
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_do,
+                const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, bf16* __restrict__ dq,
+                float* __restrict__ Dbuf, int Sq, int Sk, int H, int K,
+                int causal, int window, float scale_log2, float scale) {
+  constexpr int TILE = wg_tile_bytes(DP);
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* const smem = align_1024(wg_smem_raw);
+  unsigned char* const sQ = smem;                // [2] tiles: rows 0-63, 64-127
+  unsigned char* const sdO = smem + 2 * TILE;    // [2] tiles
+  unsigned char* const ring = smem + 4 * TILE;   // stage s: K, then V
+  float* const sD = reinterpret_cast<float*>(ring + 2 * kDqStages * TILE);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(sD + 2 * kWgRows);
+  uint64_t* const empty = full + kDqStages;
+  uint64_t* const qdo_bar = empty + kDqStages;
+
+  // grid (B*H, query blocks of 128): the last, longest under a causal
+  // mask, first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 2 * kWgRows;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kh = h / (H / K);
+  const int d = DP;
+  // the key tiles some row of the block can see
+  const int q_last = min(q0 + 2 * kWgRows, Sq) - 1;
+  int t_end = (Sk + kWgRows - 1) / kWgRows;
+  if (causal) t_end = min(t_end, q_last / kWgRows + 1);
+  int t_begin = 0;
+  if (window > 0 && q0 - window - (kWgRows - 1) >= 0)
+    t_begin = (q0 - window - (kWgRows - 1)) / kWgRows + 1;
+  const int n_t = max(0, t_end - t_begin);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], kWgConsumerThreads / 32);
+    }
+    hop::mbar_init(qdo_bar, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWgConsumerThreads) {
+    // producer: Q and dO once, then the ring of K and V tiles
+    hop::regs_dealloc<kWgProducerRegs>();
+    if (threadIdx.x == kWgConsumerThreads && n_t > 0) {
+      hop::mbar_arrive_expect_tx(qdo_bar, 4 * TILE);
+      for (int r = 0; r < 2; ++r) {
+        tma_tile<DP>(sQ + r * TILE, &tm_q, qdo_bar, h, q0 + r * kWgRows, b);
+        tma_tile<DP>(sdO + r * TILE, &tm_do, qdo_bar, h, q0 + r * kWgRows,
+                     b);
+      }
+      for (int i = 0; i < n_t; ++i) {
+        const int s = i % kDqStages;
+        hop::mbar_wait(&empty[s], ((i / kDqStages) & 1) ^ 1);
+        hop::mbar_arrive_expect_tx(&full[s], 2 * TILE);
+        const int k0 = (t_begin + i) * kWgRows;
+        unsigned char* dst = ring + 2 * s * TILE;
+        tma_tile<DP>(dst, &tm_k, &full[s], kh, k0, b);
+        tma_tile<DP>(dst + TILE, &tm_v, &full[s], kh, k0, b);
+      }
+    }
+  } else {
+    hop::regs_alloc<kWgConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const size_t q_row = (size_t)H * d;
+    const size_t q_base = (size_t)b * Sq * q_row + (size_t)h * d;
+    {  // D = rowsum(dO o O) of the block's 128 rows, two threads a row
+      const int r = tid >> 1, half = tid & 1, qp = q0 + r;
+      float acc = 0.f;
+      if (qp < Sq) {
+        const bf16* orow = o + q_base + (size_t)qp * q_row + half * (d / 2);
+        const bf16* drow =
+            dout + q_base + (size_t)qp * q_row + half * (d / 2);
+#pragma unroll
+        for (int c = 0; c < DP / 2; c += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+          const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+          const __nv_bfloat162* o2 =
+              reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 =
+              reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 of = __bfloat1622float2(o2[i]);
+            const float2 df = __bfloat1622float2(d2[i]);
+            acc = fmaf(df.x, of.x, acc);
+            acc = fmaf(df.y, of.y, acc);
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (half == 0) {
+        sD[r] = acc;
+        if (qp < Sq) Dbuf[(size_t)bh * Sq + qp] = acc;
+      }
+    }
+    hop::named_bar_sync(1, kWgConsumerThreads);
+
+    const int w_first = q0 + wg * kWgRows, w_last = w_first + kWgRows - 1;
+    const int l0 = wg * kWgRows + warp * 16 + (lane >> 2);  // block row
+    const int r0 = q0 + l0, r1 = r0 + 8;
+    const float lse0 =
+        r0 < Sq ? lse[(size_t)bh * Sq + r0] * kLog2e : CUDART_INF_F;
+    const float lse1 =
+        r1 < Sq ? lse[(size_t)bh * Sq + r1] * kLog2e : CUDART_INF_F;
+    const float D0 = sD[l0], D1 = sD[l0 + 8];
+    const unsigned char* const myQ = sQ + wg * TILE;
+    const unsigned char* const mydO = sdO + wg * TILE;
+
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    if (n_t > 0) hop::mbar_wait(qdo_bar, 0);
+    for (int i = 0; i < n_t; ++i) {
+      const int s = i % kDqStages;
+      hop::mbar_wait(&full[s], (i / kDqStages) & 1);
+      const unsigned char* sk = ring + 2 * s * TILE;
+      const unsigned char* sv = sk + TILE;
+      const int k0 = (t_begin + i) * kWgRows;
+      const bool skip = w_first >= Sq || (causal && k0 > w_last) ||
+                        (window > 0 && k0 + kWgRows - 1 <= w_first - window);
+      if (!skip) {                     // uniform over the warpgroup
+        float sacc[32], pacc[32];
+        hop::wgmma_fence();
+        wg_product_abt<DP>(sacc, myQ, sk);     // S = Q K^T
+        hop::wgmma_commit();
+        wg_product_abt<DP>(pacc, mydO, sv);    // dP = dO V^T
+        hop::wgmma_commit();
+        hop::wgmma_wait<1>();
+        hop::fence_regs(sacc);
+        const bool all = k0 + kWgRows <= Sk &&
+                         (!causal || k0 + kWgRows - 1 <= w_first) &&
+                         (window <= 0 || k0 > w_last - window);
+        // P: the mask's test only on tiles that cross an edge
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sacc[4 * j + e] = exp2_sfu(sacc[4 * j + e] * scale_log2 -
+                                       (e < 2 ? lse0 : lse1));
+        if (!all) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kp = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+              const int qp = e < 2 ? r0 : r1;
+              if (kp >= Sk || (causal && kp > qp) ||
+                  (window > 0 && kp <= qp - window))
+                sacc[4 * j + e] = 0.f;
+            }
+          }
+        }
+        hop::wgmma_wait<0>();
+        hop::fence_regs(pacc);
+        // dS = P o (dP - D), rounded to bf16 as dQ's A operand
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sacc[4 * j + e] *= pacc[4 * j + e] - (e < 2 ? D0 : D1);
+        uint32_t ds[4][4];
+        pack_a(ds, sacc);
+        hop::wgmma_fence();
+        wg_product_ab<DP>(acc, ds, sk);        // dQ += dS K
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(acc);
+      }
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[s]);
+    }
+    store_rows<DP>(dq + q_base, q_row, acc, r0, Sq, scale, lane);
+  }
+}
+
+template <int DP>   // 64 or 128 (== d)
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ Dbuf, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int Sq, int Sk, int H, int K,
+                  int causal, int window, float scale_log2, float scale) {
+  constexpr int TILE = wg_tile_bytes(DP);
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* const smem = align_1024(wg_smem_raw);
+  unsigned char* const sK = smem;                // [2] tiles: keys 0-63, 64-127
+  unsigned char* const sV = smem + 2 * TILE;     // [2] tiles
+  unsigned char* const ring = smem + 4 * TILE;   // stage s: Q, then dO
+  float* const sl = reinterpret_cast<float*>(ring + 2 * kDkdvStages * TILE);
+  float* const sD = sl + kDkdvStages * kWgRows;    // [stage][64] each
+  uint64_t* const full =
+      reinterpret_cast<uint64_t*>(sD + kDkdvStages * kWgRows);
+  uint64_t* const empty = full + kDkdvStages;
+  uint64_t* const kv_bar = empty + kDkdvStages;
+
+  // grid (B*K, key blocks of 128): the first, which the most queries see
+  // under a causal mask, first
+  const int k0 = blockIdx.y * 2 * kWgRows;
+  const int bk = blockIdx.x;
+  const int b = bk / K;
+  const int kh = bk - b * K;
+  const int G = H / K;
+  const int d = DP;
+  // the query tiles that can see some key of the block, for each of the
+  // group's heads: iteration it is head kh * G + it / nt, tile t_lo + it % nt
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(Sq, k0 + 2 * kWgRows - 1 + window) : Sq;
+  const int t_lo = q_lo / kWgRows;
+  const int nt = max(0, (q_hi + kWgRows - 1) / kWgRows - t_lo);
+  const int n_it = G * nt;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDkdvStages; ++s) {
+      hop::mbar_init(&full[s], 32);    // the producer warp's lanes
+      hop::mbar_init(&empty[s], kWgConsumerThreads / 32);
+    }
+    hop::mbar_init(kv_bar, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWgConsumerThreads) {
+    // producer warp: K and V once, then the ring of Q and dO tiles; its
+    // lanes bring each tile's lse (in log2 units) and D rows
+    hop::regs_dealloc<kWgProducerRegs>();
+    if (threadIdx.x < kWgConsumerThreads + 32 && n_it > 0) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        hop::mbar_arrive_expect_tx(kv_bar, 4 * TILE);
+        for (int r = 0; r < 2; ++r) {
+          tma_tile<DP>(sK + r * TILE, &tm_k, kv_bar, kh, k0 + r * kWgRows,
+                       b);
+          tma_tile<DP>(sV + r * TILE, &tm_v, kv_bar, kh, k0 + r * kWgRows,
+                       b);
+        }
+      }
+      // rows lane and lane + 32 of iteration it's lse and D, loaded one
+      // iteration ahead
+      auto rows = [&](int it, float (&l)[2], float (&dd)[2]) {
+        const int h = kh * G + it / nt, q0 = (t_lo + it % nt) * kWgRows;
+        const size_t bh = (size_t)b * H + h;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int qp = q0 + lane + 32 * i;
+          l[i] = qp < Sq ? lse[bh * Sq + qp] * kLog2e : CUDART_INF_F;
+          dd[i] = qp < Sq ? Dbuf[bh * Sq + qp] : 0.f;
+        }
+      };
+      float l_next[2], d_next[2];
+      rows(0, l_next, d_next);
+      for (int it = 0; it < n_it; ++it) {
+        const float l_cur[2] = {l_next[0], l_next[1]};
+        const float d_cur[2] = {d_next[0], d_next[1]};
+        if (it + 1 < n_it) rows(it + 1, l_next, d_next);
+        const int s = it % kDkdvStages;
+        hop::mbar_wait(&empty[s], ((it / kDkdvStages) & 1) ^ 1);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          sl[s * kWgRows + lane + 32 * i] = l_cur[i];
+          sD[s * kWgRows + lane + 32 * i] = d_cur[i];
+        }
+        if (lane == 0) {
+          const int h = kh * G + it / nt, q0 = (t_lo + it % nt) * kWgRows;
+          hop::mbar_arrive_expect_tx(&full[s], 2 * TILE);
+          unsigned char* dst = ring + 2 * s * TILE;
+          tma_tile<DP>(dst, &tm_q, &full[s], h, q0, b);
+          tma_tile<DP>(dst + TILE, &tm_do, &full[s], h, q0, b);
+        } else {
+          hop::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    hop::regs_alloc<kWgConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int kw_first = k0 + wg * kWgRows, kw_last = kw_first + kWgRows - 1;
+    const int kr0 = kw_first + warp * 16 + (lane >> 2), kr1 = kr0 + 8;
+    const unsigned char* const myK = sK + wg * TILE;
+    const unsigned char* const myV = sV + wg * TILE;
+
+    float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+    if (n_it > 0) hop::mbar_wait(kv_bar, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kDkdvStages;
+      hop::mbar_wait(&full[s], (it / kDkdvStages) & 1);
+      const int q0 = (t_lo + it % nt) * kWgRows, ql = q0 + kWgRows - 1;
+      const bool skip = kw_first >= Sk || q0 >= Sq ||
+                        (causal && ql < kw_first) ||
+                        (window > 0 && kw_last <= q0 - window);
+      if (!skip) {                     // uniform over the warpgroup
+        const unsigned char* sq = ring + 2 * s * TILE;
+        const unsigned char* sdo = sq + TILE;
+        const float* slse = sl + s * kWgRows;
+        const float* sDD = sD + s * kWgRows;
+        float st[32], dpt[32];
+        hop::wgmma_fence();
+        wg_product_abt<DP>(st, myK, sq);       // S^T = K Q^T
+        hop::wgmma_commit();
+        wg_product_abt<DP>(dpt, myV, sdo);     // dP^T = V dO^T
+        hop::wgmma_commit();
+        hop::wgmma_wait<1>();
+        hop::fence_regs(st);
+        const bool all = ql < Sq && kw_last < Sk &&
+                         (!causal || q0 >= kw_last) &&
+                         (window <= 0 || kw_first > ql - window);
+        // P^T, keys the rows and queries the columns: the mask's test
+        // only on tiles that cross an edge
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[4 * j + e] = exp2_sfu(st[4 * j + e] * scale_log2 -
+                                     slse[j * 8 + (lane & 3) * 2 + (e & 1)]);
+        if (!all) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int qp = q0 + j * 8 + (lane & 3) * 2 + (e & 1);
+              const int kp = e < 2 ? kr0 : kr1;
+              if (qp >= Sq || kp >= Sk || (causal && kp > qp) ||
+                  (window > 0 && kp <= qp - window))
+                st[4 * j + e] = 0.f;
+            }
+          }
+        }
+        hop::wgmma_wait<0>();
+        hop::fence_regs(dpt);
+        // dS^T = P^T o (dP^T - D)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[4 * j + e] = st[4 * j + e] *
+                             (dpt[4 * j + e] - sDD[j * 8 + (lane & 3) * 2 +
+                                                   (e & 1)]);
+        uint32_t pa[4][4], sa[4][4];
+        pack_a(pa, st);
+        pack_a(sa, dpt);
+        hop::wgmma_fence();
+        wg_product_ab<DP>(dva, pa, sdo);       // dV += P^T dO
+        wg_product_ab<DP>(dka, sa, sq);        // dK += dS^T Q
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(dva);
+        hop::fence_regs(dka);
+      }
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[s]);
+    }
+    const size_t kv_row = (size_t)K * d;
+    const size_t kv_base = (size_t)b * Sk * kv_row + (size_t)kh * d;
+    store_rows<DP>(dk + kv_base, kv_row, dka, kr0, Sk, scale, lane);
+    store_rows<DP>(dv + kv_base, kv_row, dva, kr0, Sk, 1.f, lane);
+  }
+}
+
+template <int DP>
+int launch_bwd_wg(const bf16* q, const bf16* k, const bf16* v,
+                  const bf16* o, const bf16* dout, const float* lse,
+                  bf16* dq, bf16* dk, bf16* dv, float* Dbuf, int parts,
+                  int B, int Sq, int Sk, int H, int K, int causal,
+                  int window, float scale, void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
+       (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) %
+      16)
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = hop_host::bshd_map(&tq, q, B, Sq, H, DP, kWgRows);
+  if (!err) err = hop_host::bshd_map(&tk, k, B, Sk, K, DP, kWgRows);
+  if (!err) err = hop_host::bshd_map(&tv, v, B, Sk, K, DP, kWgRows);
+  if (!err) err = hop_host::bshd_map(&tdo, dout, B, Sq, H, DP, kWgRows);
+  if (err) return err;
+  const size_t s_dq = wg_dq_smem_bytes(DP), s_kv = wg_dkdv_smem_bytes(DP);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_wg<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)s_dq);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(flash_bwd_dkdv_wg<DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)s_kv);
+  if (e != cudaSuccess) return (int)e;
+  const float scale_log2 = scale * kLog2e;
+  if (parts & 1) {
+    flash_bwd_dq_wg<DP><<<dim3(B * H, (Sq + 2 * kWgRows - 1) / (2 * kWgRows)),
+                          kWgThreads, s_dq, (cudaStream_t)stream>>>(
+        tq, tk, tv, tdo, o, dout, lse, dq, Dbuf, Sq, Sk, H, K, causal, window,
+        scale_log2, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (parts & 2)
+    flash_bwd_dkdv_wg<DP>
+        <<<dim3(B * K, (Sk + 2 * kWgRows - 1) / (2 * kWgRows)), kWgThreads,
+           s_kv, (cudaStream_t)stream>>>(tq, tk, tv, tdo, lse, Dbuf, dk, dv,
+                                         Sq, Sk, H, K, causal, window,
+                                         scale_log2, scale);
+  return (int)cudaGetLastError();
+}
+
+// The backward's routes; kernel.py's `bwd_route` holds the same rule.
+enum BwdRoute { kRouteScalar = 0, kRouteMmaSync = 1, kRouteWgmma = 2 };
+
+int bwd_route(int dtype, int d) {
+  if (d < 1 || d > kMaxD) return -1;
+  if (dtype == 0) return kRouteScalar;
+  return d == 64 || d == 128 ? kRouteWgmma : kRouteMmaSync;
+}
 }  // namespace
 
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel).
@@ -1323,17 +1908,27 @@ extern "C" int flash_attention_bwd_launch(
     const void* dout, const float* lse, void* dq, void* dk, void* dv,
     float* D, int dtype, int parts, int B, int Sq, int Sk, int H, int K,
     int d, int causal, int window, float scale, void* stream) {
-  if (dtype == 0)
+  const int route = bwd_route(dtype, d);
+  if (route == kRouteScalar)
     return launch_bwd<float>(q, k, v, o, dout, lse, dq, dk, dv, D, parts, B,
                              Sq, Sk, H, K, d, causal, window, scale,
                              stream);
+  const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v,
+             *ob = (const bf16*)o, *dob = (const bf16*)dout;
+  bf16 *dqb = (bf16*)dq, *dkb = (bf16*)dk, *dvb = (bf16*)dv;
+  if (route == kRouteWgmma)
+    return d == 64 ? launch_bwd_wg<64>(qb, kb, vb, ob, dob, lse, dqb, dkb,
+                                       dvb, D, parts, B, Sq, Sk, H, K,
+                                       causal, window, scale, stream)
+                   : launch_bwd_wg<128>(qb, kb, vb, ob, dob, lse, dqb, dkb,
+                                        dvb, D, parts, B, Sq, Sk, H, K,
+                                        causal, window, scale, stream);
   switch ((d + 15) / 16) {
 #define FA_BWD_CASE(n)                                                      \
   case n:                                                                   \
-    return launch_bwd_tc<16 * n>(                                           \
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,     \
-        (const bf16*)dout, lse, (bf16*)dq, (bf16*)dk, (bf16*)dv, D, parts,  \
-        B, Sq, Sk, H, K, d, causal, window, scale, stream);
+    return launch_bwd_tc<16 * n>(qb, kb, vb, ob, dob, lse, dqb, dkb, dvb, D, \
+                                 parts, B, Sq, Sk, H, K, d, causal, window,  \
+                                 scale, stream);
     FA_BWD_CASE(1)
     FA_BWD_CASE(2)
     FA_BWD_CASE(3)
@@ -1345,6 +1940,31 @@ extern "C" int flash_attention_bwd_launch(
 #undef FA_BWD_CASE
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward's route for a dtype (0 f32, 1 bf16) and head dim: 0 the
+// scalar pair, 1 the mma.sync pair, 2 the wgmma pair; -1 for a d outside
+// 1..128.
+extern "C" int flash_attention_bwd_route(int dtype, int d) {
+  return bwd_route(dtype, d);
+}
+
+// Dynamic shared memory of the backward's first (kernel 0, dq) or second
+// (kernel 1, dkdv) kernel on the route of (dtype, d); 0 for no route.
+extern "C" long long flash_attention_bwd_smem_bytes(int dtype, int d,
+                                                    int kernel) {
+  switch (bwd_route(dtype, d)) {
+    case kRouteScalar:
+      return (long long)(kernel ? bwd_dkdv_smem_bytes(d)
+                                : bwd_dq_smem_bytes(d));
+    case kRouteMmaSync:
+      return (long long)tc_bwd_smem_bytes(d);
+    case kRouteWgmma:
+      return (long long)(kernel ? wg_dkdv_smem_bytes(d)
+                                : wg_dq_smem_bytes(d));
+    default:
+      return 0;
   }
 }
 

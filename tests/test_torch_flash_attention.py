@@ -125,6 +125,54 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     assert flash_attention.launches == launches    # the CPU launches nothing
 
 
+def _attention_head_dims() -> dict:
+    """Every arch with attention layers (all but the pure SSM) and its
+    head dim."""
+    from repro_torch.configs.registry import ARCHS
+    return {c.name: c.head_dim for c in ARCHS.values() if c.family != "ssm"}
+
+
+def test_bwd_route_for_every_arch_head_dim():
+    """bf16 at d = 128 (qwen3-1.7b, gemma3-27b, the dense, MoE and VLM
+    archs) and d = 64 (whisper-medium) takes the wgmma pair, zamba2-7b's
+    d = 112 the mma.sync pair, f32 the scalar pair; no other d takes
+    wgmma, and a d or dtype no kernel takes raises."""
+    dims = _attention_head_dims()
+    assert dims == {"whisper-medium": 64, "arctic-480b": 128,
+                    "qwen2-moe-a2.7b": 128, "gemma3-27b": 128,
+                    "qwen3-1.7b": 128, "qwen1.5-32b": 128, "qwen2-7b": 128,
+                    "internvl2-26b": 128, "zamba2-7b": 112}
+    routes = {a: tkernel.bwd_route(d, torch.bfloat16)
+              for a, d in dims.items()}
+    assert routes == {a: "mma_sync" if a == "zamba2-7b" else "wgmma"
+                      for a in dims}
+    assert {tkernel.bwd_route(d, torch.float32) for d in dims.values()} == \
+        {"scalar"}
+    assert [d for d in range(1, tkernel.MAX_HEAD_DIM + 1)
+            if tkernel.bwd_route(d, torch.bfloat16) == "wgmma"] == [64, 128]
+    for d, dtype in ((0, torch.bfloat16), (129, torch.float32),
+                     (64, torch.float16)):
+        with pytest.raises(ValueError):
+            tkernel.bwd_route(d, dtype)
+
+
+def test_bwd_kernels_fit_shared_memory_at_every_served_head_dim():
+    """On every route, at every head dim an arch uses, each backward
+    kernel's block fits the card's 232,448 bytes: the wgmma pair's rings
+    (dq: Q and dO of 128 rows and three stages of K and V; dkdv: K and V
+    of 128 keys and two stages of Q and dO) take 165,432 and 133,160
+    bytes at d = 128, one block an SM."""
+    for d in sorted(set(_attention_head_dims().values())):
+        for dtype in (torch.bfloat16, torch.float32):
+            dq, dkdv = tkernel.bwd_smem_bytes(d, dtype)
+            assert 0 < dq <= tkernel.SMEM_LIMIT, (d, dtype, dq)
+            assert 0 < dkdv <= tkernel.SMEM_LIMIT, (d, dtype, dkdv)
+    assert tkernel.bwd_smem_bytes(128, torch.bfloat16) == (165_432, 133_160)
+    assert tkernel.bwd_smem_bytes(64, torch.bfloat16) == (83_512, 67_624)
+    assert tkernel.bwd_smem_bytes(112, torch.bfloat16) == (93_184, 93_184)
+    assert tkernel.bwd_smem_bytes(128, torch.float32) == (148_736, 165_888)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -403,13 +451,18 @@ def _scaled_err(got, want):
 # the card's backward cases: the training shape of qwen3-1.7b (cut to
 # B = 1, S = 1024 here; chip_smoke.py checks the full one), zamba2's
 # d = 112, whisper's cross shape (non-causal, Sq != Sk, ragged), a gemma3
-# window (1024 over 1536) and the no-visible-key rows
+# window (1024 over 1536) and the no-visible-key rows; then the wgmma
+# pair's edges: d = 128 and d = 64 with Sq not a multiple of its 128-row
+# blocks and GQA 7:1 (qwen2-7b's 28:4), and a window of 1024 over 2048
 GPU_BWD_CASES = [
     (1, 1024, 1024, 16, 8, 128, True, 0),
     (1, 300, 300, 4, 4, 112, True, 0),
     (1, 200, 1500, 4, 4, 64, False, 0),
     (1, 1536, 1536, 4, 2, 128, True, 1024),
     (1, 48, 16, 2, 2, 8, False, 8),
+    (1, 1000, 1000, 14, 2, 128, True, 0),
+    (2, 333, 333, 7, 1, 64, True, 0),
+    (1, 2048, 2048, 4, 2, 128, True, 1024),
 ] + BWD_CASES[:4]
 
 

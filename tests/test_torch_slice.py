@@ -287,9 +287,29 @@ def test_train_checks_run_on_the_cpu():
                         for t in ("bfloat16", "float32")}
     assert bwd["no_visible_key_float32"]["inf_rows"] > 0
     assert bwd["whisper_cross_bfloat16"]["shape"][1:3] == [37, 24]
+    # the route each shape would take on the card (SMALL's head dims, 32
+    # and 8, go to the mma.sync pair) and two calls' same bits
+    assert {k: v["route"] for k, v in bwd.items()} == {
+        f"{k}_{t}": "mma_sync" if t == "bfloat16" else "scalar"
+        for k in chip_smoke.flash_bwd_shapes(sz)
+        for t in ("bfloat16", "float32")}
+    assert all(v["bitwise_repeat"] for v in bwd.values())
     cons = chip_smoke.check_train_consistency(sz, cpu, 1)
     assert cons["n_layers"] == 2 and cons["worst_grad_rel_err"] <= \
         cons["tol"]
+
+
+def test_the_card_checks_both_bf16_backward_routes():
+    """At full size the backward check's bf16 shapes take the wgmma pair
+    at d = 128 (the training shape, gemma3's window) and d = 64 (whisper's
+    cross shape), and the mma.sync pair at zamba2's d = 112 and the
+    no-visible-key rows' d = 8."""
+    shapes = chip_smoke.flash_bwd_shapes(chip_smoke.FULL)
+    assert {k: chip_smoke.fa_kernel.bwd_route(v[5], torch.bfloat16)
+            for k, v in shapes.items()} == {
+        "qwen3_train": "wgmma", "zamba2_d112": "mma_sync",
+        "whisper_cross": "wgmma", "gemma3_window": "wgmma",
+        "no_visible_key": "mma_sync"}
 
 
 def test_flash_bounds_at_the_training_shape():
@@ -453,6 +473,9 @@ _SASS = """\
         /*0a70*/                   HMMA.16816.F32.BF16 R40, R12, R20, R40 ;
         /*0a80*/                   HMMA.16816.F32.BF16 R44, R12, R22, R44 ;
         /*0a90*/                   LDSM.16.MT88.4 R4, [R2] ;
+		Function : _ZN51_GLOBAL__N__8c2aef73_18_flash_attention_cu_23f0aea715flash_bwd_dq_wgILi128EEEv14CUtensorMap_stS1_S1_S1_PK13__nv_bfloat16S4_PKfPS2_Pfiiiiiiff
+        /*1a70*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*1a80*/                   HGMMA.64x128x16.F32.BF16 R88, R140, gdesc[UR8], R88, gsb0 ;
 """
 
 
@@ -467,7 +490,34 @@ def test_build_report_reads_registers_spills_and_tensor_core_instructions(
                             cmd, 0, stdout=_SASS))
     got = chip_smoke.build_report(Path("ssd_scan.so"), _PTXAS)
     assert got == [
+        {"kernel": "flash_bwd_dq_wg<128>", "registers": None,
+         "spill_bytes": None, "tensor_core_instr": 2, "hgmma_instr": 2},
         {"kernel": "ssd_chunk_scan<float>", "registers": 60,
-         "spill_bytes": 0, "tensor_core_instr": 0},
+         "spill_bytes": 0, "tensor_core_instr": 0, "hgmma_instr": 0},
         {"kernel": "ssd_scan_tc<8>", "registers": 168, "spill_bytes": 16,
-         "tensor_core_instr": 2}]
+         "tensor_core_instr": 2, "hgmma_instr": 0}]
+
+
+def test_the_build_phase_holds_the_wgmma_backward_to_hgmma_and_no_spill():
+    """``check_wgmma_bwd_build`` passes when every function of the wgmma
+    backward pair (dq and dkdv at d = 64 and 128) has HGMMA and no spill,
+    and fails on a missing one, one without HGMMA, or a spill."""
+    names = ["flash_bwd_dq_wg<64>", "flash_bwd_dq_wg<128>",
+             "flash_bwd_dkdv_wg<64>", "flash_bwd_dkdv_wg<128>"]
+    assert sorted(chip_smoke.WGMMA_BWD_FUNCTIONS) == sorted(names)
+
+    def rows(**bad):
+        return [{"kernel": n, "registers": 168, "spill_bytes": 0,
+                 "tensor_core_instr": 24, "hgmma_instr": 24,
+                 **(bad if n == "flash_bwd_dkdv_wg<128>" else {})}
+                for n in names] + [{"kernel": "flash_bwd_dq_tc<112>",
+                                    "registers": 238, "spill_bytes": 8,
+                                    "tensor_core_instr": 168,
+                                    "hgmma_instr": 0}]
+    assert set(chip_smoke.check_wgmma_bwd_build(rows())) == set(names)
+    with pytest.raises(AssertionError, match="lacks"):
+        chip_smoke.check_wgmma_bwd_build(rows()[1:])
+    with pytest.raises(AssertionError, match="no HGMMA"):
+        chip_smoke.check_wgmma_bwd_build(rows(hgmma_instr=0))
+    with pytest.raises(AssertionError, match="spills"):
+        chip_smoke.check_wgmma_bwd_build(rows(spill_bytes=4))

@@ -7,6 +7,11 @@ inputs and output, each rounds its intermediates at fixed points:
 
 * attention: the probabilities P of each 64-key tile, rounded to bf16
   before ``P V`` (the running max, sum and accumulator stay f32);
+* the attention backward (the wgmma pair at d = 64 and 128): P and dS
+  from f32 scores, the f32 ``lse`` and ``D``, each rounded to bf16 as
+  the A operand of dV += P^T dO, dK += dS^T Q (128-key by 64-query tiles)
+  and dQ += dS K (64-key tiles), the sums in f32 in the kernels' tile
+  order;
 * SSD: the chunk's ``scores``, the state-update operand ``B o w`` and
   the carried state as the operand of ``C S^T``, each split into a bf16
   high part plus a bf16 low part (two products); the state itself is
@@ -16,13 +21,16 @@ inputs and output, each rounds its intermediates at fixed points:
 
 The models below repeat those roundings at the kernels' tiles (64-key
 tiles; chunks of 128 tokens) and show, on the CPU, that they stay inside
-2e-2 (attention) and 5e-2 (SSD), abs + rel, of the f32 references.
+2e-2 (attention) and 5e-2 (SSD), abs + rel, of the f32 references, and
+the backward's within ``2e-2 * max|ref|``, the card's tolerance.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention_bwd_plain, flash_attention_lse_plain,
+    flash_attention_plain)
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref
 
 BF16 = torch.bfloat16
@@ -126,6 +134,85 @@ def test_attention_bf16_roundings_fit_the_tolerance(S):
     _close(got, want, 2e-2)
     # the model does round: it is not the f32 result to the last bit
     assert not torch.equal(got, want.to(BF16))
+
+
+def attention_bwd_tc_model(q, k, v, o, lse, do, *, causal=True, window=0):
+    """The wgmma backward pair's arithmetic in f32 on bf16 values: q, o, do
+    [B, Sq, H, d], k/v [B, Sk, K, d], lse [B, H, Sq] f32.  P = exp(S *
+    scale - lse) (0 where masked), D = rowsum(dO o O) and dS = P o (dP -
+    D) in f32; dq sums bf16(dS) K over 64-key tiles in order
+    (``flash_bwd_dq``); dk and dv sum bf16(dS^T) Q and bf16(P^T) dO over
+    the group's heads and, in each, its 64-query tiles in order
+    (``flash_bwd_dkdv``, a block of 128 keys holding both sums).  Returns
+    (dq, dk, dv) rounded to bf16 as the kernels write them."""
+    B, Sq, H, d = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / d ** 0.5
+    qf, of, dof = (t.float().transpose(1, 2) for t in (q, o, do))  # [B,H,S,d]
+    kf, vf = (t.float().transpose(1, 2).repeat_interleave(G, dim=1)
+              for t in (k, v))
+    qpos, kpos = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+    vis = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window > 0:
+        vis &= kpos > qpos - window
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.where(vis, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    pb, dsb = _bf16(p), _bf16(ds)
+    dq = torch.zeros((B, H, Sq, d))
+    for k0 in range(0, Sk, 64):
+        dq += dsb[..., k0:k0 + 64] @ kf[:, :, k0:k0 + 64]
+    # dk and dv: per kv head, the group's heads in turn, each head's query
+    # tiles in turn
+    dk = torch.zeros((B, K, Sk, d))
+    dv = torch.zeros((B, K, Sk, d))
+    for g in range(G):
+        heads = torch.arange(K) * G + g
+        for q0 in range(0, Sq, 64):
+            t = slice(q0, q0 + 64)
+            dv += pb[:, heads, t].transpose(-1, -2) @ dof[:, heads, t]
+            dk += dsb[:, heads, t].transpose(-1, -2) @ qf[:, heads, t]
+    return (_bf16(dq * scale).transpose(1, 2), _bf16(dk * scale)
+            .transpose(1, 2), _bf16(dv).transpose(1, 2))
+
+
+# (B, Sq, Sk, H, K, d, causal, window): GQA 2:1 at d = 128 causal (ragged
+# query and key tiles), a window over a causal mask, and non-causal
+# Sq != Sk at d = 64
+BWD_ROUNDING_CASES = [(1, 200, 200, 4, 2, 128, True, 0),
+                      (1, 384, 384, 4, 2, 128, True, 128),
+                      (1, 136, 328, 4, 4, 64, False, 0)]
+
+
+@pytest.mark.parametrize("case", BWD_ROUNDING_CASES,
+                         ids=["causal_gqa_d128", "window", "noncausal_d64"])
+def test_attention_bwd_bf16_roundings_fit_the_tolerance(case):
+    """The wgmma backward's roundings against ``flash_attention_bwd_plain``
+    in f32 on the same bf16 values (o rounded to bf16 as the forward
+    kernel writes it, the plain lse): each gradient within ``2e-2 *
+    max|ref|``, and not equal to the f32 result rounded once."""
+    B, Sq, Sk, H, K, d, causal, window = case
+    rng = np.random.default_rng(Sq + Sk + d)
+
+    def rnd(*shape):
+        return torch.as_tensor(rng.standard_normal(shape),
+                               dtype=F32).to(BF16).float()
+    q, do = rnd(B, Sq, H, d), rnd(B, Sq, H, d)
+    k, v = rnd(B, Sk, K, d), rnd(B, Sk, K, d)
+    mask = dict(causal=causal, window=window)
+    o = _bf16(flash_attention_plain(q, k, v, **mask))
+    lse = flash_attention_lse_plain(q, k, **mask)
+    got = attention_bwd_tc_model(q, k, v, o, lse, do, **mask)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **mask)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        scale = float(w.abs().max())
+        err = float((a - w).abs().max())
+        assert scale > 0 and err <= 2e-2 * scale, (name, err, scale)
+        assert not torch.equal(a, _bf16(w)), name
 
 
 def _ssd_inputs(seed, B, S, H, P, N):

@@ -7,7 +7,9 @@ the CPU, all at ``tiny()`` sizes:
   * AdamW and Adafactor, one and several steps, on the same converted
     parameters, gradients and state: f32, ``rtol`` 1e-6 (the same f32
     arithmetic; an ulp of the scalar ``pow`` may differ), and AdamW's
-    closed form;
+    closed form; arctic-480b's bf16 moments and bf16 microbatch
+    accumulator (its ``opt_dtype``) to one bf16 ulp, bit for bit where
+    the gradient clip does not act;
   * ``Model.loss`` and every parameter's gradient against
     ``jax.value_and_grad(model.loss)`` for one arch per family plus
     gemma3-27b (its window): the loss at 1e-5, each gradient within
@@ -25,6 +27,7 @@ The card's side (the flash backward kernels, deterministic steps) is
 """
 import dataclasses
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -245,6 +248,114 @@ def test_make_optimizer_takes_the_moment_dtype():
     assert st["mu"]["w"].dtype == torch.bfloat16
     assert "vr" in TO.make_optimizer(cfg, "adafactor").init(
         {"w": torch.zeros((2, 3))})["w"]
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor,
+               scale: torch.Tensor) -> float:
+    """max |got - want| over one bf16 ulp of ``scale`` (elementwise: the
+    spacing of bf16 at |scale|'s binade, normal numbers only)."""
+    mag = scale.float().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def _assert_bf16_moments(got, want, prev, g, exact):
+    """The port's bf16 AdamW moments against the reference's after one
+    step: bit for bit if ``exact``; else within one bf16 ulp of the
+    update's largest operand (|new|, b |old| or (1 - b) |g| for mu, the
+    same with g^2 for nu).  A clip scale one f32 ulp apart (the global
+    norms sum in other orders) can round a moment the other way, and
+    where the update cancels, one ulp of its operands is many of the
+    small result's."""
+    for m, b in (("mu", 0.9), ("nu", 0.95)):
+        for n, t in got[m].items():
+            w = want[m][n]
+            assert t.dtype == w.dtype == torch.bfloat16, (m, n)
+            if exact:
+                assert torch.equal(t, w), (m, n)
+                continue
+            term = g[n].float() if m == "mu" else g[n].float() ** 2
+            scale = torch.maximum(w.float().abs(), torch.maximum(
+                b * prev[m][n].float().abs(), (1 - b) * term.abs()))
+            assert _bf16_ulps(t, w, scale) <= 1.0, (m, n)
+
+
+@pytest.mark.parametrize("grad_clip", [1.0, 1e9])
+def test_bf16_optimizer_state_matches_the_reference(grad_clip):
+    """arctic-480b keeps its AdamW moments in bf16 (``opt_dtype``): three
+    steps of the port's AdamW on its converted ``tiny()`` parameters and
+    ``_opt_grads`` against the reference's; the moments after each step
+    bit for bit when ``grad_clip=1e9`` leaves the clip scale at 1, within
+    one bf16 ulp of their operands under the default clip
+    (``_assert_bf16_moments``).  The parameters at ``OPT_TOL`` where the
+    moments agree bit for bit; else at 1e-5: a step moves a parameter by
+    lr * delta (lr <= 3e-4 here, |delta| = |mhat| / sqrt(vhat) of order
+    1), and moments one bf16 ulp apart change delta by about 2^-8 of
+    itself, 1e-6 a step."""
+    tol = OPT_TOL if grad_clip == 1e9 else dict(atol=1e-5, rtol=0)
+    jcfg, cfg, jm, jp, _, _ = _env("arctic-480b")
+    assert cfg.opt_dtype == "bfloat16"
+    kw = dict(warmup_steps=3, grad_clip=grad_clip,
+              moment_dtype=cfg.opt_dtype)
+    jopt, topt = JO.adamw(JO.AdamWConfig(**kw)), TO.adamw(
+        TO.AdamWConfig(**kw))
+    params = grads_from_numpy(_np(jp), cfg, "cpu")
+    jst, tst = jopt.init(jp), topt.init(params)
+    prev = opt_state_from_numpy(_np(jst), cfg, "cpu")
+    grads = _opt_grads(jp, 5, 3)
+    for step in range(3):
+        jp, jst = jopt.update(jax.tree.map(jnp.asarray, grads[step]), jst,
+                              jp, jnp.int32(step))
+        g = grads_from_numpy(grads[step], cfg, "cpu")
+        topt.update(g, tst, params, step)
+        want_st = opt_state_from_numpy(_np(jst), cfg, "cpu")
+        _assert_bf16_moments(tst, want_st, prev, g, grad_clip == 1e9)
+        prev = want_st
+        want = grads_from_numpy(_np(jp), cfg, "cpu")
+        for n, p in params.items():
+            torch.testing.assert_close(p, want[n], **tol)
+
+
+@pytest.mark.parametrize("grad_clip", [1.0, 1e9])
+def test_bf16_microbatch_accumulator_matches_the_reference(grad_clip):
+    """arctic-480b with ``microbatches=2`` sums its microbatch gradients
+    in bf16 (``opt_dtype``): one train step of each package whose loss is
+    linear in the parameters, sum(p o g), so that both see ``_opt_grads``
+    as their gradients exactly (the model's own gradients differ at f32
+    noise, which near zero is hundreds of bf16 ulps).  The accumulator
+    handed to the optimizer (the bf16 sum / 2 in f32) bit for bit; after
+    one AdamW step the bf16 moments as
+    :func:`test_bf16_optimizer_state_matches_the_reference` holds them."""
+    jcfg, cfg, _, jp, _, tp = _env("arctic-480b", microbatches=2)
+    grads = _opt_grads(jp, 7, 2)
+    leaves = [jax.tree.leaves(g) for g in grads]
+    jbatch = {f"g{i}": jnp.stack([jnp.asarray(ls[i]) for ls in leaves])
+              for i in range(len(leaves[0]))}
+    tgrads = [grads_from_numpy(g, cfg, "cpu") for g in grads]
+    tbatch = {n: np.stack([t[n].numpy() for t in tgrads]) for n in tgrads[0]}
+    jlin = types.SimpleNamespace(loss=lambda p, mb: sum(
+        jnp.sum(leaf * mb[f"g{i}"])
+        for i, leaf in enumerate(jax.tree.leaves(p))))
+    tlin = types.SimpleNamespace(loss=lambda p, mb: sum(
+        (leaf * mb[n]).sum() for n, leaf in p.named_parameters()))
+    seen, jcap, tcap = _capture()
+    jmake_train_step(jlin, jcfg, jcap)(jp, {}, jbatch, jnp.int32(0))
+    make_train_step(tlin, cfg, tcap)(tp, {}, tbatch, 0)
+    want = grads_from_numpy(_np(seen["jax"]), cfg, "cpu")
+    assert set(seen["port"]) == set(want)
+    for n, g in seen["port"].items():
+        assert g.dtype == torch.float32 and torch.equal(g, want[n]), n
+    kw = dict(grad_clip=grad_clip, moment_dtype=cfg.opt_dtype)
+    jopt, topt = JO.adamw(JO.AdamWConfig(**kw)), TO.adamw(
+        TO.AdamWConfig(**kw))
+    jst = jopt.init(jp)
+    prev = opt_state_from_numpy(_np(jst), cfg, "cpu")
+    _, jst, _ = jmake_train_step(jlin, jcfg, jopt)(jp, jst, jbatch,
+                                                   jnp.int32(0))
+    tst = topt.init(tp)
+    make_train_step(tlin, cfg, topt)(tp, tst, tbatch, 0)
+    _assert_bf16_moments(tst, opt_state_from_numpy(_np(jst), cfg, "cpu"),
+                         prev, want, grad_clip == 1e9)
 
 
 # --------------------------------------------------------------------- #
