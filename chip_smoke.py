@@ -14,7 +14,9 @@ Fifteen phases, each of which fails the run when it fails:
    ``ssd_scan`` must have some (their bf16 kernels run on ``mma.sync``),
    each function of the wgmma backward pair (``flash_bwd_dq_wg`` and
    ``flash_bwd_dkdv_wg`` at d = 64 and 128) must have ``HGMMA`` and no
-   spill, and no ``nvt_probe`` function may spill;
+   spill, each tensor-core pass of the SSD backward (``ssd_bwd_carry_tc``
+   and ``ssd_bwd_chunk_tc`` at N <= 64 and <= 128) ``HMMA``, and no
+   ``nvt_probe`` function may spill;
 2. ``map``    -- the main path at card scale: a durable index of 2^22
    keys (2^23-node pool, 2^20 buckets) takes the repo's mixed workload
    (uniform keys in ``[1, 2*prefill)``, updates split between inserts
@@ -81,12 +83,21 @@ Fifteen phases, each of which fails the run when it fails:
    remat recompute, a microbatch) and its backward kernels 28 x 2 times,
    the loss must be finite and every layer's wq/wk/wv/q_norm/k_norm
    gradient nonzero; a second run from the same seed must give the same
-   losses bit for bit.  Step seconds, tokens/s, peak memory and one
-   profiled step are printed.  Then ``run_training``'s crash/resume
-   recipe on tiny(qwen3-1.7b), in f32 and in bf16: 30 steps with a
-   checkpoint every 10, a crash before step 20's manifest publish, a
-   restart that resumes from step 10 and repeats the uninterrupted run's
-   losses bit for bit (``reduced``: ``train_reduced``);
+   losses bit for bit.  Then, one model on the card at a time, the same
+   for mamba2-370m at full width and depth (0.37 B, 2 microbatches of
+   [2, 4096]: ``ssd_scan`` 2 x 48 x 2 launches a step and its backward
+   48 x 2) and zamba2-7b at full width cut to 24 layers
+   (``TRAIN_DEPTH_CUTS``; 2.31 B, 4 microbatches of [1, 4096]:
+   ``ssd_scan`` 2 x 24 x 4 and 24 x 4, its shared block's
+   ``flash_attention`` 2 x 4 x 4 and 4 x 4), every launch at the
+   training shape and every layer's A_log and dt_bias gradient nonzero
+   (only the SSD backward feeds them).  Step seconds, tokens/s, peak
+   memory and one profiled step (the SSD backward's share) are printed.
+   Then ``run_training``'s crash/resume recipe on the tiny form of each,
+   in f32 and in bf16: 30 steps with a checkpoint every 10, a crash
+   before step 20's manifest publish, a restart that resumes from step
+   10 and repeats the uninterrupted run's losses bit for bit
+   (``reduced``: ``train_reduced``);
 8. ``load``   -- ``obs/loadgen.py``'s ``LoadHarness`` (the points of
    ``benchmarks/loadtest.py``) against a ``RequestLog`` whose dedup map
    lives, and grows, on the card: batches of 1024 rids, a 2^16 retain
@@ -100,8 +111,9 @@ Fifteen phases, each of which fails the run when it fails:
    reopen; the crash must lose no acked rid and dump the ring with spans
    and persistence events; the engine point must launch
    ``flash_attention`` 28 times an update (warm-up included) and never on
-   its reads, which are dedup hits.  p50/p99, sustained rids/s, excursions and their
-   attribution, counters and growth events are printed;
+   its reads, which are dedup hits.  p50/p99, sustained rids/s,
+   excursions and their attribution, counters and growth events are
+   printed;
 9. ``checkpoint`` -- zamba2-7b at full width (bf16, random weights from
    ``--seed``) cut to 12 layers, its parameters saved by a
    ``CheckpointManager`` as 4 steps, each changing one leaf (steps 2-4
@@ -130,10 +142,17 @@ Fifteen phases, each of which fails the run when it fails:
    log-sum-exp, at qwen3-1.7b's training shape, zamba2's d = 112,
    whisper's cross shape, a gemma3-27b local layer (window 1024) and rows
    with no visible key, each with the backward route it took
-   (``kernel.bwd_route``: wgmma, mma.sync or scalar); and
-   qwen3-1.7b's loss and every gradient in f32 at full width, 2 layers,
-   [1, 512], with the kernels against the plain attention (1e-4 of each
-   leaf's max);
+   (``kernel.bwd_route``: wgmma, mma.sync or scalar), zamba2-7b's
+   training shape among them; the SSD backward kernels through autograd
+   on strided xBC slices against the plain backward and against autograd
+   through the plain chunked scan in f32, each gradient (ddt and dA on
+   their own) within 5e-2 (bf16) or 1e-4 (f32) of its max magnitude, two
+   calls repeating their bits, at mamba2-370m's and zamba2-7b's training
+   shapes and a ragged S with an init_state and a cotangent on the final
+   state; and the loss and every gradient in f32 at full width, [1, 512],
+   with the kernels against the plain attention and plain scan (1e-4 of
+   each leaf's max), for qwen3-1.7b and mamba2-370m at 2 layers and
+   zamba2-7b at 6 (one shared-block call);
 11. ``ordered`` -- the map phase's stream on the ordered map at the same
    scale (2^22 keys in a 2^23-node pool) through
    ``update_parallel_ordered``, the towers rebuilt after every batch,
@@ -191,8 +210,11 @@ Fifteen phases, each of which fails the run when it fails:
    the engine point's and the families' six (SDPA with the same mask, and
    ``enable_gqa`` where K < H); at qwen3-1.7b's training shape the
    forward and each backward kernel (``flash_bwd_dq``, ``flash_bwd_dkdv``,
-   beside SDPA's backward); ``ssd_scan`` at zamba2-7b's and
-   mamba2-370m's, each also timed in f32.
+   beside SDPA's backward), and the same at zamba2-7b's (the mma.sync
+   pair at d = 112); ``ssd_scan`` at zamba2-7b's and mamba2-370m's serve
+   shapes, each also timed in f32, and at their training shapes the
+   forward (writing the chunk states) and the backward
+   (``ssd_scan_bwd``: no library call, the bound of ``ssd_bwd_bound``).
 
 The last lines are the ``kernels`` JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card (and without
@@ -244,11 +266,14 @@ from repro_torch.kernels.nvt_probe.ops import nvt_probe  # noqa: E402
 from repro_torch.kernels.nvt_probe.ref import (  # noqa: E402
     mix32, probe_ref, tiles_from_hashmap)
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
-from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref  # noqa
+from repro_torch.kernels.ssd_scan.ops import (ssd_scan,  # noqa: E402
+                                              ssd_scan_bwd)
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_chunked, ssd_ref, ssd_scan_bwd_plain)
 from repro_torch.launch.train import (CUBLAS_WORKSPACE,  # noqa: E402
                                       deterministic, run_training)
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import mamba2 as model_mamba2  # noqa: E402
 from repro_torch.models.frontends import (  # noqa: E402
     synth_audio_frames, synth_vision_patches)
 from repro_torch.models.model import (Model, padded_vocab,  # noqa: E402
@@ -270,7 +295,11 @@ from repro_torch.training.train_loop import make_train_step  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 KERNELS = (probe_kernel, fa_kernel, ssd_kernel)
-WRAPPERS = (nvt_probe, flash_attention, flash_attention_bwd, ssd_scan)
+WRAPPERS = (nvt_probe, flash_attention, flash_attention_bwd, ssd_scan,
+            ssd_scan_bwd)
+# the wrappers a training step may launch through
+TRAIN_WRAPPERS = (flash_attention, flash_attention_bwd, ssd_scan,
+                  ssd_scan_bwd)
 TENSOR_CORE_SOURCES = ("flash_attention", "ssd_scan")
 # the earlier one-warp-a-query nvt_probe, timed beside the kernel
 WARP_A_QUERY_PROBE = Path(__file__).resolve().parent / "build" / \
@@ -697,8 +726,9 @@ def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     for w in WRAPPERS:
         w.launches = 0
-    flash_attention.shapes.clear()
-    flash_attention_bwd.shapes.clear()
+    for counter in (flash_attention.shapes, flash_attention_bwd.shapes,
+                    ssd_scan.shapes, ssd_scan_bwd.shapes):
+        counter.clear()
 
 
 # full-width archs cut in depth to fit one card: (layers, why)
@@ -958,56 +988,87 @@ def run_families(sz: Sizes, dev, seed: int) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# train phase: qwen3-1.7b trained at full width, and the crash/resume    #
-# recipe of run_training                                                #
+# train phase: qwen3-1.7b, mamba2-370m and zamba2-7b trained at full      #
+# width, and the crash/resume recipe of run_training on each              #
 # --------------------------------------------------------------------- #
 TRAIN_ARCH = "qwen3-1.7b"
-# the attention leaves whose gradient flows only through flash_attention's
-# backward: each layer's must be nonzero
+# the archs the SSD backward trains, after qwen3-1.7b, one at a time
+SSM_TRAIN_ARCHS = ("mamba2-370m", "zamba2-7b")
+# full-width archs the train phase cuts in depth: (layers, why)
+TRAIN_DEPTH_CUTS = {"zamba2-7b": (
+    24, "6.75 B parameters are about 108 GB with AdamW's f32 moments and "
+        "the f32 gradient accumulator (16 B a parameter), more than one "
+        "80 GB card holds; 24 layers, a multiple of shared_attn_every = 6, "
+        "keep 4 shared-attention calls")}
+# the leaves whose gradient flows only through a kernel's backward: each
+# layer's must be nonzero (flash_attention's; ssd_scan's)
 ATTN_GRAD_LEAVES = ("wq", "wk", "wv", "q_norm", "k_norm")
-# run_training's crash/resume recipe (the README's train CLI example)
+SSM_GRAD_LEAVES = ("A_log", "dt_bias")
+# run_training's crash/resume recipe (the README's train CLI example), on
+# the tiny form of each trained arch
 RECIPE = dict(arch="tiny:qwen3-1.7b", steps=30, ckpt_every=10)
 RECIPE_CRASH = dict(crash_at=20, crash_phase="manifest")
 
 
-def train_config(sz: Sizes, **overrides):
-    """qwen3-1.7b (or its tiny form) with the config's 2 microbatches,
-    which tiny() would set to 1."""
-    return model_config(sz, TRAIN_ARCH, **{
-        "microbatches": get_arch(TRAIN_ARCH).microbatches, **overrides})
+def train_config(sz: Sizes, arch: str = TRAIN_ARCH, **overrides):
+    """``arch`` (or its tiny form) with the config's microbatches, which
+    tiny() would set to 1, cut in depth at full size where
+    ``TRAIN_DEPTH_CUTS`` says so."""
+    if not sz.model_tiny and arch in TRAIN_DEPTH_CUTS:
+        overrides = {"n_layers": TRAIN_DEPTH_CUTS[arch][0], **overrides}
+    return model_config(sz, arch, **{
+        "microbatches": get_arch(arch).microbatches, **overrides})
 
 
-def train_shape(sz: Sizes) -> tuple:
+def train_shape(sz: Sizes, arch: str = TRAIN_ARCH) -> tuple:
     """(B, Sq, Sk, H, K, d, causal) of a training microbatch's attention
     (flash_attention.shapes' key)."""
-    cfg = train_config(sz)
+    cfg = train_config(sz, arch)
     S = sz.train_seq
     return (sz.train_batch // cfg.microbatches, S, S, cfg.n_heads,
             cfg.n_kv_heads, cfg.head_dim, True)
 
 
-def train_reduced(sz: Sizes) -> list:
+def ssd_train_shape(sz: Sizes, arch: str) -> tuple:
+    """(B, S, H, P, N, chunk) of a training microbatch's SSD
+    (ssd_scan.shapes' key)."""
+    cfg = train_config(sz, arch)
+    return (sz.train_batch // cfg.microbatches, sz.train_seq, cfg.ssm_heads,
+            cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk)
+
+
+def train_reduced(sz: Sizes, arch: str = TRAIN_ARCH) -> list:
+    cfg = train_config(sz, arch)
     if sz.model_tiny:
-        return ["tiny(qwen3-1.7b), f32, sequences of "
-                f"{sz.train_seq}: a rehearsal"]
-    return ["global batch 256 -> 4 (train_4k's 256 sequences of 4096; "
-            "a smoke run has room for a few steps)",
-            "no checkpoint at this size: parameters and AdamW moments are "
-            "about 20 GB, and the checkpoint manager digests every byte on "
-            "the host (5-10 s per 2.74 GB), minutes a save; the crash/resume "
-            "recipe runs on tiny(qwen3-1.7b) instead",
-            f"the f32 gradient check: n_layers 28 -> "
-            f"{sz.train_check_layers}, one sequence of {sz.train_check_seq}"]
+        return [f"tiny({arch}), f32, sequences of {sz.train_seq}: a "
+                "rehearsal"]
+    out = ["global batch 256 -> 4 (train_4k's 256 sequences of 4096; "
+           "a smoke run has room for a few steps)"]
+    if arch in TRAIN_DEPTH_CUTS:
+        out.append(f"n_layers {get_arch(arch).n_layers} -> {cfg.n_layers}: "
+                   f"{TRAIN_DEPTH_CUTS[arch][1]}")
+    out.append("no checkpoint at this size: the checkpoint manager digests "
+               "every byte on the host (5-10 s per 2.74 GB), minutes a save "
+               "of parameters and AdamW moments; the crash/resume recipe "
+               f"runs on tiny({arch}) instead")
+    out.append(f"the f32 gradient check: n_layers {get_arch(arch).n_layers}"
+               f" -> {train_check_layers(sz, arch)}, one sequence of "
+               f"{sz.train_check_seq}")
+    return out
 
 
-def _train_run(sz: Sizes, dev, seed: int, profile: bool = False) -> dict:
-    """``sz.train_steps`` steps of qwen3-1.7b from the parameters of
-    ``seed`` through ``make_train_step`` (AdamW, remat, the config's
-    microbatches), deterministic on the card: losses, step seconds,
-    the kernel launches of the steps, the first step's attention
-    gradients that are zero, peak memory; with ``profile``, one more step
-    under ``torch.profiler`` after the counts are read."""
-    cfg = train_config(sz)
+def _train_run(sz: Sizes, dev, seed: int, arch: str = TRAIN_ARCH,
+               profile: bool = False) -> dict:
+    """``sz.train_steps`` steps of ``arch`` from the parameters of ``seed``
+    through ``make_train_step`` (AdamW, remat, the config's microbatches),
+    deterministic on the card: losses, step seconds, the kernel launches
+    of the steps (all and at the training shapes), the first step's
+    gradients of the leaves a kernel's backward alone feeds that are zero,
+    peak memory; with ``profile``, one more step under ``torch.profiler``
+    after the counts are read."""
+    cfg = train_config(sz, arch)
+    leaves = ATTN_GRAD_LEAVES if cfg.family not in ("ssm", "hybrid") \
+        else SSM_GRAD_LEAVES
     model = Model(cfg)
     opt = make_optimizer(cfg)
     nonzero = {}
@@ -1015,7 +1076,7 @@ def _train_run(sz: Sizes, dev, seed: int, profile: bool = False) -> dict:
     def update(grads, state, params, step):
         if not nonzero:            # the first step's, read after the run
             nonzero.update({n: g.abs().max() > 0 for n, g in grads.items()
-                            if n.split(".")[-1] in ATTN_GRAD_LEAVES})
+                            if n.split(".")[-1] in leaves})
         return opt.update(grads, state, params, step)
     train_step = make_train_step(model, cfg, Optimizer(opt.init, update))
     pipe = TokenPipeline(cfg, ShapeConfig("train_4k", sz.train_seq,
@@ -1043,18 +1104,20 @@ def _train_run(sz: Sizes, dev, seed: int, profile: bool = False) -> dict:
             losses.append(float(metrics["loss"]))
             _sync(dev)
             times.append(time.perf_counter() - t0)
-        out["launches"] = {"flash_attention": flash_attention.launches,
-                           "flash_attention_bwd": flash_attention_bwd.launches,
-                           "ssd_scan": ssd_scan.launches}
+        out["launches"] = {w.__name__: w.launches for w in TRAIN_WRAPPERS}
         out["launches_at_shape"] = {
-            "flash_attention": flash_attention.shapes[train_shape(sz)],
+            "flash_attention": flash_attention.shapes[train_shape(sz, arch)],
             "flash_attention_bwd": flash_attention_bwd.shapes[
-                train_shape(sz)]}
+                train_shape(sz, arch)]}
+        if leaves is SSM_GRAD_LEAVES:
+            out["launches_at_shape"].update(
+                ssd_scan=ssd_scan.shapes[ssd_train_shape(sz, arch)],
+                ssd_scan_bwd=ssd_scan_bwd.shapes[ssd_train_shape(sz, arch)])
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) \
             if dev.type == "cuda" else None
-        out["zero_attn_grads"] = sorted(n for n, nz in nonzero.items()
-                                        if not bool(nz))
-        out["attn_grad_leaves"] = len(nonzero)
+        out["zero_grads"] = sorted(n for n, nz in nonzero.items()
+                                   if not bool(nz))
+        out["grad_leaves"] = len(nonzero)
         if profile and dev.type == "cuda":
             batch = pipe.next_batch()
             out["profile"] = profile_step(lambda: train_step(
@@ -1065,15 +1128,16 @@ def _train_run(sz: Sizes, dev, seed: int, profile: bool = False) -> dict:
     return out
 
 
-def train_recipe(dev, seed: int) -> dict:
-    """``run_training``'s crash/resume recipe on ``dev``, in f32 (the
-    scalar kernels on the card) and bf16 (the tensor-core kernels): an
-    uninterrupted run of RECIPE, a run crashed before step 20's manifest
-    publish, and its restart, which must log "resumed from committed step
-    10" and repeat every loss of the uninterrupted run bit for bit."""
+def train_recipe(dev, seed: int, arch: str = RECIPE["arch"]) -> dict:
+    """``run_training``'s crash/resume recipe on ``dev`` for ``arch``, in
+    f32 (the scalar kernels on the card) and bf16 (the tensor-core
+    kernels): an uninterrupted run of RECIPE, a run crashed before step
+    20's manifest publish, and its restart, which must log "resumed from
+    committed step 10" and repeat every loss of the uninterrupted run bit
+    for bit."""
     out = {}
     for dtype in ("float32", "bfloat16"):
-        kw = dict(RECIPE, device=dev, dtype=dtype, seed=seed)
+        kw = dict(RECIPE, arch=arch, device=dev, dtype=dtype, seed=seed)
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as d:
             ref = run_training(ckpt_dir=f"{d}/ref", **kw)
@@ -1081,15 +1145,16 @@ def train_recipe(dev, seed: int) -> dict:
                                    **kw)
             resumed = run_training(ckpt_dir=f"{d}/crash", **kw)
         if crashed.get("crashed_at") != RECIPE_CRASH["crash_at"]:
-            raise AssertionError(f"recipe {dtype}: no crash at step 20")
+            raise AssertionError(f"recipe {arch} {dtype}: no crash at step "
+                                 f"20")
         if resumed["log"] != ["resumed from committed step 10"]:
-            raise AssertionError(f"recipe {dtype}: {resumed['log']}")
+            raise AssertionError(f"recipe {arch} {dtype}: {resumed['log']}")
         if any(resumed["losses"][s] != ref["losses"][s]
                for s in resumed["losses"]) or \
                 resumed["final_loss"] != ref["final_loss"] or \
                 resumed["final_step"] != RECIPE["steps"]:
-            raise AssertionError(f"recipe {dtype}: the resumed losses are "
-                                 f"not the uninterrupted run's")
+            raise AssertionError(f"recipe {arch} {dtype}: the resumed "
+                                 f"losses are not the uninterrupted run's")
         out[dtype] = {"final_loss": resumed["final_loss"],
                       "first_loss": ref["losses"][1],
                       "resumed_steps": len(resumed["losses"]),
@@ -1098,60 +1163,105 @@ def train_recipe(dev, seed: int) -> dict:
     return out
 
 
-def run_train(sz: Sizes, dev, seed: int) -> dict:
-    """qwen3-1.7b trained ``sz.train_steps`` steps twice from the same
-    seed: finite losses, the same bits in both runs, every layer's
-    attention gradients nonzero, and on the card the flash_attention
-    launches a step (each layer's forward and its remat recompute a
-    microbatch: 2 L M) and backward launches (L M); then the crash/resume
-    recipe."""
+def train_launches(cfg, steps: int) -> dict:
+    """The kernel launches ``steps`` training steps of ``cfg`` make at its
+    training shapes: each layer's forward and its remat recompute a
+    microbatch (2 L M) and its backward (L M) -- flash_attention once a
+    dense layer or a hybrid's shared-block call, ssd_scan once a Mamba2
+    layer."""
+    M = cfg.microbatches
+    attn = attn_launches_per_prefill(cfg)
+    ssd = ssd_launches_per_prefill(cfg)
+    want = {"flash_attention": 2 * attn * M * steps,
+            "flash_attention_bwd": attn * M * steps}
+    if ssd:
+        want.update(ssd_scan=2 * ssd * M * steps,
+                    ssd_scan_bwd=ssd * M * steps)
+    return want
+
+
+def _train_arch(sz: Sizes, dev, seed: int, arch: str) -> dict:
+    """``arch`` trained ``sz.train_steps`` steps twice from the same seed:
+    finite losses, the same bits in both runs, every layer's gradients
+    that only a kernel's backward feeds nonzero (attention: wq, wk, wv,
+    q_norm, k_norm; a Mamba2 layer: A_log, dt_bias), and on the card the
+    launches of :func:`train_launches`, at the training shapes and
+    nowhere else; then the crash/resume recipe on ``tiny(arch)``."""
     t0 = time.perf_counter()
-    cfg = train_config(sz)
-    first = _train_run(sz, dev, seed, profile=True)
-    again = _train_run(sz, dev, seed)
+    cfg = train_config(sz, arch)
+    first = _train_run(sz, dev, seed, arch, profile=True)
+    again = _train_run(sz, dev, seed, arch)
     losses = first["losses"]
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train losses {losses}")
+        raise AssertionError(f"{arch} train losses {losses}")
     if again["losses"] != losses:
-        raise AssertionError(f"two runs from seed {seed} differ: {losses} "
-                             f"and {again['losses']}")
-    if first["zero_attn_grads"] or first["attn_grad_leaves"] != \
-            cfg.n_layers * len(ATTN_GRAD_LEAVES):
-        raise AssertionError(f"attention gradients zero or missing: "
-                             f"{first['zero_attn_grads']}")
+        raise AssertionError(f"{arch}: two runs from seed {seed} differ: "
+                             f"{losses} and {again['losses']}")
+    ssm = cfg.family in ("ssm", "hybrid")
+    n_leaves = cfg.n_layers * len(SSM_GRAD_LEAVES if ssm
+                                  else ATTN_GRAD_LEAVES)
+    if first["zero_grads"] or first["grad_leaves"] != n_leaves:
+        raise AssertionError(f"{arch}: gradients zero or missing: "
+                             f"{first['zero_grads']} "
+                             f"({first['grad_leaves']} of {n_leaves})")
     L, M, steps = cfg.n_layers, cfg.microbatches, sz.train_steps
-    want = {"flash_attention": 2 * L * M * steps,
-            "flash_attention_bwd": L * M * steps}
-    if dev.type == "cuda" and (
-            any(first["launches"][k] != n for k, n in want.items())
-            or first["launches"]["ssd_scan"]
-            or first["launches_at_shape"] != want):
-        raise AssertionError(f"train launches {first['launches']} "
-                             f"({first['launches_at_shape']} at "
-                             f"{train_shape(sz)}), not {want}")
+    want = train_launches(cfg, steps)
+    launched = {k: v for k, v in first["launches"].items() if v}
+    if dev.type == "cuda" and (launched != {k: v for k, v in want.items()
+                                            if v}
+                               or any(first["launches_at_shape"][k] != n
+                                      for k, n in want.items())):
+        raise AssertionError(f"{arch} train launches {first['launches']} "
+                             f"({first['launches_at_shape']} at the "
+                             f"training shapes), not {want}")
     tokens = sz.train_batch * sz.train_seq
     step_s = first["step_s"]
-    recipe = train_recipe(dev, seed)
-    return {"arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
-            "dtype": cfg.compute_dtype, "microbatches": M,
-            "global_batch": sz.train_batch, "seq_len": sz.train_seq,
-            "n_params": first["n_params"], "init_s": first["init_s"],
-            "losses": losses, "rerun_losses_equal": True,
-            "step_s": step_s, "step_s_rerun": again["step_s"],
-            "tokens_per_step": tokens,
-            "tokens_per_s": tokens / float(np.median(step_s)),
-            "peak_bytes": first["peak_bytes"],
-            "launches": first["launches"],
-            "launches_per_step": {k: v / steps
-                                  for k, v in first["launches"].items()},
-            "attn_grad_leaves_nonzero": first["attn_grad_leaves"],
-            "profile": first.get("profile"), "recipe": recipe,
-            "reduced": train_reduced(sz),
-            "phase_s": time.perf_counter() - t0}
+    out = {"arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
+           "dtype": cfg.compute_dtype, "microbatches": M,
+           "global_batch": sz.train_batch, "seq_len": sz.train_seq,
+           "n_params": first["n_params"], "init_s": first["init_s"],
+           "losses": losses, "rerun_losses_equal": True,
+           "step_s": step_s, "step_s_rerun": again["step_s"],
+           "tokens_per_step": tokens,
+           "tokens_per_s": tokens / float(np.median(step_s)),
+           "peak_bytes": first["peak_bytes"],
+           "launches": first["launches"],
+           "launches_at_shape": first["launches_at_shape"],
+           "launches_per_step": {k: v / steps
+                                 for k, v in first["launches"].items()},
+           ("ssm_grad_leaves_nonzero" if ssm
+            else "attn_grad_leaves_nonzero"): first["grad_leaves"],
+           "profile": first.get("profile"),
+           "recipe": train_recipe(dev, seed, f"tiny:{arch}"),
+           "reduced": train_reduced(sz, arch)}
+    if ssm:
+        out["ssd_shape"] = list(ssd_train_shape(sz, arch))
+        if out["profile"]:         # the SSD backward's share of the step
+            out["ssd_bwd_share"] = sum(k["share"] for k in
+                                       out["profile"]["port"]
+                                       if "ssd_bwd" in k["name"])
+    if cfg.family == "hybrid":
+        out["shared_attn_calls"] = cfg.n_layers // cfg.shared_attn_every
+        out["attn_shape"] = list(train_shape(sz, arch))
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_train(sz: Sizes, dev, seed: int) -> dict:
+    """qwen3-1.7b (its results at the top level), then mamba2-370m and
+    zamba2-7b (under their names), one model on the card at a time, each
+    trained twice from one seed and put through the crash/resume recipe
+    (:func:`_train_arch`)."""
+    t0 = time.perf_counter()
+    out = _train_arch(sz, dev, seed, TRAIN_ARCH)
+    for arch in SSM_TRAIN_ARCHS:
+        out[arch] = _train_arch(sz, dev, seed, arch)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 PORT_KERNELS = ("nvt_probe", "flash_fwd", "flash_bwd", "ssd_scan_tc",
-                "ssd_chunk_scan")
+                "ssd_chunk_scan", "ssd_bwd")
 
 
 def profile_step(fn, dev, top: int = 8) -> dict:
@@ -1303,7 +1413,9 @@ LSE_TOL = 1e-4
 
 def flash_bwd_shapes(sz: Sizes) -> dict:
     """(B, Sq, Sk, H, K, d, causal, window) of the backward checks: a
-    qwen3-1.7b training microbatch, zamba2-7b's d = 112, whisper-medium's
+    qwen3-1.7b training microbatch, a zamba2-7b one (its shared block,
+    d = 112, the mma.sync pair), zamba2-7b's d = 112 at the serve shape,
+    whisper-medium's
     cross shape (non-causal, Sq != Sk, a ragged last tile), a gemma3-27b
     local layer (its window over twice its length) and rows with no
     visible key (ROADMAP Queue 3's case)."""
@@ -1312,6 +1424,7 @@ def flash_bwd_shapes(sz: Sizes) -> dict:
     w = model_config(sz, "whisper-medium")
     g = model_config(sz, "gemma3-27b")
     return {"qwen3_train": train_shape(sz) + (0,),
+            "zamba2_train": train_shape(sz, "zamba2-7b") + (0,),
             "zamba2_d112": (sz.model_batch, S, S, z.n_heads, z.n_kv_heads,
                             z.head_dim, True, 0),
             "whisper_cross": (sz.model_batch, min(sz.check_lens), w.enc_seq,
@@ -1415,18 +1528,45 @@ class plain_attention:
         model_layers.flash_attention = self.saved
 
 
+def _plain_ssd_scan(xh, dt, A, Bm, Cm, *, chunk, init_state=None):
+    return ssd_chunked(xh, dt, A, Bm, Cm, chunk, init_state=init_state)
+
+
+class plain_ssd:
+    """Within the block, the Mamba2 layers scan through the plain
+    ``ssd_chunked`` (which autograd differentiates) instead of the
+    kernels."""
+
+    def __enter__(self):
+        self.saved = model_mamba2.ssd_scan
+        model_mamba2.ssd_scan = _plain_ssd_scan
+
+    def __exit__(self, *exc):
+        model_mamba2.ssd_scan = self.saved
+
+
 TRAIN_CONSISTENCY_TOL = 1e-4
+# the depth of each arch's f32 gradient check, where not
+# ``sz.train_check_layers``: zamba2-7b keeps one shared-attention call
+TRAIN_CHECK_LAYERS = {"zamba2-7b": 6}
 
 
-def check_train_consistency(sz: Sizes, dev, seed: int) -> dict:
-    """qwen3-1.7b's loss and every parameter's gradient, in f32 at full
-    width cut to ``train_check_layers`` over one sequence of
-    ``train_check_seq``, with the flash kernels (forward and backward,
-    remat recompute included) against the plain attention: the loss
-    within 1e-5 (abs and rel), each leaf within TRAIN_CONSISTENCY_TOL x
-    its max magnitude, which must be nonzero (f32 sums in other orders;
-    a dropped or wrong attention gradient moves a leaf by O(1))."""
-    cfg = train_config(sz, n_layers=sz.train_check_layers,
+def train_check_layers(sz: Sizes, arch: str) -> int:
+    return TRAIN_CHECK_LAYERS.get(arch, sz.train_check_layers)
+
+
+def check_train_consistency(sz: Sizes, dev, seed: int,
+                            arch: str = TRAIN_ARCH) -> dict:
+    """``arch``'s loss and every parameter's gradient, in f32 at full
+    width cut to :func:`train_check_layers` over one sequence of
+    ``train_check_seq``, with the kernels (the flash and SSD forwards and
+    backwards, remat recompute included) against the plain attention and
+    the plain chunked SSD: the loss within 1e-5 (abs and rel), each leaf
+    within TRAIN_CONSISTENCY_TOL x its max magnitude, which must be
+    nonzero (f32 sums in other orders; a dropped or wrong gradient moves
+    a leaf by O(1)).  On the card the kernel side must launch each
+    backward once a layer that runs its kernel."""
+    cfg = train_config(sz, arch, n_layers=train_check_layers(sz, arch),
                        param_dtype="float32", compute_dtype="float32",
                        microbatches=1)
     model = Model(cfg)
@@ -1439,30 +1579,37 @@ def check_train_consistency(sz: Sizes, dev, seed: int) -> dict:
     def loss_and_grads():
         loss = model.loss(params, batch)
         return loss.detach(), torch.autograd.grad(loss, list(named.values()))
-    before = flash_attention_bwd.launches
+    before = (flash_attention_bwd.launches, ssd_scan_bwd.launches)
     lk, gk = loss_and_grads()
-    if dev.type == "cuda" and flash_attention_bwd.launches - before != \
-            cfg.n_layers:
-        raise AssertionError("the kernel side did not run the backward "
-                             "kernels")
-    with plain_attention():
+    want = train_launches(cfg, 1)
+    got = (flash_attention_bwd.launches - before[0],
+           ssd_scan_bwd.launches - before[1])
+    if dev.type == "cuda" and got != (want["flash_attention_bwd"],
+                                      want.get("ssd_scan_bwd", 0)):
+        raise AssertionError(f"{arch}: the kernel side launched {got} "
+                             f"backwards (flash, ssd), not {want}")
+    with plain_attention(), plain_ssd():
         lp, gp = loss_and_grads()
-    loss_err = _check_close("train consistency loss", lk, lp, 1e-5)
+    loss_err = _check_close(f"{arch} train consistency loss", lk, lp, 1e-5)
     worst, worst_leaf = 0.0, None
     for n, a, w in zip(named, gk, gp):
         rel, scale, _ = _scaled(a, w)
         if not scale > 0 or not rel <= TRAIN_CONSISTENCY_TOL:
-            raise AssertionError(f"train consistency {n}: {rel} x max|ref| "
-                                 f"{scale}, tol {TRAIN_CONSISTENCY_TOL}")
+            raise AssertionError(f"{arch} train consistency {n}: {rel} x "
+                                 f"max|ref| {scale}, tol "
+                                 f"{TRAIN_CONSISTENCY_TOL}")
         if rel >= worst:
             worst, worst_leaf = rel, n
     del params, named, gk, gp
     free_card(dev)
-    return {"arch": cfg.name, "n_layers": cfg.n_layers,
-            "d_model": cfg.d_model, "S": sz.train_check_seq,
-            "loss": float(lk), "loss_err": loss_err,
-            "worst_grad_rel_err": worst, "worst_leaf": worst_leaf,
-            "tol": TRAIN_CONSISTENCY_TOL}
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "S": sz.train_check_seq,
+           "loss": float(lk), "loss_err": loss_err,
+           "worst_grad_rel_err": worst, "worst_leaf": worst_leaf,
+           "tol": TRAIN_CONSISTENCY_TOL}
+    if cfg.family == "hybrid":
+        out["shared_attn_calls"] = cfg.n_layers // cfg.shared_attn_every
+    return out
 
 
 def ssd_inputs(dev, B, S, H, P, N, dtype, seed):
@@ -1544,6 +1691,119 @@ def _check_ssd_arch(sz: Sizes, dev, arch: str, prefix: str) -> dict:
                 errs[f"{tag}_chunked_bf16_vs_ref"] = max_err(by, ry)
                 errs[f"{tag}_chunked_bf16_vs_kernel"] = max_err(by, y)
     return errs
+
+
+# the SSD backward's tolerances, each gradient's max error over its max
+# magnitude (as the flash backward's): bf16 rounds x, B, C and dy and
+# splits the f32 operands of its products into two bf16 parts; f32 sums
+# in another order
+SSD_BWD_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+SSD_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def ssd_bwd_shapes(sz: Sizes) -> dict:
+    """(B, S, H, P, N, chunk, with init_state) of the backward checks:
+    mamba2-370m's and zamba2-7b's training microbatches, and a ragged S
+    (``min(check_lens)``, not a multiple of the chunk) at zamba2's P and N
+    with an init_state and a cotangent on the final state."""
+    z = model_config(sz, "zamba2-7b")
+    return {"mamba2_train": ssd_train_shape(sz, "mamba2-370m") + (False,),
+            "zamba2_train": ssd_train_shape(sz, "zamba2-7b") + (False,),
+            "ragged_init": (sz.model_batch, min(sz.check_lens), 8,
+                            z.ssm_head_dim, z.ssm_state, z.ssm_chunk, True)}
+
+
+def ssd_bwd_inputs(dev, B, S, H, P, N, dtype, seed) -> dict:
+    """x, B and C as slices of one fused ``xBC`` [B, S, H P + 2 N] (the
+    model's strides), dt, A, the cotangent dy, an init_state and a
+    cotangent on the final state."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    return {"xbc": torch.cat([rnd(B, S, H * P), rnd(B, S, N) * 0.5,
+                              rnd(B, S, N) * 0.5], -1).to(dtype),
+            "dt": torch.nn.functional.softplus(rnd(B, S, H)),
+            "A": -torch.exp(rnd(H) * 0.3), "dy": rnd(B, S, H, P).to(dtype),
+            "init": rnd(B, H, P, N) * 0.5, "dfinal": rnd(B, H, P, N)}
+
+
+def split_xbc(t: torch.Tensor, H: int, P: int, N: int):
+    """x [B, S, H, P], B and C [B, S, N]: views of ``t``."""
+    B, S, _ = t.shape
+    return (t[..., :H * P].reshape(B, S, H, P), t[..., H * P:H * P + N],
+            t[..., H * P + N:])
+
+
+def _ssd_grads(scan, inp: dict, shape, cast=None) -> dict:
+    """The gradients of ``scan`` (``ssd_scan``, or the plain chunked
+    version) on ``inp`` (each leaf in ``cast``'s dtype where given) by
+    ``torch.autograd.grad``, named as :func:`ssd_scan_bwd`'s."""
+    B, S, H, P, N, Q, with_init = shape
+    names = ("xbc", "dt", "A") + (("init",) if with_init else ())
+    leaves = [(inp[n] if cast is None else inp[n].to(cast)).clone()
+              .requires_grad_(True) for n in names]
+    xs, bs, cs = split_xbc(leaves[0], H, P, N)
+    y, final = scan(xs, leaves[1], leaves[2], bs, cs, chunk=Q,
+                    init_state=leaves[3] if with_init else None)
+    dy = inp["dy"] if cast is None else inp["dy"].to(cast)
+    outs, cots = ((y, final), (dy, inp["dfinal"])) if with_init \
+        else ((y,), (dy,))
+    g = torch.autograd.grad(outs, leaves, cots)
+    dx, dB, dC = split_xbc(g[0], H, P, N)
+    return {"dx": dx, "ddt": g[1], "dA": g[2], "dB": dB, "dC": dC,
+            "dinit": g[3] if with_init else None}
+
+
+def check_ssd_bwd(sz: Sizes, dev) -> dict:
+    """The SSD backward kernels, through ``ssd_scan``'s autograd Function
+    on strided ``xBC`` slices, against the plain backward
+    (``ssd_scan_bwd_plain``) and against autograd through the plain
+    chunked version in f32 on the same values, at each of
+    :func:`ssd_bwd_shapes` in bf16 and f32: every gradient (ddt and dA
+    each on their own) within ``SSD_BWD_TOL * max|ref|`` with ``max|ref|
+    > 0``, and a second call the same bits (no atomics).  Each shape
+    reports its route and each pass's shared memory."""
+    out = {}
+    for key, shape in ssd_bwd_shapes(sz).items():
+        B, S, H, P, N, Q, with_init = shape
+        for dtype, tol in SSD_BWD_TOL.items():
+            tag = f"{key}_{str(dtype)[6:]}"
+            inp = ssd_bwd_inputs(dev, B, S, H, P, N, dtype, S + H)
+            got, again = (_ssd_grads(ssd_scan, inp, shape)
+                          for _ in range(2))
+            if not all(torch.equal(got[n], again[n]) for n in got
+                       if got[n] is not None):
+                raise AssertionError(f"ssd bwd {tag}: two calls differ")
+            xs, bs, cs = split_xbc(inp["xbc"].float(), H, P, N)
+            plain = dict(zip(SSD_BWD_GRADS, ssd_scan_bwd_plain(
+                xs, inp["dt"], inp["A"], bs, cs, inp["dy"].float(), chunk=Q,
+                init_state=inp["init"] if with_init else None,
+                dfinal=inp["dfinal"] if with_init else None)))
+            auto = _ssd_grads(_plain_ssd_scan, inp, shape, torch.float32)
+            errs = {}
+            for n in SSD_BWD_GRADS:
+                if got[n] is None:
+                    continue
+                for ref_name, w in (("plain", plain[n]),
+                                    ("autograd", auto[n])):
+                    rel, scale, err = _scaled(got[n], w)
+                    if not scale > 0 or not rel <= tol:
+                        raise AssertionError(
+                            f"ssd bwd {tag} {n} vs {ref_name}: {err} = "
+                            f"{rel} x max|ref| {scale}, tol {tol}")
+                    errs[f"{n}_vs_{ref_name}"] = rel
+                errs[f"{n}_max_abs_err"] = _scaled(got[n], plain[n])[2]
+            out[tag] = {"shape": [B, S, H, P, N, Q], "init_state": with_init,
+                        "route": "mma.sync" if dtype == torch.bfloat16
+                        else "scalar",
+                        "smem_bytes": dict(zip(("carry", "chunk"),
+                                               ssd_kernel.bwd_smem_bytes(
+                                                   Q, P, N, dtype))),
+                        "bitwise_repeat": True, "tol": tol, **errs}
+            del inp, got, again, plain, auto
+    free_card(dev)
+    return out
 
 
 CONSISTENCY_TOL = 2e-3
@@ -3285,7 +3545,8 @@ def flash_bwd_bounds(shape) -> dict:
 
 
 def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes,
-                   build_rows: dict) -> list:
+                   build_rows: dict, arch: str = TRAIN_ARCH,
+                   tag: str = "qwen3_train") -> list:
     """The backward kernels at the training shape, bf16 (CUDA events), on
     the route ``kernel.bwd_route`` gives it (at d = 128 the wgmma pair:
     TMA rings, warp-specialised, no atomics; ``build_rows`` holds its
@@ -3299,8 +3560,10 @@ def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes,
     (query, key) pair a product: S, dP and dQ for dq; S, dP, dV and dK for
     dkdv; the pair's function S, dP, dV, dQ and dK, 2.5x the forward), or
     its bytes (each input read once, each output written once) at the HBM
-    rate, the longer (:func:`flash_bwd_bounds`)."""
-    B, Sq, Sk, H, K, d, causal = train_shape(sz)
+    rate, the longer (:func:`flash_bwd_bounds`).  ``arch`` names the
+    trained arch (its training shape; zamba2-7b's d = 112 takes the
+    mma.sync pair) and ``tag`` its backward check's key."""
+    B, Sq, Sk, H, K, d, causal = train_shape(sz, arch)
     q, k, v = flash_inputs(dev, B, Sq, H, d, torch.bfloat16, 0, K, Sk)
     do = flash_inputs(dev, B, Sq, H, d, torch.bfloat16, 1)[0]
     o, lse = fa_kernel.flash_attention_kernel(q, k, v, causal=causal,
@@ -3320,9 +3583,11 @@ def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes,
     dot = do.transpose(1, 2)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         sdpa, (qt, kt, vt), dot, retain_graph=True))
-    bounds = flash_bwd_bounds(train_shape(sz))
-    tag = "qwen3_train_bfloat16"
+    bounds = flash_bwd_bounds(train_shape(sz, arch))
+    tag = f"{tag}_bfloat16"
     bwd_route = fa_kernel.bwd_route(d, torch.bfloat16)
+    suffix = f"wg<{d}>" if bwd_route == "wgmma" \
+        else f"tc<{-(-d // 16) * 16}>"
     design = {"wgmma": "FlashAttention-2 split on wgmma fed by TMA rings, "
                        "warp-specialised (a producer warp, two consumer "
                        "warpgroups), no atomics",
@@ -3331,7 +3596,7 @@ def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes,
     out = []
     for n in ("dq", "dkdv"):
         grads = ("dq",) if n == "dq" else ("dk", "dv")
-        row = build_rows.get(f"flash_bwd_{n}_wg<{d}>", {})
+        row = build_rows.get(f"flash_bwd_{n}_{suffix}", {})
         out.append({
             "name": f"flash_bwd_{n}", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3344,7 +3609,8 @@ def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes,
             "registers": row.get("registers"),
             "spill_bytes": row.get("spill_bytes"),
             "hgmma_instr": row.get("hgmma_instr"),
-            "arch": TRAIN_ARCH, "path": "train", "launches": launches,
+            "tensor_core_instr": row.get("tensor_core_instr"),
+            "arch": arch, "path": "train", "launches": launches,
             "max_abs_err": max(errs[tag][f"{g}_max_abs_err"]
                                for g in grads),
             "max_rel_err": max(errs[tag][f"{g}_vs_plain"] for g in grads),
@@ -3374,40 +3640,129 @@ def ssd_flops(B: int, S: int, H: int, P: int, N: int, Q: int) -> int:
 
 
 def time_ssd(dev, launches: int, err: float, arch: str = "zamba2-7b",
-             path: str = "model") -> dict:
+             path: str = "model", sz: Sizes = None) -> dict:
     """ssd_scan at an arch's serve shape (S=512; zamba2-7b: B=4, H=112,
     P=N=64; mamba2-370m: B=4, H=32, P=64, N=128; chunk 128, bf16), from a
-    zero f32 state as prefill into a cache passes it.  The bound: x, dt,
-    B, C and the state read once, y and the final state written once, or
-    :func:`ssd_flops` at the bf16 peak.  ``f32_ms`` times the f32 kernel
-    on the same values in f32 (the checks' kernel)."""
-    B, H, P, N, Q = ssd_shape(FULL, arch)
-    S = 512
-    xh, dt, A, Bm, Cm = ssd_inputs(dev, B, S, H, P, N, torch.bfloat16, 0)
-    init = torch.zeros((B, H, P, N), dtype=torch.float32, device=dev)
+    zero f32 state as prefill into a cache passes it; or, given ``sz``, at
+    its training shape (:func:`ssd_train_shape`) as a training step
+    launches it: from zeros, on strided xBC slices, writing each chunk's
+    start state for the backward (then ``err`` is measured here, against
+    the plain chunked version in f32, and held to 5e-2).  The bound: the
+    inputs read once, y, the final state (and the chunk states) written
+    once, or :func:`ssd_flops` at the bf16 peak.  ``f32_ms`` times the f32
+    kernel on the same values in f32 (the checks' kernel)."""
+    if sz is None:
+        B, H, P, N, Q = ssd_shape(FULL, arch)
+        S = 512
+        xh, dt, A, Bm, Cm = ssd_inputs(dev, B, S, H, P, N, torch.bfloat16,
+                                       0)
+        init = torch.zeros((B, H, P, N), dtype=torch.float32, device=dev)
+    else:
+        B, S, H, P, N, Q = ssd_train_shape(sz, arch)
+        inp = ssd_bwd_inputs(dev, B, S, H, P, N, torch.bfloat16, 0)
+        xh, Bm, Cm = split_xbc(inp["xbc"], H, P, N)
+        dt, A, init = inp["dt"], inp["A"], None
+    train = sz is not None
     ms = cuda_ms(lambda: ssd_kernel.ssd_scan_kernel(
-        xh, dt, A, Bm, Cm, chunk=Q, init_state=init))
+        xh, dt, A, Bm, Cm, chunk=Q, init_state=init, with_states=train))
     plain_ms = cuda_ms(lambda: ssd_chunked(xh, dt, A, Bm, Cm, Q,
                                            init_state=init))
     x32, b32, c32 = (t.float() for t in (xh, Bm, Cm))
     f32_ms = cuda_ms(lambda: ssd_kernel.ssd_scan_kernel(
-        x32, dt, A, b32, c32, chunk=Q, init_state=init))
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (xh, dt, A, Bm, Cm, init)) \
-        + xh.numel() * xh.element_size() + init.numel() * 4
+        x32, dt, A, b32, c32, chunk=Q, init_state=init, with_states=train))
+    if train:
+        y = ssd_kernel.ssd_scan_kernel(xh, dt, A, Bm, Cm, chunk=Q)[0]
+        err = _check_close(f"ssd {arch} training shape y", y, ssd_chunked(
+            x32, dt, A, b32, c32, Q)[0], 5e-2)
+    n_chunks = -(-S // Q)
+    state = B * H * P * N * 4
+    nbytes = sum(t.numel() * t.element_size() for t in (xh, dt, A, Bm, Cm)) \
+        + xh.numel() * xh.element_size() + state \
+        + (n_chunks * state if train else state)
     flops = ssd_flops(B, S, H, P, N, Q)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:34",
-            "design": "mma.sync bf16", "arch": arch, "path": path,
-            "launches": launches,
+            "design": "mma.sync bf16" + (", writing each chunk's start "
+                                         "state" if train else ""),
+            "arch": arch, "path": path, "launches": launches,
             "max_abs_err": err, "max_abs_diff": err,
             "ms": ms, "plain_ms": plain_ms, "f32_ms": f32_ms,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "bytes": nbytes, "flops": flops,
             "shape": [B, S, H, P, N, Q], "dtype": "bfloat16"}
+
+
+def ssd_bwd_bound(B: int, S: int, H: int, P: int, N: int, Q: int) -> dict:
+    """The least time of the SSD backward's function at [B, S, H, P, N],
+    chunk Q, bf16: the chunk products it needs (C B^T on the lower
+    triangle once per batch row and chunk; per head dy x^T and scores^T dy
+    over P, dG B and dG^T C over N on the triangle, and dy S_prev, B dS^T,
+    x dS and the carry's (dy o exp(cum))^T C in full) at the bf16 peak, or
+    its bytes at the HBM rate (x, dy, B, C in bf16, dt in f32 and the
+    forward's f32 chunk states read once; dx, dB, dC in bf16 and ddt in
+    f32 written once), the longer."""
+    flops = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        tri = q * (q + 1) // 2
+        flops += B * 2 * N * tri
+        flops += B * H * (4 * P * tri + 4 * N * tri + 8 * q * P * N)
+    e = 2
+    nbytes = 3 * B * S * H * P * e + 4 * B * S * N * e + 2 * B * S * H * 4 \
+        + 2 * H * 4 + B * -(-S // Q) * H * P * N * 4
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return {"bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "flops": flops, "bytes": nbytes}
+
+
+def time_ssd_bwd(dev, launches: int, errs: dict, sz: Sizes, arch: str,
+                 build_rows: dict) -> dict:
+    """The SSD backward kernels at ``arch``'s training shape, bf16 (CUDA
+    events): the carry pass, the chunk pass and the reduction over heads
+    as one call of ``ssd_scan_bwd_kernel``, from the chunk states the
+    forward wrote; the plain backward (``ssd_scan_bwd_plain``, f32) on the
+    same values; no library call computes it.  The bound is
+    :func:`ssd_bwd_bound`'s; ``build_rows`` holds the passes' registers
+    and spills."""
+    B, S, H, P, N, Q = ssd_train_shape(sz, arch)
+    inp = ssd_bwd_inputs(dev, B, S, H, P, N, torch.bfloat16, 1)
+    xh, Bm, Cm = split_xbc(inp["xbc"], H, P, N)
+    dt, A, dy = inp["dt"], inp["A"], inp["dy"]
+    _, _, states = ssd_kernel.ssd_scan_kernel(xh, dt, A, Bm, Cm, chunk=Q,
+                                              with_states=True)
+    ms = cuda_ms(lambda: ssd_kernel.ssd_scan_bwd_kernel(
+        xh, dt, A, Bm, Cm, dy, states, chunk=Q))
+    plain_ms = cuda_ms(lambda: ssd_scan_bwd_plain(
+        xh, dt, A, Bm, Cm, dy, chunk=Q), iters=3)
+    tag = f"{dict(zip(SSM_TRAIN_ARCHS, ('mamba2', 'zamba2')))[arch]}" \
+          f"_train_bfloat16"
+    ntn = 8 if N <= 64 else 16
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:34",
+            "replaces_note": "the reference has no backward kernel: its "
+                             "training differentiates ssd_chunked "
+                             "(src/repro/models/mamba2.py:85)",
+            "design": "carry pass (the forward's state update backwards in "
+                      "time) and chunk pass (every chunk at once, the "
+                      "triangle recomputed in both orientations) on "
+                      "mma.sync bf16, then an ordered sum over heads; no "
+                      "atomics",
+            "passes": {n: build_rows.get(f"ssd_bwd_{n}_tc<{ntn}>", {})
+                       for n in ("carry", "chunk")},
+            "arch": arch, "path": "train", "launches": launches,
+            "max_abs_err": max(v for k, v in errs[tag].items()
+                               if k.endswith("_max_abs_err")),
+            "max_rel_err": max(v for k, v in errs[tag].items()
+                               if k.endswith("_vs_plain")),
+            "ms": ms, "plain_ms": plain_ms,
+            **ssd_bwd_bound(B, S, H, P, N, Q),
+            "library_ms": None, "shape": [B, S, H, P, N, Q],
+            "dtype": "bfloat16"}
 
 
 def build_report(so: Path, ptxas: str) -> list:
@@ -3456,6 +3811,25 @@ def check_wgmma_bwd_build(functions: list) -> dict:
     return rows
 
 
+SSD_BWD_FUNCTIONS = tuple(f"ssd_bwd_{p}_tc<{n}>" for p in ("carry", "chunk")
+                          for n in (8, 16))
+
+
+def check_ssd_bwd_build(functions: list) -> dict:
+    """Each tensor-core pass of the SSD backward (at N <= 64 and <= 128)
+    is in the library and has ``HMMA`` instructions; their build rows by
+    name (registers and spills, reported)."""
+    rows = {f["kernel"]: f for f in functions
+            if f["kernel"] in SSD_BWD_FUNCTIONS}
+    missing = set(SSD_BWD_FUNCTIONS) - set(rows)
+    if missing:
+        raise AssertionError(f"ssd_scan lacks {sorted(missing)}")
+    for name, f in rows.items():
+        if not f["tensor_core_instr"]:
+            raise AssertionError(f"{name} has no HMMA instruction")
+    return rows
+
+
 def card_name_and_limit() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -3496,7 +3870,9 @@ def main(argv=None) -> int:
                   if f["spill_bytes"]]
         if spills:
             raise AssertionError(f"nvt_probe functions spill: {spills}")
-        wgmma_bwd = check_wgmma_bwd_build(functions["flash_attention"])
+        check_wgmma_bwd_build(functions["flash_attention"])
+        ssd_bwd = check_ssd_bwd_build(functions["ssd_scan"])
+        fa_rows = {f["kernel"]: f for f in functions["flash_attention"]}
         log({"phase": "build", "ok": True,
              "kernels": [k.SOURCE.stem for k in KERNELS],
              "libraries": [so.name for so, _ in built],
@@ -3504,7 +3880,7 @@ def main(argv=None) -> int:
     else:
         log({"phase": "build", "skipped": "no card: --device cpu runs "
              "the plain versions"})
-        wgmma_bwd = {}
+        ssd_bwd = fa_rows = {}
 
     # 2. map: the map's main path, with every kernel's launch count from 0
     stream = make_stream(sz, args.seed)
@@ -3558,9 +3934,10 @@ def main(argv=None) -> int:
     log({"phase": "families", "ok": True, **families})
     fam = {a["arch"]: a for a in families["archs"]}
 
-    # 7. train: qwen3-1.7b trained at full width through the flash
-    # forward and backward kernels, launch counts from 0 (inside
-    # _train_run), twice from one seed; the crash/resume recipe
+    # 7. train: qwen3-1.7b, mamba2-370m and zamba2-7b trained at full
+    # width through the flash and SSD forward and backward kernels, launch
+    # counts from 0 (inside _train_run), each twice from one seed; the
+    # crash/resume recipe on each one's tiny form
     train = run_train(sz, dev, args.seed)
     log({"phase": "train", "ok": True, **train})
 
@@ -3587,10 +3964,12 @@ def main(argv=None) -> int:
     fam_cons = {arch: check_consistency(sz, dev, args.seed, arch)
                 for arch in CONSISTENCY_ARCHS}
     bwd_errs = check_flash_bwd(sz, dev)
-    train_cons = check_train_consistency(sz, dev, args.seed)
+    ssd_bwd_errs = check_ssd_bwd(sz, dev)
+    train_cons = {arch: check_train_consistency(sz, dev, args.seed, arch)
+                  for arch in (TRAIN_ARCH,) + SSM_TRAIN_ARCHS}
     log({"phase": "checks", "ok": True, "flash_attention": fa_errs,
-         "flash_attention_bwd": bwd_errs,
-         "consistency_train_qwen3-1.7b": train_cons,
+         "flash_attention_bwd": bwd_errs, "ssd_scan_bwd": ssd_bwd_errs,
+         **{f"consistency_train_{a}": c for a, c in train_cons.items()},
          "ssd_scan": ssd_errs, "consistency": cons,
          "consistency_qwen2-7b": dense_cons,
          **{f"consistency_{a}": c for a, c in fam_cons.items()},
@@ -3598,8 +3977,9 @@ def main(argv=None) -> int:
                      f"{get_arch(a).capacity_factor} -> "
                      f"{c['capacity_factor']} (no token dropped)"
                      for a, c in fam_cons.items() if "capacity_factor" in c]
-         + [f"qwen3-1.7b gradient check: n_layers 28 -> "
-            f"{train_cons['n_layers']}, one sequence of {train_cons['S']}"],
+         + [f"{a} gradient check: n_layers {get_arch(a).n_layers} -> "
+            f"{c['n_layers']}, one sequence of {c['S']}"
+            for a, c in train_cons.items()],
          "check_s": time.perf_counter() - t0})
 
     # 11. ordered: the map's stream on the ordered map, its reads, and the
@@ -3680,7 +4060,23 @@ def main(argv=None) -> int:
         train_shape(sz), "train"))
     kernels.extend(time_flash_bwd(
         dev, train["launches"]["flash_attention_bwd"], bwd_errs, sz,
-        wgmma_bwd))
+        fa_rows))
+    # the SSM and hybrid training shapes: ssd_scan's forward (each Mamba2
+    # layer's and its remat recompute, writing the chunk states) and its
+    # backward; zamba2's shared block's flash forward and its mma.sync
+    # backward pair, each with the launches the train phase made there
+    for arch in SSM_TRAIN_ARCHS:
+        at = train[arch]["launches_at_shape"]
+        kernels.append(time_ssd(dev, at["ssd_scan"], None, arch, "train",
+                                sz))
+        kernels.append(time_ssd_bwd(dev, at["ssd_scan_bwd"], ssd_bwd_errs,
+                                    sz, arch, ssd_bwd))
+    z = train["zamba2-7b"]["launches_at_shape"]
+    kernels.append(time_flash(
+        dev, z["flash_attention"], bwd_errs["zamba2_train_bfloat16"][
+            "fwd_err"], "zamba2-7b", train_shape(sz, "zamba2-7b"), "train"))
+    kernels.extend(time_flash_bwd(dev, z["flash_attention_bwd"], bwd_errs,
+                                  sz, fa_rows, "zamba2-7b", "zamba2_train"))
     kernels.append(time_ssd(
         dev, fam["mamba2-370m"]["launches"]["ssd_scan"],
         max(v for k, v in ssd_errs.items()

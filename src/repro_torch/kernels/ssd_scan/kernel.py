@@ -1,6 +1,7 @@
 """ctypes binding of the hand-written Hopper SSD chunk-scan kernels
-(``csrc/ssd_scan.cu``: bf16 on the tensor cores, f32 scalar), built at
-first use by :mod:`repro_torch.kernels._build`."""
+(``csrc/ssd_scan.cu``: the forward, bf16 on the tensor cores and f32
+scalar, optionally with each chunk's start state; and its backward),
+built at first use by :mod:`repro_torch.kernels._build`."""
 from __future__ import annotations
 
 import ctypes
@@ -16,6 +17,7 @@ SOURCE = Path(__file__).parent / "csrc" / "ssd_scan.cu"
 SMEM_LIMIT = 232_448         # dynamic shared memory one block may use
 TC_MAX_STATE = 128           # N the bf16 (tensor-core) kernel takes
 TC_SLICE_P = 64              # P columns per block of the bf16 kernel
+TC_BWD_MAX_P = 64            # P the bf16 backward's chunk pass holds whole
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -59,23 +61,86 @@ def tc_smem_bytes(Q: int, P: int, N: int) -> int:
         4 * (Qp + 4)
 
 
+def carry_smem_bytes(Q: int, P: int, N: int) -> int:
+    """The backward carry pass's dynamic shared memory for a block of
+    ``P`` columns (``carry_smem_bytes`` in the source): one chunk's dy
+    columns and C, the carried [P, N] gradient, dt, cum and exp(cum), all
+    f32."""
+    return 4 * (Q * (P + 1) + Q * (N + 1) + P * (N + 1) + 3 * Q)
+
+
+def carry_slice_p(Q: int, P: int, N: int) -> int:
+    """Columns of P a block of the carry pass owns (``carry_slice`` in the
+    source), halved as :func:`f32_slice_p` halves them; 0 when not even
+    one column fits."""
+    w = P
+    while w > 1 and carry_smem_bytes(Q, w, N) > SMEM_LIMIT:
+        w = (w + 1) // 2
+    return w if carry_smem_bytes(Q, w, N) <= SMEM_LIMIT else 0
+
+
+def chunk_smem_bytes(Q: int) -> int:
+    """The backward chunk pass's dynamic shared memory
+    (``chunk_smem_bytes`` in the source): two [Q][Q + 1] f32 tiles, nine
+    f32 rows of Q and eight warp sums."""
+    return 4 * (2 * Q * (Q + 1) + 9 * Q + 8)
+
+
+def tc_chunk_smem_bytes(Q: int, P: int, N: int) -> int:
+    """The bf16 backward chunk pass's dynamic shared memory (``bwd_layout``
+    in the source): the chunk's x, dy, B and C as bf16 tiles (padded and
+    swizzled as :func:`tc_smem_bytes` says), S_prev and dS as [P][N] bf16
+    high and low parts, eight f32 rows of Q and eight warp sums."""
+    def r16(n):
+        return -(-n // 16) * 16
+
+    def pitch(w):
+        return w if w % 64 == 0 else w + 8
+    Qp, Np, Pp = r16(Q), r16(N), r16(P)
+    return 2 * (2 * Qp * pitch(Pp) + 2 * Qp * pitch(Np) + 4 * Pp * pitch(Np)) \
+        + 4 * (8 * Qp + 8)
+
+
+def bwd_smem_bytes(Q: int, P: int, N: int, dtype=torch.float32) -> tuple:
+    """Dynamic shared memory a block of each backward pass uses, ``(carry,
+    chunk)``: for f32 the scalar passes, the carry pass's P split as
+    :func:`carry_slice_p` splits it; for bf16 the tensor-core passes (the
+    carry pass in the forward's layout)."""
+    if dtype == torch.bfloat16:
+        return tc_smem_bytes(Q, P, N), tc_chunk_smem_bytes(Q, P, N)
+    return (carry_smem_bytes(Q, max(1, carry_slice_p(Q, P, N)), N),
+            chunk_smem_bytes(Q))
+
+
 @functools.cache
 def _library():
     lib = _build.load(SOURCE)
-    lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 8 + \
+    lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 9 + \
         [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     lib.ssd_scan_launch.restype = ctypes.c_int
+    lib.ssd_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 18 + \
+        [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+    lib.ssd_scan_bwd_launch.restype = ctypes.c_int
     lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_f32_slice.argtypes = [ctypes.c_int] * 3
     lib.ssd_scan_f32_slice.restype = ctypes.c_int
+    lib.ssd_scan_bwd_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.ssd_scan_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_bwd_carry_slice.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_bwd_carry_slice.restype = ctypes.c_int
     for shape in ((128, 64, 64), (32, 16, 8), (100, 200, 72),
                   (128, 64, 128)):
         if (lib.ssd_scan_smem_bytes(*shape, 0),
                 lib.ssd_scan_smem_bytes(*shape, 1),
-                lib.ssd_scan_f32_slice(*shape)) != (
+                lib.ssd_scan_f32_slice(*shape),
+                *(lib.ssd_scan_bwd_smem_bytes(*shape, d, k)
+                  for d in (0, 1) for k in (0, 1)),
+                lib.ssd_scan_bwd_carry_slice(*shape)) != (
                 f32_smem_bytes(*shape), tc_smem_bytes(*shape),
-                f32_slice_p(*shape)):
+                f32_slice_p(*shape), *bwd_smem_bytes(*shape),
+                *bwd_smem_bytes(*shape, torch.bfloat16),
+                carry_slice_p(*shape)):
             raise RuntimeError("ssd_scan library and smem_bytes disagree")
     return lib
 
@@ -114,15 +179,16 @@ def token_strides(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor
 
 def ssd_scan_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
-                    init_state: Optional[torch.Tensor] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    init_state: Optional[torch.Tensor] = None,
+                    with_states: bool = False) -> tuple:
     """Launch the kernel on PyTorch's current stream: the tensor-core
     kernel for bf16, the scalar one for f32.  xh [B,S,H,P] and Bm/Cm
     [B,S,N] in f32 or bf16 (one dtype), read through their batch and token
     strides (:func:`token_strides`); dt [B,S,H], A [H] and init_state
     [B,H,P,N] (None for zeros) in f32 and contiguous; all on one device.
     Returns (y [B,S,H,P] in the xh dtype, final state [B,H,P,N] in
-    f32)."""
+    f32), and with ``with_states`` the state each chunk starts from,
+    [B, ceil(S / chunk), H, P, N] in f32, which the backward reads."""
     if not isinstance(xh, torch.Tensor) or xh.dim() != 4:
         raise ValueError("xh must be a [B, S, H, P] tensor")
     B, S, H, P = xh.shape
@@ -154,16 +220,101 @@ def ssd_scan_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("shape too large for the kernel's grid")
     y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
+    states = torch.empty((B, -(-S // chunk), H, P, N), dtype=torch.float32,
+                         device=xh.device) if with_states else None
+    out = (y, final, states) if with_states else (y, final)
     if B * H == 0:
-        return y, final
+        return out
     lib = _library()
     with torch.cuda.device(xh.device):
         err = lib.ssd_scan_launch(
             xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), None if init_state is None else
             init_state.data_ptr(), y.data_ptr(), final.data_ptr(),
+            None if states is None else states.data_ptr(),
             _DTYPES[xh.dtype], B, S, H, P, N, chunk, *strides,
             torch.cuda.current_stream(xh.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
-    return y, final
+    return out
+
+
+def ssd_scan_bwd_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                        states: torch.Tensor, *, chunk: int,
+                        dfinal: Optional[torch.Tensor] = None,
+                        want_dinit: bool = False) -> tuple:
+    """Launch the backward on PyTorch's current stream: the carry pass,
+    the chunk pass and the reduction over heads (tensor-core passes for
+    bf16, which take P up to 64, scalar ones for f32).  The forward's inputs as
+    :func:`ssd_scan_kernel` takes them, ``states`` as it wrote them
+    (``with_states``), dy [B,S,H,P] in the xh dtype and dfinal [B,H,P,N]
+    in f32 (None for zeros), both contiguous.  Returns ``(dx, ddt, dA, dB,
+    dC, dinit)``: dx, dB and dC in the xh dtype, the rest f32; dinit is
+    None unless ``want_dinit``."""
+    if not isinstance(xh, torch.Tensor) or xh.dim() != 4:
+        raise ValueError("xh must be a [B, S, H, P] tensor")
+    B, S, H, P = xh.shape
+    if xh.dtype not in _DTYPES:
+        raise ValueError(f"xh must be float32 or bfloat16, got {xh.dtype}")
+    N = Bm.shape[-1] if isinstance(Bm, torch.Tensor) else -1
+    n_chunks = -(-S // chunk) if chunk >= 1 else 0
+    _check(xh, "xh", (B, S, H, P), xh.dtype, contiguous=False)
+    _check(dt, "dt", (B, S, H), torch.float32)
+    _check(A, "A", (H,), torch.float32)
+    _check(Bm, "Bm", (B, S, N), xh.dtype, contiguous=False)
+    _check(Cm, "Cm", (B, S, N), xh.dtype, contiguous=False)
+    _check(dy, "dy", (B, S, H, P), xh.dtype)
+    _check(states, "states", (B, n_chunks, H, P, N), torch.float32)
+    if dfinal is not None:
+        _check(dfinal, "dfinal", (B, H, P, N), torch.float32)
+    if len({t.device for t in (xh, dt, A, Bm, Cm, dy, states)}) != 1 or (
+            dfinal is not None and dfinal.device != xh.device):
+        raise ValueError("all inputs must be on one device")
+    strides = token_strides(xh, Bm, Cm)
+    if not 1 <= chunk <= 1024 or min(P, N) < 1:
+        raise ValueError(f"unsupported chunk {chunk} or P={P}, N={N}")
+    if xh.dtype == torch.bfloat16 and (P > TC_BWD_MAX_P
+                                       or N > TC_MAX_STATE):
+        raise ValueError(f"P={P}, N={N}: the bf16 backward holds P up to "
+                         f"{TC_BWD_MAX_P} and N up to {TC_MAX_STATE}")
+    need = max(bwd_smem_bytes(chunk, P, N, xh.dtype))
+    if need > SMEM_LIMIT:
+        raise ValueError(f"chunk {chunk} with P={P}, N={N} needs {need} "
+                         f"bytes of shared memory in the backward, more "
+                         f"than {SMEM_LIMIT}")
+    if B * H * P >= 2**31 or B * S * H * max(P, N) >= 2**62:
+        raise ValueError("shape too large for the kernel's grid")
+    dev, f32 = xh.device, torch.float32
+    dx = torch.empty((B, S, H, P), dtype=xh.dtype, device=dev)
+    ddt = torch.empty((B, S, H), dtype=f32, device=dev)
+    dA = torch.zeros((H,), dtype=f32, device=dev)
+    dB = torch.zeros((B, S, N), dtype=xh.dtype, device=dev)
+    dC = torch.zeros((B, S, N), dtype=xh.dtype, device=dev)
+    dinit = torch.empty((B, H, P, N), dtype=f32, device=dev) \
+        if want_dinit else None
+    if B * H * S == 0:
+        if dinit is not None:
+            dinit.copy_(torch.zeros_like(dinit) if dfinal is None
+                        else dfinal)
+        return dx, ddt, dA, dB, dC, dinit
+    # scratch: each chunk's state gradient, the heads' parts of dB and
+    # dC, the (batch, chunk) parts of dA
+    dS_all = torch.empty_like(states)
+    dB_h = torch.empty((B, S, H, N), dtype=f32, device=dev)
+    dC_h = torch.empty((B, S, H, N), dtype=f32, device=dev)
+    dA_part = torch.empty((B, n_chunks, H), dtype=f32, device=dev)
+    lib = _library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        err = lib.ssd_scan_bwd_launch(
+            *map(ptr, (xh, dt, A, Bm, Cm, dy, dfinal, states, dS_all, dB_h,
+                       dC_h, dA_part, dx, ddt, dA, dB, dC, dinit)),
+            _DTYPES[xh.dtype], B, S, H, P, N, chunk, *strides,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward launch failed: cudaError "
+                           f"{err}")
+    return dx, ddt, dA, dB, dC, dinit

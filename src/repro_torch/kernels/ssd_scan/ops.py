@@ -1,23 +1,68 @@
 """User-facing SSD chunk scan in the model layout (port of
-``repro.kernels.ssd_scan.ops.ssd_scan``).
+``repro.kernels.ssd_scan.ops.ssd_scan``), and its gradient.
 
 A CUDA tensor launches a hand-written kernel (``kernel.py``): the
-tensor-core kernel for bf16, the scalar one for f32.  A CPU tensor takes
-the plain version, the model's chunked SSD (``ref.ssd_chunked``).  There
-is no fallback from one to the other, and no gradient on the card: a
-CUDA call whose inputs need one raises.  Unlike the TPU wrapper, which
-returned y only, both return the final carried state as well, which
-prefill with a cache needs; and the kernel reads x and the one group's
-B/C rows in place, through their strides, instead of a copy per head.
+tensor-core kernel for bf16, the scalar one for f32.  Where an input needs
+a gradient (training), the call goes through :class:`SsdScanFn`: its
+forward launches the kernel with each chunk's start state, its backward
+launches the backward kernels through :func:`ssd_scan_bwd`.  A CPU tensor
+takes the plain version, the model's chunked SSD (``ref.ssd_chunked``),
+which autograd differentiates.  There is no fallback from one to the
+other.  Unlike the TPU wrapper, which returned y only, both return the
+final carried state as well, which prefill with a cache needs; and the
+kernel reads x and the one group's B/C rows in place, through their
+strides, instead of a copy per head.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
 
-from .kernel import ssd_scan_kernel
-from .ref import ssd_chunked
+from .kernel import ssd_scan_bwd_kernel, ssd_scan_kernel
+from .ref import ssd_chunked, ssd_scan_bwd_plain
+
+
+class SsdScanFn(torch.autograd.Function):
+    """``apply(xh, dt, A, Bm, Cm, init_state, chunk) -> (y, final)`` with
+    its gradient.  On CUDA tensors (dt, A and init_state in f32) the
+    forward launches the kernel, keeping each chunk's start state for the
+    backward kernels; on CPU tensors the plain pieces stand in for both
+    (``ref.ssd_chunked`` and :func:`ref.ssd_scan_bwd_plain`, in f64 for
+    f64 inputs), which lets the wiring be checked on the host.  An unused
+    output's cotangent and a None ``init_state`` are zeros, and a None
+    ``init_state`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, Bm, Cm, init_state, chunk):
+        ctx.set_materialize_grads(False)
+        if xh.is_cuda:
+            y, final, states = ssd_scan_kernel(
+                xh, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
+                with_states=True)
+        else:
+            (y, final), states = ssd_chunked(
+                xh, dt, A, Bm, Cm, chunk, init_state=init_state), None
+        ctx.save_for_backward(xh, dt, A, Bm, Cm, init_state, states)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        xh, dt, A, Bm, Cm, init_state, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(xh)
+        if dfinal is not None and xh.is_cuda:
+            dfinal = dfinal.to(torch.float32)
+        dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd(
+            xh, dt, A, Bm, Cm, dy.to(xh.dtype).contiguous(),
+            chunk=ctx.chunk, init_state=init_state,
+            dfinal=None if dfinal is None else dfinal.contiguous(),
+            states=states)
+        return (dx.to(xh.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+                dB.to(Bm.dtype), dC.to(Cm.dtype),
+                None if dinit is None else dinit.to(init_state.dtype), None)
 
 
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -29,26 +74,24 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     None (zeros).  Returns (y [B,S,H,P] in the xh dtype, final state
     [B,H,P,N]): f32 from the kernel, the carry dtype of
     :func:`ref.ssd_chunked` from the plain version.
-    ``ssd_scan.launches`` counts the kernel launches made through this
-    wrapper."""
+    ``ssd_scan.launches`` counts the forward kernel launches made through
+    this wrapper (a recomputed forward under activation checkpointing
+    counts again), ``ssd_scan.shapes`` the same by ``(B, S, H, P, N,
+    chunk)``."""
     if xh.is_cuda:
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (xh, dt, A, Bm, Cm, init_state)):
-            # the kernel's output carries no gradient: fail rather than
-            # train with the SSM's gradients silently dropped
-            raise NotImplementedError(
-                "ssd_scan has no backward kernel on the card yet "
-                "(ROADMAP.md, Queue 1 item 8: training the SSM and hybrid "
-                "families); run training of mamba2/zamba2 on the CPU")
         f32 = torch.float32
-        y, final = ssd_scan_kernel(
-            xh, dt.to(f32).contiguous(), A.to(f32).contiguous(), Bm, Cm,
-            chunk=chunk,
-            init_state=None if init_state is None
-            else init_state.to(f32).contiguous())
+        args = (xh, dt.to(f32).contiguous(), A.to(f32).contiguous(), Bm, Cm,
+                None if init_state is None
+                else init_state.to(f32).contiguous())
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in args):
+            y, final = SsdScanFn.apply(*args, chunk)
+        else:
+            y, final = ssd_scan_kernel(*args[:5], chunk=chunk,
+                                       init_state=args[5])
         if xh.shape[0] * xh.shape[2]:
             ssd_scan.launches += 1
+            ssd_scan.shapes[_shape_key(xh, Bm, chunk)] += 1
         return y, final
     devices = {t.device.type for t in (xh, dt, A, Bm, Cm)}
     if init_state is not None:
@@ -59,4 +102,46 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return ssd_chunked(xh, dt, A, Bm, Cm, chunk, init_state=init_state)
 
 
+def _shape_key(xh, Bm, chunk) -> tuple:
+    return (*xh.shape, Bm.shape[-1], chunk)
+
+
+def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int, init_state: Optional[torch.Tensor] = None,
+                 dfinal: Optional[torch.Tensor] = None,
+                 states: Optional[torch.Tensor] = None):
+    """The gradient of :func:`ssd_scan`: ``(dx, ddt, dA, dB, dC, dinit)``
+    from the cotangents ``dy`` and ``dfinal`` (None for zeros); ``dinit``
+    is None when ``init_state`` is.  A CUDA tensor launches the backward
+    kernels, which read the forward's chunk start ``states``
+    (``ssd_scan_kernel(..., with_states=True)``); a CPU one takes
+    :func:`ref.ssd_scan_bwd_plain`, which recomputes them.
+    ``ssd_scan_bwd.launches`` counts the calls that launched the kernels,
+    ``ssd_scan_bwd.shapes`` the same by ``(B, S, H, P, N, chunk)``."""
+    if xh.is_cuda:
+        if states is None:
+            raise ValueError("the backward kernels read the forward's chunk "
+                             "start states (with_states=True)")
+        grads = ssd_scan_bwd_kernel(xh, dt, A, Bm, Cm, dy, states,
+                                    chunk=chunk, dfinal=dfinal,
+                                    want_dinit=init_state is not None)
+        if xh.shape[0] * xh.shape[1] * xh.shape[2]:
+            ssd_scan_bwd.launches += 1
+            ssd_scan_bwd.shapes[_shape_key(xh, Bm, chunk)] += 1
+        return grads
+    devices = {t.device.type for t in (xh, dt, A, Bm, Cm, dy)}
+    for t in (init_state, dfinal):
+        if t is not None:
+            devices.add(t.device.type)
+    if devices != {"cpu"}:
+        raise ValueError("all inputs must be on one device (CUDA for the "
+                         "kernels, CPU for the plain version)")
+    return ssd_scan_bwd_plain(xh, dt, A, Bm, Cm, dy, chunk=chunk,
+                              init_state=init_state, dfinal=dfinal)
+
+
 ssd_scan.launches = 0
+ssd_scan.shapes = Counter()
+ssd_scan_bwd.launches = 0
+ssd_scan_bwd.shapes = Counter()

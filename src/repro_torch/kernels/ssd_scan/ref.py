@@ -10,6 +10,12 @@
 
       s_t = exp(dA_t) * s_{t-1} + dt_t * B_t (x) x_t
       y_t = C_t . s_t
+
+* :func:`ssd_scan_bwd_plain` -- the gradient of :func:`ssd_chunked`,
+  chunk by chunk, the plain version of the backward kernels (the
+  reference has none: it differentiates its jnp ``ssd_chunked``).
+
+All three compute in f32, or in f64 where the inputs are f64.
 """
 from __future__ import annotations
 
@@ -29,12 +35,16 @@ def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
 
 
 def _segsum_exp(cum: torch.Tensor) -> torch.Tensor:
-    """exp(cum_i - cum_j) for j <= i else 0.  cum: [..., Q]."""
+    """exp(cum_i - cum_j) for j <= i else 0.  cum: [..., Q].  The
+    reference takes ``where(mask, exp(diff), 0)``; here the mask goes in
+    before the exponential, which gives the same values but keeps the
+    gradient finite where exp(diff) above the diagonal overflows (cum
+    falls by more than 88 in a chunk: 0 * inf would be NaN)."""
     diff = cum[..., :, None] - cum[..., None, :]
     Q = cum.shape[-1]
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                  device=cum.device))
-    return torch.where(mask, torch.exp(diff), 0.0)
+    return torch.exp(torch.where(mask, diff, -torch.inf))
 
 
 def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -57,7 +67,7 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Sp = S + pad
     C_ = Sp // Q
 
-    f32 = torch.float32
+    f32 = torch.promote_types(torch.float32, xh.dtype)
     xh_ = xh.reshape(B, C_, Q, H, P)
     dt_ = dt.reshape(B, C_, Q, H).to(f32)
     Bm_ = Bm.reshape(B, C_, Q, N)
@@ -99,12 +109,12 @@ def ssd_ref(xh: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same layout as the TPU kernel: xh [BH,C,Q,P], dt/dA [BH,C,Q],
     Bm/Cm [BH,C,Q,N] -> (y [BH,C,Q,P] in the xh dtype, final state
-    [BH,P,N] in f32), computed step by step in f32 from ``init_state``
-    (zeros when None).  The reference returns y only; the final state is
+    [BH,P,N] in f32, f64 for f64 inputs), computed step by step from
+    ``init_state`` (zeros when None).  The reference returns y only; the final state is
     kept here so the kernel's can be checked against it."""
     BH, C, Q, P = xh.shape
     N = Bm.shape[-1]
-    f32 = torch.float32
+    f32 = torch.promote_types(torch.float32, xh.dtype)
     x = xh.reshape(BH, C * Q, P).to(f32)
     dt_ = dt.reshape(BH, C * Q).to(f32)
     dA_ = dA.reshape(BH, C * Q).to(f32)
@@ -119,3 +129,102 @@ def ssd_ref(xh: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
         ys.append(torch.einsum("bn,bpn->bp", C_[:, t], s))
     y = torch.stack(ys, dim=1).reshape(BH, C, Q, P)
     return y.to(xh.dtype), s
+
+
+def _chunks(t: torch.Tensor, pad: int, Q: int, wd) -> torch.Tensor:
+    """[B, S, ...] zero-padded by ``pad`` tokens and cut into chunks:
+    [B, C, Q, ...] in ``wd``."""
+    t = F.pad(t.to(wd), (0, 0) * (t.dim() - 2) + (0, pad))
+    return t.reshape((t.shape[0], -1, Q) + t.shape[2:])
+
+
+def ssd_scan_bwd_plain(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor,
+                       dy: Optional[torch.Tensor], *, chunk: int,
+                       init_state: Optional[torch.Tensor] = None,
+                       dfinal: Optional[torch.Tensor] = None):
+    """The gradient of the chunked SSD (:func:`ssd_chunked`'s ``(y,
+    final)``) computed chunk by chunk, the algorithm the backward kernels
+    run: ``(dx, ddt, dA, dB, dC, dinit)`` from the cotangents ``dy``
+    [B,S,H,P] and ``dfinal`` [B,H,P,N] (None for zeros), in f32 (f64 for
+    f64 inputs).  ``dinit`` is None when ``init_state`` is.
+
+    Per chunk, with cum the inclusive cumsum of dt * A, L[i,j] =
+    exp(cum_i - cum_j) for j <= i, G = C B^T, scores = G L dt_j,
+    w_j = exp(cum_last - cum_j) dt_j, S_prev the state the chunk starts
+    from and dS the gradient of the state it ends with:
+
+      dscores = dy x^T                dG = dscores L dt_j
+      dx = scores^T dy + w (B dS^T)   dC = dG B + exp(cum) (dy S_prev)
+      dB = dG^T C + w (x dS)          dS_prev = exp(cum_last) dS
+                                                + (dy exp(cum))^T C
+
+    dS is carried from the last chunk back to the first (from dfinal; it
+    ends as dinit).  ddt and dA come through d cum, reverse-cumsummed
+    into d(dt * A); dB and dC are summed over the heads (one group shares
+    B and C), dA over batch and time."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    pad = (-S) % Q
+    wd = torch.promote_types(torch.float32, xh.dtype)
+    x = _chunks(xh, pad, Q, wd).permute(0, 1, 3, 2, 4)     # [B,C,H,Q,P]
+    g = torch.zeros_like(x) if dy is None else \
+        _chunks(dy, pad, Q, wd).permute(0, 1, 3, 2, 4)
+    d = _chunks(dt, pad, Q, wd).permute(0, 1, 3, 2)        # [B,C,H,Q]
+    Bc, Cc = _chunks(Bm, pad, Q, wd), _chunks(Cm, pad, Q, wd)  # [B,C,Q,N]
+    a = A.to(wd)
+    nC = x.shape[1]
+
+    cum = torch.cumsum(d * a[:, None], dim=-1)             # [B,C,H,Q]
+    L = _segsum_exp(cum)                                   # [B,C,H,Q,Q]
+    G = (Cc @ Bc.transpose(-1, -2))[:, :, None]            # [B,C,1,Q,Q]
+    scores = G * L * d[..., None, :]
+    e = torch.exp(cum)
+    w = torch.exp(cum[..., -1:] - cum) * d
+    decay = torch.exp(cum[..., -1])                        # [B,C,H]
+
+    # the state each chunk starts from (forward), and the gradient of the
+    # state each chunk ends with (reverse)
+    sloc = torch.einsum("bchq,bcqn,bchqp->bchpn", w, Bc, x)
+    s = torch.zeros((B, H, P, N), dtype=wd, device=xh.device) \
+        if init_state is None else init_state.to(wd)
+    before = []
+    for c in range(nC):
+        before.append(s)
+        s = decay[:, c, :, None, None] * s + sloc[:, c]
+    S_prev = torch.stack(before, dim=1)                    # [B,C,H,P,N]
+    inc = torch.einsum("bchq,bchqp,bcqn->bchpn", e, g, Cc)
+    dS = torch.zeros((B, H, P, N), dtype=wd, device=xh.device) \
+        if dfinal is None else dfinal.to(wd)
+    after = [None] * nC
+    for c in reversed(range(nC)):
+        after[c] = dS
+        dS = decay[:, c, :, None, None] * dS + inc[:, c]
+    dS_next = torch.stack(after, dim=1)                    # [B,C,H,P,N]
+
+    dsc = g @ x.transpose(-1, -2)                          # [B,C,H,Q,Q]
+    dG = dsc * L * d[..., None, :]
+    bds = torch.einsum("bcjn,bchpn->bchjp", Bc, dS_next)
+    xds = x @ dS_next                                      # [B,C,H,Q,N]
+    dx = scores.transpose(-1, -2) @ g + w[..., None] * bds
+    E = e[..., None] * (g @ S_prev)                        # [B,C,H,Q,N]
+    dC = (dG @ Bc[:, :, None] + E).sum(dim=2)              # [B,C,Q,N]
+    dB = (dG.transpose(-1, -2) @ Cc[:, :, None]
+          + w[..., None] * xds).sum(dim=2)
+    dw = (Bc[:, :, None] * xds).sum(-1)                    # [B,C,H,Q]
+
+    u = dsc * G * L              # d loss / d dt_j through scores, per i
+    t = u * d[..., None, :]      # d loss / d L[i,j] * L[i,j]
+    dcum = t.sum(-1) - t.sum(-2) + (Cc[:, :, None] * E).sum(-1) - dw * w
+    dcum[..., -1] += (dw * w).sum(-1) + decay * (dS_next * S_prev).sum(
+        (-1, -2))
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    ddt = a[:, None] * ddA + u.sum(-2) + dw * torch.exp(cum[..., -1:] - cum)
+    dA = (d * ddA).sum((0, 1, 3))
+
+    def tokens(t):                       # [B,C,Q,...] -> [B,S,...]
+        return t.reshape((B, -1) + t.shape[3:])[:, :S]
+    return (tokens(dx.permute(0, 1, 3, 2, 4)),
+            tokens(ddt.permute(0, 1, 3, 2)), dA, tokens(dB), tokens(dC),
+            None if init_state is None else dS)

@@ -254,19 +254,29 @@ def one_torch_thread():
 
 @pytest.mark.usefixtures("one_torch_thread")
 def test_train_phase_trains_twice_alike_and_resumes_on_the_cpu():
-    """chip_smoke.py's train phase on tiny(qwen3-1.7b) at SMALL: two runs
-    from one seed with the same losses, every layer's attention gradients
+    """chip_smoke.py's train phase at SMALL on tiny(qwen3-1.7b), then
+    tiny(mamba2-370m) and tiny(zamba2-7b): two runs from one seed with the
+    same losses, every layer's attention (or A_log and dt_bias) gradients
     nonzero, no kernel launched on the CPU, and the crash/resume recipe in
-    f32 and bf16; the full-size phase's config and shape."""
+    f32 and bf16; the full-size phase's configs, shapes and the launches a
+    step the card must count."""
     sz = chip_smoke.SMALL
     got = chip_smoke.run_train(sz, torch.device("cpu"), 3)
     assert got["rerun_losses_equal"] and len(got["losses"]) == \
         sz.train_steps and got["microbatches"] == 2
     assert got["attn_grad_leaves_nonzero"] == 4 * 5
-    assert got["launches"] == {"flash_attention": 0,
-                               "flash_attention_bwd": 0, "ssd_scan": 0}
+    none = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0,
+            "ssd_scan_bwd": 0}
+    assert got["launches"] == none
     assert sorted(got["recipe"]) == ["bfloat16", "float32"]
     assert all(r["resumed_steps"] == 20 for r in got["recipe"].values())
+    for arch, layers, micro in (("mamba2-370m", 4, 2), ("zamba2-7b", 7, 4)):
+        a = got[arch]
+        assert a["rerun_losses_equal"] and a["launches"] == none
+        assert (a["n_layers"], a["microbatches"]) == (layers, micro)
+        assert a["ssm_grad_leaves_nonzero"] == layers * 2
+        assert sorted(a["recipe"]) == ["bfloat16", "float32"]
+        assert all(r["resumed_steps"] == 20 for r in a["recipe"].values())
     full = chip_smoke.train_config(chip_smoke.FULL)
     assert (full.n_layers, full.microbatches, full.remat,
             full.compute_dtype) == (28, 2, "block", "bfloat16")
@@ -274,6 +284,25 @@ def test_train_phase_trains_twice_alike_and_resumes_on_the_cpu():
         (2, 4096, 4096, 16, 8, 128, True)
     assert any("global batch 256 -> 4" in r
                for r in chip_smoke.train_reduced(chip_smoke.FULL))
+    # mamba2-370m at full width and depth, zamba2-7b cut 81 -> 24 layers
+    fm, fz = (chip_smoke.train_config(chip_smoke.FULL, a)
+              for a in chip_smoke.SSM_TRAIN_ARCHS)
+    assert (fm.n_layers, fm.microbatches, fz.n_layers, fz.microbatches) == \
+        (48, 2, 24, 4)
+    assert chip_smoke.ssd_train_shape(chip_smoke.FULL, "mamba2-370m") == \
+        (2, 4096, 32, 64, 128, 128)
+    assert chip_smoke.ssd_train_shape(chip_smoke.FULL, "zamba2-7b") == \
+        (1, 4096, 112, 64, 64, 128)
+    assert chip_smoke.train_shape(chip_smoke.FULL, "zamba2-7b") == \
+        (1, 4096, 4096, 32, 32, 112, True)
+    assert chip_smoke.train_launches(fm, 1) == {
+        "flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 192,
+        "ssd_scan_bwd": 96}
+    assert chip_smoke.train_launches(fz, 1) == {
+        "flash_attention": 32, "flash_attention_bwd": 16, "ssd_scan": 192,
+        "ssd_scan_bwd": 96}
+    assert any(r.startswith("n_layers 81 -> 24") for r in
+               chip_smoke.train_reduced(chip_smoke.FULL, "zamba2-7b"))
 
 
 @pytest.mark.usefixtures("one_torch_thread")
@@ -297,6 +326,19 @@ def test_train_checks_run_on_the_cpu():
     cons = chip_smoke.check_train_consistency(sz, cpu, 1)
     assert cons["n_layers"] == 2 and cons["worst_grad_rel_err"] <= \
         cons["tol"]
+    # the SSD backward's checks: every shape, both dtypes, the ragged one
+    # with an init_state; and the SSM and hybrid gradient checks
+    ssd = chip_smoke.check_ssd_bwd(sz, cpu)
+    assert set(ssd) == {f"{k}_{t}" for k in chip_smoke.ssd_bwd_shapes(sz)
+                        for t in ("bfloat16", "float32")}
+    assert all(v["bitwise_repeat"] for v in ssd.values())
+    assert "dinit_vs_plain" in ssd["ragged_init_bfloat16"]
+    assert ssd["ragged_init_float32"]["shape"][1] % \
+        ssd["ragged_init_float32"]["shape"][5]
+    for arch, layers in (("mamba2-370m", 2), ("zamba2-7b", 6)):
+        cons = chip_smoke.check_train_consistency(sz, cpu, 1, arch)
+        assert cons["n_layers"] == layers and \
+            cons["worst_grad_rel_err"] <= cons["tol"]
 
 
 def test_the_card_checks_both_bf16_backward_routes():
@@ -307,7 +349,8 @@ def test_the_card_checks_both_bf16_backward_routes():
     shapes = chip_smoke.flash_bwd_shapes(chip_smoke.FULL)
     assert {k: chip_smoke.fa_kernel.bwd_route(v[5], torch.bfloat16)
             for k, v in shapes.items()} == {
-        "qwen3_train": "wgmma", "zamba2_d112": "mma_sync",
+        "qwen3_train": "wgmma", "zamba2_train": "mma_sync",
+        "zamba2_d112": "mma_sync",
         "whisper_cross": "wgmma", "gemma3_window": "wgmma",
         "no_visible_key": "mma_sync"}
 
@@ -337,6 +380,24 @@ def test_ssd_flop_count_matches_the_chunk_gemms():
     assert chip_smoke.ssd_flops(B, Q + 3, H, P, N, Q) == \
         chip_smoke.ssd_flops(B, Q, H, P, N, Q) + \
         chip_smoke.ssd_flops(B, 3, H, P, N, Q)
+
+
+def test_ssd_backward_bound_at_the_training_shapes():
+    """The SSD backward's least work at mamba2-370m's training shape:
+    30.3 GFLOP, 0.0306 ms at the bf16 peak, below the 0.053 ms its 178 MB
+    take at 3.35 TB/s (its inputs read once, the forward's f32 chunk
+    states among them, and its outputs written once): bound by bytes; at
+    zamba2-7b's the same (241 MB, 0.072 ms)."""
+    b = chip_smoke.ssd_bwd_bound(2, 4096, 32, 64, 128, 128)
+    assert round(b["flops"] / 1e8) == 303 and round(b["bytes"] / 1e6) == 178
+    assert b["bound_by"] == "bytes" and abs(b["bound_ms"] - 0.0532) < 1e-3
+    z = chip_smoke.ssd_bwd_bound(1, 4096, 112, 64, 64, 128)
+    assert z["bound_by"] == "bytes"
+    # one chunk by hand: C B^T once, then per head two products over P and
+    # two over N on the triangle and four [q, P] x [P, N]-sized ones
+    q, tri = 8, 36
+    assert chip_smoke.ssd_bwd_bound(1, q, 2, 4, 2, q)["flops"] == \
+        2 * 2 * tri + 2 * (4 * 4 * tri + 4 * 2 * tri + 8 * q * 4 * 2)
 
 
 def _keys_in_buckets(nb):

@@ -1,7 +1,7 @@
 """The port's SSD scan (sequential oracle, chunked plain version, CPU
-wrapper) against the JAX reference on the CPU, and the Hopper kernel
-against its plain versions on the card (``gpu``-marked: skipped without a
-card).
+wrapper) and its plain backward against the JAX reference on the CPU, and
+the Hopper kernels, forward and backward, against their plain versions on
+the card (``gpu``-marked: skipped without a card).
 
 The JAX side runs as its own tests run it: the Pallas kernel in interpret
 mode, the ``impl="xla"`` oracle and ``models/mamba2.py:ssd_chunked``.
@@ -18,8 +18,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.ssd_scan import kernel as tkernel
-from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref
+from repro_torch.kernels.ssd_scan.ops import SsdScanFn, ssd_scan, ssd_scan_bwd
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunked, ssd_ref,
+                                              ssd_scan_bwd_plain)
 
 
 @pytest.fixture(scope="module")
@@ -394,19 +395,262 @@ def test_both_kernels_at_the_mamba2_shape(cuda_device, S):
         torch.testing.assert_close(final, rf, atol=tol, rtol=tol)
 
 
+# --------------------------------------------------------------------- #
+# the backward                                                           #
+# --------------------------------------------------------------------- #
+def _cotangents(seed, B, S, H, P, N):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, P)).astype(np.float32),
+            rng.standard_normal((B, H, P, N)).astype(np.float32),
+            (rng.standard_normal((B, H, P, N)) * 0.5).astype(np.float32))
+
+
+def _scaled_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _tiny_ssd_shape():
+    from repro_torch.configs.registry import get_arch, tiny
+    cfg = tiny(get_arch("mamba2-370m"))
+    return (2, 64, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+            cfg.ssm_chunk)
+
+
+BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+@pytest.mark.parametrize("shape,with_init", [
+    ((2, 64, 3, 8, 16, 16), False),
+    ((2, 50, 3, 8, 16, 16), False),          # pads to whole chunks
+    ((2, 64, 3, 8, 16, 16), True),           # init_state and a d final
+    (_tiny_ssd_shape(), False),              # mamba2-370m's tiny() SSD
+], ids=["plain", "ragged", "init_state", "mamba2_tiny"])
+def test_plain_backward_matches_jax_vjp(jx, shape, with_init):
+    """``ssd_scan_bwd_plain`` against ``jax.vjp`` of the reference's
+    ``models/mamba2.py:ssd_chunked`` (what the reference's training
+    differentiates) in f32: every gradient within 1e-5 of its max."""
+    B, S, H, P, N, Q = shape
+    ins = _inputs(21, B, S, H, P, N)
+    dy, dfinal, init = _cotangents(22, B, S, H, P, N)
+    j = [jx.jnp.asarray(a) for a in ins]
+    if with_init:
+        _, vjp = jx.jax.vjp(lambda *a: jx.chunked(*a[:5], Q,
+                                                  init_state=a[5]),
+                            *j, jx.jnp.asarray(init))
+        want = vjp((jx.jnp.asarray(dy), jx.jnp.asarray(dfinal)))
+    else:
+        (_, jfinal), vjp = jx.jax.vjp(lambda *a: jx.chunked(*a, Q), *j)
+        want = vjp((jx.jnp.asarray(dy), jx.jnp.zeros_like(jfinal)))
+    got = ssd_scan_bwd_plain(
+        *_t(*ins), torch.as_tensor(dy), chunk=Q,
+        init_state=torch.as_tensor(init) if with_init else None,
+        dfinal=torch.as_tensor(dfinal) if with_init else None)
+    assert (got[5] is None) == (not with_init)
+    for name, a, w in zip(BWD_NAMES, got, want):
+        assert a.shape == w.shape, name
+        assert _scaled_err(a.numpy(), w) <= 1e-5, name
+
+
+def test_chunked_gradient_stays_finite_where_the_masked_exp_overflows(jx):
+    """Where cum falls by more than 88 within a chunk (large dt), the
+    reference's ``where(mask, exp(diff), 0)`` overflows above the
+    diagonal and ``jax.vjp`` of its ``ssd_chunked`` is NaN there; the
+    port masks before the exponential: the same y, and a finite gradient
+    equal to ``ssd_scan_bwd_plain``'s within 1e-4 of each max (the f32
+    tolerance: dA is a sum that cancels to 1e-2 here)."""
+    B, S, H, P, N, Q = 1, 32, 2, 4, 4, 16
+    xh, dt, A, Bm, Cm = _inputs(29, B, S, H, P, N)
+    dt = dt + 8.0                     # cum falls by over 128 a chunk
+    dy = _cotangents(30, B, S, H, P, N)[0]
+    j = [jx.jnp.asarray(a) for a in (xh, dt, A, Bm, Cm)]
+    (jy, jfinal), vjp = jx.jax.vjp(lambda *a: jx.chunked(*a, Q), *j)
+    jg = vjp((jx.jnp.asarray(dy), jx.jnp.zeros_like(jfinal)))
+    assert not all(np.isfinite(np.asarray(g)).all() for g in jg)
+    leaves = [t.requires_grad_(True) for t in _t(xh, dt, A, Bm, Cm)]
+    y, _ = ssd_chunked(*leaves, Q)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy),
+                               atol=1e-4, rtol=1e-4)
+    got = torch.autograd.grad(y, leaves, torch.as_tensor(dy))
+    want = ssd_scan_bwd_plain(*_t(xh, dt, A, Bm, Cm), torch.as_tensor(dy),
+                              chunk=Q)
+    for name, a, w in zip(BWD_NAMES, got, want):
+        assert torch.isfinite(a).all(), name
+        assert _scaled_err(a, w) <= 1e-4, name
+
+
+def test_plain_backward_matches_autograd_through_the_recurrence():
+    """``ssd_scan_bwd_plain`` against autograd through the sequential
+    ``ssd_ref`` in f64 (a ragged last chunk, an init_state and a d
+    final): the chunked algorithm's gradient is the recurrence's."""
+    B, S, H, P, N, Q = 2, 40, 2, 8, 4, 16
+    f64 = torch.float64
+    xh, dt, A, Bm, Cm = (t.to(f64) for t in _t(*_inputs(23, B, S, H, P,
+                                                        N)))
+    dy, dfinal, init = (t.to(f64) for t in _t(*_cotangents(24, B, S, H,
+                                                            P, N)))
+    leaves = [t.clone().requires_grad_(True)
+              for t in (xh, dt, A, Bm, Cm, init)]
+    x_, dt_, A_, B_, C_, i_ = leaves
+    pad = (-S) % Q
+
+    def lay(t):                # [B,S,H,...] -> [B*H, C, Q, ...]
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.movedim(2, 1).reshape((B * H, -1, Q) + t.shape[3:])
+    bc = [m[:, :, None].expand(B, S, H, N) for m in (B_, C_)]
+    dtk = lay(dt_)
+    y, final = ssd_ref(lay(x_), dtk, dtk * A_.repeat(B)[:, None, None],
+                       lay(bc[0]), lay(bc[1]), init_state=i_.reshape(
+                           B * H, P, N))
+    y = y.reshape(B, H, -1, P).movedim(1, 2)[:, :S]
+    want = torch.autograd.grad((y, final.reshape(B, H, P, N)), leaves,
+                               (dy, dfinal))
+    got = ssd_scan_bwd_plain(xh, dt, A, Bm, Cm, dy, chunk=Q,
+                             init_state=init, dfinal=dfinal)
+    assert all(g.dtype == f64 for g in got)
+    for name, a, w in zip(BWD_NAMES, got, want):
+        assert _scaled_err(a, w) <= 1e-10, name
+
+
+@pytest.mark.parametrize("with_init", [False, True])
+def test_autograd_function_gradchecks_on_the_host(with_init):
+    """``SsdScanFn`` with the plain pieces in place of the kernels (its
+    CPU path): the wiring around the backward -- the saved inputs, a None
+    init_state (no gradient), a cotangent on the final state or none,
+    the dtypes handed back -- under ``torch.autograd.gradcheck`` in
+    f64."""
+    B, S, H, P, N, Q = 1, 10, 2, 3, 4, 4
+    f64 = torch.float64
+    ins = [t.to(f64).requires_grad_(True)
+           for t in _t(*_inputs(25, B, S, H, P, N))]
+    if with_init:
+        init = torch.as_tensor(_cotangents(26, B, S, H, P, N)[2]).to(
+            f64).requires_grad_(True)
+        assert torch.autograd.gradcheck(
+            lambda *a: SsdScanFn.apply(*a, Q), (*ins, init))
+    else:
+        assert torch.autograd.gradcheck(
+            lambda *a: SsdScanFn.apply(*a, None, Q), ins)
+        # the final state unused: its cotangent never arrives
+        assert torch.autograd.gradcheck(
+            lambda *a: SsdScanFn.apply(*a, None, Q)[0], ins)
+
+
+def test_backward_fits_shared_memory_at_every_trained_ssm_shape():
+    """Each backward pass's block fits the card's 232,448 bytes at every
+    SSM arch's chunk, full and ``tiny()``, in both dtypes: the f32 carry
+    pass holds mamba2's whole P (133,888 bytes), the f32 chunk pass two
+    [Q][Q + 1] tiles (136,736); the bf16 chunk pass holds P = 64 whole
+    (167,968 bytes at mamba2's N = 128, 102,432 at zamba2's 64), its carry
+    pass the forward's layout."""
+    from repro_torch.configs.registry import ARCHS, tiny
+    shapes = {(c.ssm_chunk, c.ssm_head_dim, c.ssm_state)
+              for c in ARCHS.values() if c.ssm_state}
+    shapes |= {(t.ssm_chunk, t.ssm_head_dim, t.ssm_state)
+               for t in (tiny(c) for c in ARCHS.values() if c.ssm_state)}
+    assert shapes == {(128, 64, 64), (128, 64, 128), (16, 16, 16)}
+    for Q, P, N in shapes:
+        assert tkernel.carry_slice_p(Q, P, N) == P
+        assert P <= tkernel.TC_BWD_MAX_P and N <= tkernel.TC_MAX_STATE
+        for dtype in (torch.float32, torch.bfloat16):
+            assert max(tkernel.bwd_smem_bytes(Q, P, N, dtype)) <= \
+                tkernel.SMEM_LIMIT
+    assert tkernel.bwd_smem_bytes(128, 64, 128) == (133_888, 136_736)
+    assert tkernel.bwd_smem_bytes(128, 64, 128, torch.bfloat16) == \
+        (165_392, 167_968)
+    assert tkernel.tc_chunk_smem_bytes(128, 64, 64) == 102_432
+    # a chunk whose two f32 tiles overflow a block does not fit
+    assert tkernel.chunk_smem_bytes(256) > tkernel.SMEM_LIMIT
+
+
+def test_cpu_gradient_goes_through_the_plain_version():
+    """On the CPU ``ssd_scan`` under a gradient is autograd through the
+    plain chunked version, which ``ssd_scan_bwd`` reproduces; nothing is
+    launched or counted."""
+    B, S, H, P, N, Q = 2, 40, 2, 8, 4, 16
+    ins = [t.requires_grad_(True) for t in _t(*_inputs(27, B, S, H, P, N))]
+    dy = torch.as_tensor(_cotangents(28, B, S, H, P, N)[0])
+    before = (ssd_scan.launches, ssd_scan_bwd.launches)
+    y, _ = ssd_scan(*ins, chunk=Q)
+    want = torch.autograd.grad(y, ins, dy)
+    got = ssd_scan_bwd(*(t.detach() for t in ins), dy, chunk=Q)
+    assert got[5] is None
+    for name, a, w in zip(BWD_NAMES, got, want):
+        assert _scaled_err(a, w) <= 1e-5, name
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == before
+    with pytest.raises(ValueError, match="one device"):
+        ssd_scan_bwd(*(t.detach() for t in ins), dy.to("meta"), chunk=Q)
+
+
+# the card's backward checks: (B, S, H, P, N, chunk, with init_state);
+# the last four are shapes no model has: P and N padded to 16 with element
+# loads (N = 20), N = 96 in the wider register tile, odd P (element
+# stores), one partial chunk
+CARD_BWD_SHAPES = {
+    "mamba2_train": (2, 4096, 32, 64, 128, 128, False),
+    "zamba2_train": (1, 4096, 112, 64, 64, 128, False),
+    "ragged_init": (2, 300, 4, 64, 64, 128, True),
+    "p24_n20": (1, 70, 3, 24, 20, 40, True),
+    "n96": (2, 130, 2, 16, 96, 64, False),
+    "p7_n128": (1, 50, 2, 7, 128, 16, True),
+    "one_partial_chunk": (1, 33, 4, 64, 64, 128, True),
+}
+CARD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
 @pytest.mark.gpu
-def test_cuda_ssd_scan_raises_where_a_gradient_is_needed(cuda_device):
-    """The kernel has no backward yet: under grad with an input that
-    needs a gradient the CUDA wrapper raises instead of dropping it;
-    without one it runs."""
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    xh = torch.randn((1, 32, 2, 16), generator=g, device=cuda_device)
-    dt = torch.rand((1, 32, 2), generator=g, device=cuda_device)
-    A = -torch.rand((2,), generator=g, device=cuda_device)
-    Bm, Cm = (torch.randn((1, 32, 8), generator=g, device=cuda_device)
-              for _ in range(2))
-    with pytest.raises(NotImplementedError, match="backward"):
-        ssd_scan(xh.requires_grad_(True), dt, A, Bm, Cm, chunk=16)
-    with torch.no_grad():
-        y, _ = ssd_scan(xh, dt, A, Bm, Cm, chunk=16)
-    assert y.shape == xh.shape
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("key", sorted(CARD_BWD_SHAPES))
+def test_backward_kernel_matches_plain_backward_on_card(cuda_device, key,
+                                                         dtype):
+    """The backward kernels through ``ssd_scan``'s autograd Function at
+    mamba2-370m's and zamba2-7b's training shapes (a microbatch of
+    train_4k), a ragged S with an init_state and a cotangent on the final
+    state, and odd shapes the bf16 passes pad, on x, B and C sliced out of
+    one fused xBC leaf (the model's strides): every gradient within
+    ``CARD_BWD_TOL`` of its max against ``ssd_scan_bwd_plain`` in f32 on
+    the same values, two calls the same bits (no atomics), one forward
+    and one backward counted a call."""
+    B, S, H, P, N, Q, with_init = CARD_BWD_SHAPES[key]
+    g = torch.Generator(device=cuda_device).manual_seed(S + H)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device)
+    xbc = torch.cat([rnd(B, S, H * P), rnd(B, S, N) * 0.5,
+                     rnd(B, S, N) * 0.5], -1).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, S, H))
+    A = -torch.exp(rnd(H) * 0.3)
+    dy = rnd(B, S, H, P).to(dtype)
+    init, dfinal = rnd(B, H, P, N) * 0.5, rnd(B, H, P, N)
+    leaves = [t.clone().requires_grad_(True) for t in
+              (xbc, dt, A) + ((init,) if with_init else ())]
+
+    def split(t):
+        return (t[..., :H * P].reshape(B, S, H, P), t[..., H * P:H * P + N],
+                t[..., H * P + N:])
+
+    def grads():
+        xs, bs, cs = split(leaves[0])
+        y, final = ssd_scan(xs, leaves[1], leaves[2], bs, cs, chunk=Q,
+                            init_state=leaves[3] if with_init else None)
+        outs = ((y, final), (dy, dfinal)) if with_init else ((y,), (dy,))
+        return torch.autograd.grad(outs[0], leaves, outs[1])
+    before = (ssd_scan.launches, ssd_scan_bwd.launches)
+    got, again = grads(), grads()
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    xs, bs, cs = split(xbc.float())
+    dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd_plain(
+        xs, dt, A, bs, cs, dy.float(), chunk=Q,
+        init_state=init if with_init else None,
+        dfinal=dfinal if with_init else None)
+    want = [torch.cat([dx.reshape(B, S, H * P), dB, dC], -1), ddt, dA] + \
+        ([dinit] if with_init else [])
+    for name, a, w in zip(("dxBC", "ddt", "dA", "dinit"), got, want):
+        assert a.dtype == leaves[("dxBC", "ddt", "dA", "dinit").index(
+            name)].dtype
+        err = float((a.float() - w).abs().max() / w.abs().max())
+        assert err <= CARD_BWD_TOL[dtype], (name, err)

@@ -520,6 +520,34 @@ def test_crash_restart_equivalence(tmp_path, uninterrupted, crash_phase):
     assert second["io"]["fences"] > 0
 
 
+SSM_KW = dict(KW, arch="tiny:mamba2-370m")
+
+
+@pytest.fixture(scope="module")
+def uninterrupted_ssm(tmp_path_factory):
+    return run_training(ckpt_dir=str(tmp_path_factory.mktemp("ssm")),
+                        **SSM_KW)
+
+
+@pytest.mark.parametrize("crash_phase", ["between", "shards", "manifest"])
+def test_crash_restart_equivalence_ssm(tmp_path, uninterrupted_ssm,
+                                       crash_phase):
+    """The same recipe on tiny:mamba2-370m, whose gradients run through the
+    SSD scan's backward (on the card, the ``ssd_scan`` backward kernels):
+    the resumed run's losses equal the uninterrupted run's bit for bit."""
+    ref = uninterrupted_ssm
+    crash_at = 17 if crash_phase == "between" else 20
+    first = run_training(ckpt_dir=str(tmp_path), crash_at=crash_at,
+                         crash_phase=crash_phase, **SSM_KW)
+    assert first["crashed_at"] == crash_at
+    second = run_training(ckpt_dir=str(tmp_path), **SSM_KW)
+    assert second["log"] == ["resumed from committed step 10"]
+    assert second["final_step"] == 30 and min(second["losses"]) == 11
+    for s, loss in second["losses"].items():
+        assert loss == ref["losses"][s], (s, loss)
+    assert np.isfinite(ref["final_loss"])
+
+
 def test_loss_decreases_and_stragglers_are_counted(tmp_path,
                                                    uninterrupted):
     out = uninterrupted
