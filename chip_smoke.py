@@ -13,9 +13,9 @@ Fifteen phases, each of which fails the run when it fails:
    ``HGMMA`` in ``cuobjdump --dump-sass``); ``flash_attention`` and
    ``ssd_scan`` must have some (their bf16 kernels run on ``mma.sync``),
    each function of the wgmma backward pair (``flash_bwd_dq_wg`` and
-   ``flash_bwd_dkdv_wg`` at d = 64 and 128) must have ``HGMMA`` and no
-   spill, each tensor-core pass of the SSD backward (``ssd_bwd_carry_tc``
-   and ``ssd_bwd_chunk_tc`` at N <= 64 and <= 128) ``HMMA``, and no
+   ``flash_bwd_dkdv_wg`` at tile widths 64 and 128) and each wgmma pass
+   of the SSD backward (``ssd_bwd_delta_wg`` and ``ssd_bwd_chunk_wg`` at
+   N <= 64 and <= 128) must have ``HGMMA`` and no spill, and no
    ``nvt_probe`` function may spill;
 2. ``map``    -- the main path at card scale: a durable index of 2^22
    keys (2^23-node pool, 2^20 buckets) takes the repo's mixed workload
@@ -140,11 +140,13 @@ Fifteen phases, each of which fails the run when it fails:
    gradient within 2e-2 (bf16) or 1e-5 (f32) of its max magnitude, two
    calls repeating their bits, and the forward's lse against the plain
    log-sum-exp, at qwen3-1.7b's training shape, zamba2's d = 112,
-   whisper's cross shape, a gemma3-27b local layer (window 1024) and rows
-   with no visible key, each with the backward route it took
-   (``kernel.bwd_route``: wgmma, mma.sync or scalar), zamba2-7b's
-   training shape among them; the SSD backward kernels through autograd
-   on strided xBC slices against the plain backward and against autograd
+   whisper's cross shape, a gemma3-27b local layer (window 1024), rows
+   with no visible key, d = 96 (the wgmma pair's 128-column tile) and d
+   = 100 (not a multiple of 8: the mma.sync pair), each with the
+   backward route it took (``kernel.bwd_route``: wgmma, mma.sync or
+   scalar), zamba2-7b's training shape among them; the SSD backward
+   kernels through autograd on strided xBC slices against the plain
+   backward and against autograd
    through the plain chunked scan in f32, each gradient (ddt and dA on
    their own) within 5e-2 (bf16) or 1e-4 (f32) of its max magnitude, two
    calls repeating their bits, at mamba2-370m's and zamba2-7b's training
@@ -210,9 +212,10 @@ Fifteen phases, each of which fails the run when it fails:
    the engine point's and the families' six (SDPA with the same mask, and
    ``enable_gqa`` where K < H); at qwen3-1.7b's training shape the
    forward and each backward kernel (``flash_bwd_dq``, ``flash_bwd_dkdv``,
-   beside SDPA's backward), and the same at zamba2-7b's (the mma.sync
-   pair at d = 112); ``ssd_scan`` at zamba2-7b's and mamba2-370m's serve
-   shapes, each also timed in f32, and at their training shapes the
+   beside SDPA's backward), and the same at zamba2-7b's (the wgmma pair
+   at d = 112, on 128-column tiles); ``ssd_scan`` at zamba2-7b's and
+   mamba2-370m's serve shapes, each also timed in f32, and at their
+   training shapes the
    forward (writing the chunk states) and the backward
    (``ssd_scan_bwd``: no library call, the bound of ``ssd_bwd_bound``).
 
@@ -1414,11 +1417,12 @@ LSE_TOL = 1e-4
 def flash_bwd_shapes(sz: Sizes) -> dict:
     """(B, Sq, Sk, H, K, d, causal, window) of the backward checks: a
     qwen3-1.7b training microbatch, a zamba2-7b one (its shared block,
-    d = 112, the mma.sync pair), zamba2-7b's d = 112 at the serve shape,
-    whisper-medium's
-    cross shape (non-causal, Sq != Sk, a ragged last tile), a gemma3-27b
-    local layer (its window over twice its length) and rows with no
-    visible key (ROADMAP Queue 3's case)."""
+    d = 112, the wgmma pair on 128-column tiles), zamba2-7b's d = 112 at
+    the serve shape, whisper-medium's cross shape (non-causal, Sq != Sk,
+    a ragged last tile), a gemma3-27b local layer (its window over twice
+    its length), rows with no visible key (ROADMAP Queue 3's case), and
+    two head dims no arch has: 96 (the wgmma pair) and 100 (not a
+    multiple of 8, so the mma.sync pair) over a ragged GQA shape."""
     S = max(sz.check_lens)
     z = model_config(sz, "zamba2-7b")
     w = model_config(sz, "whisper-medium")
@@ -1433,7 +1437,9 @@ def flash_bwd_shapes(sz: Sizes) -> dict:
             "gemma3_window": (1, 2 * g.local_window, 2 * g.local_window,
                               g.n_heads, g.n_kv_heads, g.head_dim, True,
                               g.local_window),
-            "no_visible_key": (1, 48, 16, 2, 2, 8, False, 8)}
+            "no_visible_key": (1, 48, 16, 2, 2, 8, False, 8),
+            "d96_wgmma": (1, 300, 300, 4, 2, 96, True, 0),
+            "d100_mma_sync": (1, 300, 300, 4, 2, 100, True, 0)}
 
 
 def _scaled(got, want) -> tuple:
@@ -1795,11 +1801,12 @@ def check_ssd_bwd(sz: Sizes, dev) -> dict:
                     errs[f"{n}_vs_{ref_name}"] = rel
                 errs[f"{n}_max_abs_err"] = _scaled(got[n], plain[n])[2]
             out[tag] = {"shape": [B, S, H, P, N, Q], "init_state": with_init,
-                        "route": "mma.sync" if dtype == torch.bfloat16
+                        "route": "wgmma" if dtype == torch.bfloat16
                         else "scalar",
-                        "smem_bytes": dict(zip(("carry", "chunk"),
-                                               ssd_kernel.bwd_smem_bytes(
-                                                   Q, P, N, dtype))),
+                        "smem_bytes": dict(zip(
+                            ("delta", "chunk") if dtype == torch.bfloat16
+                            else ("carry", "chunk"),
+                            ssd_kernel.bwd_smem_bytes(Q, P, N, dtype))),
                         "bitwise_repeat": True, "tol": tol, **errs}
             del inp, got, again, plain, auto
     free_card(dev)
@@ -3562,7 +3569,8 @@ def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes,
     its bytes (each input read once, each output written once) at the HBM
     rate, the longer (:func:`flash_bwd_bounds`).  ``arch`` names the
     trained arch (its training shape; zamba2-7b's d = 112 takes the
-    mma.sync pair) and ``tag`` its backward check's key."""
+    wgmma pair on 128-column tiles) and ``tag`` its backward check's
+    key."""
     B, Sq, Sk, H, K, d, causal = train_shape(sz, arch)
     q, k, v = flash_inputs(dev, B, Sq, H, d, torch.bfloat16, 0, K, Sk)
     do = flash_inputs(dev, B, Sq, H, d, torch.bfloat16, 1)[0]
@@ -3586,7 +3594,7 @@ def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes,
     bounds = flash_bwd_bounds(train_shape(sz, arch))
     tag = f"{tag}_bfloat16"
     bwd_route = fa_kernel.bwd_route(d, torch.bfloat16)
-    suffix = f"wg<{d}>" if bwd_route == "wgmma" \
+    suffix = f"wg<{fa_kernel.wgmma_tile_cols(d)}>" if bwd_route == "wgmma" \
         else f"tc<{-(-d // 16) * 16}>"
     design = {"wgmma": "FlashAttention-2 split on wgmma fed by TMA rings, "
                        "warp-specialised (a producer warp, two consumer "
@@ -3722,12 +3730,12 @@ def ssd_bwd_bound(B: int, S: int, H: int, P: int, N: int, Q: int) -> dict:
 def time_ssd_bwd(dev, launches: int, errs: dict, sz: Sizes, arch: str,
                  build_rows: dict) -> dict:
     """The SSD backward kernels at ``arch``'s training shape, bf16 (CUDA
-    events): the carry pass, the chunk pass and the reduction over heads
-    as one call of ``ssd_scan_bwd_kernel``, from the chunk states the
-    forward wrote; the plain backward (``ssd_scan_bwd_plain``, f32) on the
-    same values; no library call computes it.  The bound is
-    :func:`ssd_bwd_bound`'s; ``build_rows`` holds the passes' registers
-    and spills."""
+    events): the delta pass, the state scan, the chunk pass, the d cum
+    scan and the reduction over head groups as one call of
+    ``ssd_scan_bwd_kernel``, from the chunk states the forward wrote; the
+    plain backward (``ssd_scan_bwd_plain``, f32) on the same values; no
+    library call computes it.  The bound is :func:`ssd_bwd_bound`'s; ``build_rows``
+    holds the wgmma passes' registers, spills and HGMMA counts."""
     B, S, H, P, N, Q = ssd_train_shape(sz, arch)
     inp = ssd_bwd_inputs(dev, B, S, H, P, N, torch.bfloat16, 1)
     xh, Bm, Cm = split_xbc(inp["xbc"], H, P, N)
@@ -3740,20 +3748,26 @@ def time_ssd_bwd(dev, launches: int, errs: dict, sz: Sizes, arch: str,
         xh, dt, A, Bm, Cm, dy, chunk=Q), iters=3)
     tag = f"{dict(zip(SSM_TRAIN_ARCHS, ('mamba2', 'zamba2')))[arch]}" \
           f"_train_bfloat16"
-    ntn = 8 if N <= 64 else 16
+    nb = 1 if N <= 64 else 2
     return {"name": "ssd_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:34",
             "replaces_note": "the reference has no backward kernel: its "
                              "training differentiates ssd_chunked "
                              "(src/repro/models/mamba2.py:85)",
-            "design": "carry pass (the forward's state update backwards in "
-                      "time) and chunk pass (every chunk at once, the "
-                      "triangle recomputed in both orientations) on "
-                      "mma.sync bf16, then an ordered sum over heads; no "
+            "design": "delta pass (each chunk's own state gradient, all "
+                      "chunks at once) on wgmma, a reverse scan over the "
+                      "chunks parallel over (batch, head, state element), "
+                      "and a chunk pass on wgmma owning a group of heads "
+                      "(C B^T once, dy x^T once a head, dB and dC summed "
+                      "over the group in the block), a warp-a-head scan of "
+                      "d cum, then an ordered sum over the groups; no "
                       "atomics",
-            "passes": {n: build_rows.get(f"ssd_bwd_{n}_tc<{ntn}>", {})
-                       for n in ("carry", "chunk")},
+            "bwd_route": "wgmma",
+            "heads_per_block": ssd_kernel.bwd_heads_per_block(
+                B, -(-S // Q), H),
+            "passes": {n: build_rows.get(f"ssd_bwd_{n}_wg<{nb}>", {})
+                       for n in ("delta", "chunk")},
             "arch": arch, "path": "train", "launches": launches,
             "max_abs_err": max(v for k, v in errs[tag].items()
                                if k.endswith("_max_abs_err")),
@@ -3791,7 +3805,7 @@ def build_report(so: Path, ptxas: str) -> list:
 
 
 WGMMA_BWD_FUNCTIONS = tuple(f"flash_bwd_{k}_wg<{d}>" for k in ("dq", "dkdv")
-                            for d in fa_kernel.WGMMA_HEAD_DIMS)
+                            for d in fa_kernel.WGMMA_TILE_COLS)
 
 
 def check_wgmma_bwd_build(functions: list) -> dict:
@@ -3811,22 +3825,24 @@ def check_wgmma_bwd_build(functions: list) -> dict:
     return rows
 
 
-SSD_BWD_FUNCTIONS = tuple(f"ssd_bwd_{p}_tc<{n}>" for p in ("carry", "chunk")
-                          for n in (8, 16))
+SSD_BWD_FUNCTIONS = tuple(f"ssd_bwd_{p}_wg<{n}>" for p in ("delta", "chunk")
+                          for n in (1, 2))
 
 
 def check_ssd_bwd_build(functions: list) -> dict:
-    """Each tensor-core pass of the SSD backward (at N <= 64 and <= 128)
-    is in the library and has ``HMMA`` instructions; their build rows by
-    name (registers and spills, reported)."""
+    """Each wgmma pass of the SSD backward (at N <= 64 and <= 128: one or
+    two 64-column boxes of N) is in the library, has ``HGMMA``
+    instructions and no spill; their build rows by name."""
     rows = {f["kernel"]: f for f in functions
             if f["kernel"] in SSD_BWD_FUNCTIONS}
     missing = set(SSD_BWD_FUNCTIONS) - set(rows)
     if missing:
         raise AssertionError(f"ssd_scan lacks {sorted(missing)}")
     for name, f in rows.items():
-        if not f["tensor_core_instr"]:
-            raise AssertionError(f"{name} has no HMMA instruction")
+        if not f["hgmma_instr"]:
+            raise AssertionError(f"{name} has no HGMMA instruction")
+        if f["spill_bytes"] != 0:
+            raise AssertionError(f"{name} spills {f['spill_bytes']} bytes")
     return rows
 
 
@@ -4063,7 +4079,7 @@ def main(argv=None) -> int:
         fa_rows))
     # the SSM and hybrid training shapes: ssd_scan's forward (each Mamba2
     # layer's and its remat recompute, writing the chunk states) and its
-    # backward; zamba2's shared block's flash forward and its mma.sync
+    # backward; zamba2's shared block's flash forward and its wgmma
     # backward pair, each with the launches the train phase made there
     for arch in SSM_TRAIN_ARCHS:
         at = train[arch]["launches_at_shape"]

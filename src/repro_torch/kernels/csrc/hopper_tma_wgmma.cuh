@@ -1,18 +1,22 @@
 // Hopper (sm_90a) building blocks for kernels that feed the tensor cores
 // from shared-memory rings filled by the Tensor Memory Accelerator:
 //
-//   * TMA tile loads of a [B, S, heads, d] bf16 tensor (d innermost) into
-//     128B-swizzled shared memory, completing on an mbarrier.  A box is 64
-//     columns (128 bytes) by `rows` sequence positions of one batch row and
-//     one head; rows past S and columns past d arrive as zeros.  A box of
+//   * TMA tile loads of a [B, S, heads, d] bf16 tensor (d innermost), or
+//     of any 3D/4D bf16 tensor with 16-byte strides, into 128B-swizzled
+//     shared memory, and 1D bulk copies, completing on an mbarrier.  A
+//     box is 64 columns (128 bytes) by `rows` sequence positions of one
+//     batch row and one head; rows past S and columns past d arrive as
+//     zeros.  A box of
 //     64 rows lands as [64][64] bf16, 8 KB, each 128-byte row's 16-byte
 //     chunks XORed with the row's index mod 8 (by address bits: every box
 //     starts on a 1024-byte boundary);
 //   * mbarriers (full/empty rings), named barriers and setmaxnreg for warp
 //     specialisation;
 //   * wgmma m64nNk16 bf16 -> f32 products: both operands from shared
-//     memory (K-major), or A from registers and B from shared memory
-//     (MN-major), with the descriptors that read the TMA's swizzle;
+//     memory (each K-major or MN-major), or A from registers and B from
+//     shared memory (MN-major), with the descriptors that read the TMA's
+//     swizzle (a tile written by threads in the same swizzle reads the
+//     same way, after fence_proxy_async);
 //   * on the host, the tensor maps, encoded by cuTensorMapEncodeTiled
 //     taken from the driver through cudaGetDriverEntryPoint, so the
 //     library needs no -lcuda.  Each map goes to a kernel as a
@@ -131,6 +135,31 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Box (c0 column, c1 row, c2 batch row) of a 3D `map` into `dst`, as
+// tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) copied from
+// global `src` to shared `dst` as one bulk copy, completing `bytes` of
+// `bar`'s expected traffic.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -176,10 +205,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// d (+)= A B, m64n64k16: A [64 x 16] and B [64 x 16] both K-major in
-// shared memory (descriptors `a`, `b`); `accumulate` 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int accumulate) {
+// d (+)= A B, m64n64k16 with both operands in shared memory: TA and TB
+// are the transpose bits, 0 for a K-major operand (desc_k_sw128), 1 for
+// an MN-major one (desc_mn_sw128); `accumulate` 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -187,7 +218,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -196,7 +227,14 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// Orders this thread's earlier generic-proxy writes to shared memory
+// (st.shared, cp.async) before later async-proxy reads of it (wgmma's
+// operands); the block synchronises after it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // d (+)= A B, m64n64k16: A [64 x 16] from registers (four bf16 pairs a
@@ -312,6 +350,26 @@ inline int bshd_map(CUtensorMap* map, const void* base, int B, int S,
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                          const_cast<void*>(base), dims, strides, box, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The map of a bf16 tensor of `rank` dimensions (3 or 4), dims[0]
+// innermost and contiguous, strides[k] the byte stride of dimension k + 1
+// (multiples of 16; the base 16-byte aligned), read in boxes of `box`
+// elements (box[0] = 64: 128 bytes), 128B-swizzled, out-of-range elements
+// zero.  Returns 0 or a cudaError_t.
+inline int strided_map(CUtensorMap* map, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         (cuuint32_t)rank, const_cast<void*>(base), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -537,9 +537,11 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 // The dtype and d pick one of three routes (`bwd_route`; kernel.py's
 // `bwd_route` holds the same rule and checks it against this library):
 //
-//   wgmma    bf16 at d = 64 or 128 (every served arch but zamba2):
-//            `flash_bwd_dq_wg<d>` and `flash_bwd_dkdv_wg<d>`, below;
-//   mma.sync bf16 at any other d (zamba2's 112): `flash_bwd_dq_tc` and
+//   wgmma    bf16 at d % 8 == 0, 64 <= d <= 128 (every served arch,
+//            zamba2's d = 112 included): `flash_bwd_dq_wg<DP>` and
+//            `flash_bwd_dkdv_wg<DP>`, below, on tiles DP = 64 columns
+//            wide at d = 64 and 128 above it;
+//   mma.sync bf16 at any other d: `flash_bwd_dq_tc` and
 //            `flash_bwd_dkdv_tc`, 4 warps and 64-row tiles, K/V (or Q/dO)
 //            double-buffered by cp.async and read by ldmatrix;
 //   scalar   f32: `flash_bwd_dq<float>` and `flash_bwd_dkdv<float>`, four
@@ -1316,12 +1318,18 @@ int launch_bwd_tc(const bf16* q, const bf16* k, const bf16* v,
 
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 64 and d = 128: wgmma fed by TMA rings, warp-specialised
+// bf16 at d % 8 == 0, 64 <= d <= 128: wgmma fed by TMA rings,
+// warp-specialised
 // ---------------------------------------------------------------------------
 //
 // Every tile is [64 rows][DP] bf16 in DP / 64 boxes of [64][64], each 8 KB
 // and 128B-swizzled by the TMA (hopper_tma_wgmma.cuh); a 128-row operand is
-// two such tiles, one for each consumer warpgroup.  A block has 384
+// two such tiles, one for each consumer warpgroup.  DP, the tile width, is
+// 64 at d = 64 and 128 above it: the tensor maps carry the true d as their
+// inner extent, so the TMA fills columns d..DP-1 with zeros (a box is
+// counted whole by the barrier's expected bytes, in range or not).  Zero
+// columns add nothing to S = Q K^T or dP = dO V^T, and the same columns of
+// dQ, dK and dV come out zero and are not stored.  A block has 384
 // threads: consumer warpgroups 0 and 1 (setmaxnreg up to kWgConsumerRegs)
 // and producer warpgroup 2 (down to kWgProducerRegs), whose first warp
 // alone issues the copies.  The ring's `full` barrier completes when a
@@ -1380,8 +1388,8 @@ __device__ __forceinline__ void wg_product_abt(float (&acc)[32],
 #pragma unroll
   for (int ks = 0; ks < DP / 16; ++ks) {
     const int off = (ks >> 2) * hop::kBox64Bytes + (ks & 3) * 32;
-    hop::wgmma_ss(acc, hop::desc_k_sw128(a + off), hop::desc_k_sw128(b + off),
-                  ks > 0);
+    hop::wgmma_ss_t<0, 0>(acc, hop::desc_k_sw128(a + off),
+                          hop::desc_k_sw128(b + off), ks > 0);
   }
 }
 
@@ -1410,12 +1418,13 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
 
 // rows r0 (registers e < 2) and r0 + 8 (e >= 2) of a [64 x DP] f32
 // accumulator, times `mul`, rounded to bf16 into [., d] rows of `out`
-// (row stride `stride` elements); rows at or past `rows` are skipped
+// (row stride `stride` elements); rows at or past `rows` and columns at
+// or past d (a multiple of 8) are skipped
 template <int DP>
 __device__ __forceinline__ void store_rows(bf16* out, size_t stride,
                                            const float (&acc)[DP / 2],
-                                           int r0, int rows, float mul,
-                                           int lane) {
+                                           int r0, int rows, int d,
+                                           float mul, int lane) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
@@ -1423,7 +1432,8 @@ __device__ __forceinline__ void store_rows(bf16* out, size_t stride,
     bf16* row = out + (size_t)r * stride;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + j * 8 + (lane & 3) * 2) =
+      if (j * 8 < d)
+        *reinterpret_cast<uint32_t*>(row + j * 8 + (lane & 3) * 2) =
           tc::pack_bf16(acc[4 * j + 2 * half] * mul,
                         acc[4 * j + 2 * half + 1] * mul);
   }
@@ -1437,7 +1447,7 @@ __device__ __forceinline__ float exp2_sfu(float x) {
   return y;
 }
 
-template <int DP>   // 64 or 128 (== d)
+template <int DP>   // the tile width: 64 (d = 64) or 128 (64 < d <= 128)
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -1446,7 +1456,8 @@ flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tm_q,
                 const bf16* __restrict__ o, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, bf16* __restrict__ dq,
                 float* __restrict__ Dbuf, int Sq, int Sk, int H, int K,
-                int causal, int window, float scale_log2, float scale) {
+                int d, int causal, int window, float scale_log2,
+                float scale) {
   constexpr int TILE = wg_tile_bytes(DP);
   extern __shared__ unsigned char wg_smem_raw[];
   unsigned char* const smem = align_1024(wg_smem_raw);
@@ -1465,7 +1476,6 @@ flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tm_q,
   const int b = bh / H;
   const int h = bh - b * H;
   const int kh = h / (H / K);
-  const int d = DP;
   // the key tiles some row of the block can see
   const int q_last = min(q0 + 2 * kWgRows, Sq) - 1;
   int t_end = (Sk + kWgRows - 1) / kWgRows;
@@ -1511,15 +1521,18 @@ flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tm_q,
     const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
     const size_t q_row = (size_t)H * d;
     const size_t q_base = (size_t)b * Sq * q_row + (size_t)h * d;
-    {  // D = rowsum(dO o O) of the block's 128 rows, two threads a row
+    {  // D = rowsum(dO o O) of the block's 128 rows, two threads a row,
+       // each over its half of the tile's columns that lie below d
       const int r = tid >> 1, half = tid & 1, qp = q0 + r;
       float acc = 0.f;
       if (qp < Sq) {
-        const bf16* orow = o + q_base + (size_t)qp * q_row + half * (d / 2);
+        const bf16* orow = o + q_base + (size_t)qp * q_row + half * (DP / 2);
         const bf16* drow =
-            dout + q_base + (size_t)qp * q_row + half * (d / 2);
+            dout + q_base + (size_t)qp * q_row + half * (DP / 2);
+        const int cols = min(DP / 2, d - half * (DP / 2));
 #pragma unroll
         for (int c = 0; c < DP / 2; c += 8) {
+          if (c >= cols) break;
           const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
           const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
           const __nv_bfloat162* o2 =
@@ -1617,11 +1630,11 @@ flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tm_q,
       __syncwarp();
       if (lane == 0) hop::mbar_arrive(&empty[s]);
     }
-    store_rows<DP>(dq + q_base, q_row, acc, r0, Sq, scale, lane);
+    store_rows<DP>(dq + q_base, q_row, acc, r0, Sq, d, scale, lane);
   }
 }
 
-template <int DP>   // 64 or 128 (== d)
+template <int DP>   // the tile width: 64 (d = 64) or 128 (64 < d <= 128)
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
@@ -1629,7 +1642,7 @@ flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_do,
                   const float* __restrict__ lse,
                   const float* __restrict__ Dbuf, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, int Sq, int Sk, int H, int K,
+                  bf16* __restrict__ dv, int Sq, int Sk, int H, int K, int d,
                   int causal, int window, float scale_log2, float scale) {
   constexpr int TILE = wg_tile_bytes(DP);
   extern __shared__ unsigned char wg_smem_raw[];
@@ -1651,7 +1664,6 @@ flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tm_q,
   const int b = bk / K;
   const int kh = bk - b * K;
   const int G = H / K;
-  const int d = DP;
   // the query tiles that can see some key of the block, for each of the
   // group's heads: iteration it is head kh * G + it / nt, tile t_lo + it % nt
   const int q_lo = causal ? k0 : 0;
@@ -1804,8 +1816,8 @@ flash_bwd_dkdv_wg(const __grid_constant__ CUtensorMap tm_q,
     }
     const size_t kv_row = (size_t)K * d;
     const size_t kv_base = (size_t)b * Sk * kv_row + (size_t)kh * d;
-    store_rows<DP>(dk + kv_base, kv_row, dka, kr0, Sk, scale, lane);
-    store_rows<DP>(dv + kv_base, kv_row, dva, kr0, Sk, 1.f, lane);
+    store_rows<DP>(dk + kv_base, kv_row, dka, kr0, Sk, d, scale, lane);
+    store_rows<DP>(dv + kv_base, kv_row, dva, kr0, Sk, d, 1.f, lane);
   }
 }
 
@@ -1813,17 +1825,17 @@ template <int DP>
 int launch_bwd_wg(const bf16* q, const bf16* k, const bf16* v,
                   const bf16* o, const bf16* dout, const float* lse,
                   bf16* dq, bf16* dk, bf16* dv, float* Dbuf, int parts,
-                  int B, int Sq, int Sk, int H, int K, int causal,
+                  int B, int Sq, int Sk, int H, int K, int d, int causal,
                   int window, float scale, void* stream) {
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
        (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) %
       16)
     return (int)cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv, tdo;
-  int err = hop_host::bshd_map(&tq, q, B, Sq, H, DP, kWgRows);
-  if (!err) err = hop_host::bshd_map(&tk, k, B, Sk, K, DP, kWgRows);
-  if (!err) err = hop_host::bshd_map(&tv, v, B, Sk, K, DP, kWgRows);
-  if (!err) err = hop_host::bshd_map(&tdo, dout, B, Sq, H, DP, kWgRows);
+  int err = hop_host::bshd_map(&tq, q, B, Sq, H, d, kWgRows);
+  if (!err) err = hop_host::bshd_map(&tk, k, B, Sk, K, d, kWgRows);
+  if (!err) err = hop_host::bshd_map(&tv, v, B, Sk, K, d, kWgRows);
+  if (!err) err = hop_host::bshd_map(&tdo, dout, B, Sq, H, d, kWgRows);
   if (err) return err;
   const size_t s_dq = wg_dq_smem_bytes(DP), s_kv = wg_dkdv_smem_bytes(DP);
   cudaError_t e = cudaFuncSetAttribute(
@@ -1838,8 +1850,8 @@ int launch_bwd_wg(const bf16* q, const bf16* k, const bf16* v,
   if (parts & 1) {
     flash_bwd_dq_wg<DP><<<dim3(B * H, (Sq + 2 * kWgRows - 1) / (2 * kWgRows)),
                           kWgThreads, s_dq, (cudaStream_t)stream>>>(
-        tq, tk, tv, tdo, o, dout, lse, dq, Dbuf, Sq, Sk, H, K, causal, window,
-        scale_log2, scale);
+        tq, tk, tv, tdo, o, dout, lse, dq, Dbuf, Sq, Sk, H, K, d, causal,
+        window, scale_log2, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -1847,7 +1859,7 @@ int launch_bwd_wg(const bf16* q, const bf16* k, const bf16* v,
     flash_bwd_dkdv_wg<DP>
         <<<dim3(B * K, (Sk + 2 * kWgRows - 1) / (2 * kWgRows)), kWgThreads,
            s_kv, (cudaStream_t)stream>>>(tq, tk, tv, tdo, lse, Dbuf, dk, dv,
-                                         Sq, Sk, H, K, causal, window,
+                                         Sq, Sk, H, K, d, causal, window,
                                          scale_log2, scale);
   return (int)cudaGetLastError();
 }
@@ -1858,8 +1870,11 @@ enum BwdRoute { kRouteScalar = 0, kRouteMmaSync = 1, kRouteWgmma = 2 };
 int bwd_route(int dtype, int d) {
   if (d < 1 || d > kMaxD) return -1;
   if (dtype == 0) return kRouteScalar;
-  return d == 64 || d == 128 ? kRouteWgmma : kRouteMmaSync;
+  return d % 8 == 0 && d >= 64 ? kRouteWgmma : kRouteMmaSync;
 }
+
+// The wgmma pair's tile width at head dim d: 64 at d = 64, else 128.
+int wg_tile_cols(int d) { return d <= 64 ? 64 : 128; }
 }  // namespace
 
 // dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel).
@@ -1917,12 +1932,13 @@ extern "C" int flash_attention_bwd_launch(
              *ob = (const bf16*)o, *dob = (const bf16*)dout;
   bf16 *dqb = (bf16*)dq, *dkb = (bf16*)dk, *dvb = (bf16*)dv;
   if (route == kRouteWgmma)
-    return d == 64 ? launch_bwd_wg<64>(qb, kb, vb, ob, dob, lse, dqb, dkb,
-                                       dvb, D, parts, B, Sq, Sk, H, K,
-                                       causal, window, scale, stream)
-                   : launch_bwd_wg<128>(qb, kb, vb, ob, dob, lse, dqb, dkb,
-                                        dvb, D, parts, B, Sq, Sk, H, K,
-                                        causal, window, scale, stream);
+    return wg_tile_cols(d) == 64
+               ? launch_bwd_wg<64>(qb, kb, vb, ob, dob, lse, dqb, dkb, dvb,
+                                   D, parts, B, Sq, Sk, H, K, d, causal,
+                                   window, scale, stream)
+               : launch_bwd_wg<128>(qb, kb, vb, ob, dob, lse, dqb, dkb, dvb,
+                                    D, parts, B, Sq, Sk, H, K, d, causal,
+                                    window, scale, stream);
   switch ((d + 15) / 16) {
 #define FA_BWD_CASE(n)                                                      \
   case n:                                                                   \
@@ -1961,8 +1977,8 @@ extern "C" long long flash_attention_bwd_smem_bytes(int dtype, int d,
     case kRouteMmaSync:
       return (long long)tc_bwd_smem_bytes(d);
     case kRouteWgmma:
-      return (long long)(kernel ? wg_dkdv_smem_bytes(d)
-                                : wg_dq_smem_bytes(d));
+      return (long long)(kernel ? wg_dkdv_smem_bytes(wg_tile_cols(d))
+                                : wg_dq_smem_bytes(wg_tile_cols(d)));
     default:
       return 0;
   }

@@ -20,22 +20,31 @@ SMEM_LIMIT = 232_448         # dynamic shared memory one block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward's routes, by the number the library gives each
 BWD_ROUTES = ("scalar", "mma_sync", "wgmma")
-WGMMA_HEAD_DIMS = (64, 128)  # the head dims the wgmma pair takes
+WGMMA_TILE_COLS = (64, 128)  # tile widths of the wgmma pair's kernels
 WGMMA_STAGES = (3, 2)        # ring depths of its dq and dkdv kernels
 
 
 def bwd_route(d: int, dtype: torch.dtype) -> str:
     """The backward pair a head dim and dtype launch: ``"wgmma"`` (bf16 at
-    d = 64 or 128: wgmma fed by TMA rings, warp-specialised), ``"mma_sync"``
-    (bf16 at any other d <= 128) or ``"scalar"`` (f32).  The rule is the
-    source's ``bwd_route``; raises on a d or dtype no kernel takes."""
+    d % 8 == 0 and 64 <= d <= 128: wgmma fed by TMA rings,
+    warp-specialised, on tiles :func:`wgmma_tile_cols` wide; the TMA reads
+    rows of d * 2 bytes, a multiple of 16), ``"mma_sync"`` (bf16 at any
+    other d <= 128) or ``"scalar"`` (f32).  The rule is the source's
+    ``bwd_route``; raises on a d or dtype no kernel takes."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
     if dtype not in _DTYPES:
         raise ValueError(f"no backward kernel for {dtype}")
     if dtype == torch.float32:
         return "scalar"
-    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
+    return "wgmma" if d % 8 == 0 and d >= 64 else "mma_sync"
+
+
+def wgmma_tile_cols(d: int) -> int:
+    """Columns of the wgmma pair's tiles at head dim d (the source's
+    ``wg_tile_cols``): 64 at d = 64, 128 above it; the TMA fills the
+    columns past d with zeros."""
+    return 64 if d <= 64 else 128
 
 
 def bwd_smem_bytes(d: int, dtype: torch.dtype) -> tuple:
@@ -50,12 +59,15 @@ def bwd_smem_bytes(d: int, dtype: torch.dtype) -> tuple:
         dp = -(-d // 16) * 16
         pitch = dp if dp % 64 == 0 else dp + 8
         return (2 * 6 * 64 * pitch + 4 * 4 * 64,) * 2
-    # 1024 B of alignment slack; 4 + 2 x stages [64][d] bf16 tiles (two of
-    # each operand a block owns, the ring of the pair it walks); f32 rows
-    # (dq: D of 128 rows; dkdv: lse and D of each stage's 64); 2 x stages
-    # + 1 8-byte mbarriers
+    # 1024 B of alignment slack; 4 + 2 x stages [64][tile width] bf16
+    # tiles (two of each operand a block owns, the ring of the pair it
+    # walks); f32 rows (dq: D of 128 rows; dkdv: lse and D of each stage's
+    # 64); 2 x stages + 1 8-byte mbarriers
+    cols = wgmma_tile_cols(d)
+
     def ring(stages):
-        return 1024 + (4 + 2 * stages) * 64 * d * 2 + 8 * (2 * stages + 1)
+        return 1024 + (4 + 2 * stages) * 64 * cols * 2 + \
+            8 * (2 * stages + 1)
     return (ring(WGMMA_STAGES[0]) + 4 * 128,
             ring(WGMMA_STAGES[1]) + 4 * 2 * WGMMA_STAGES[1] * 64)
 
@@ -164,10 +176,10 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
                                parts: int = 3, scratch=None):
     """Launch the backward kernels on PyTorch's current stream,
     ``flash_bwd_dq`` then ``flash_bwd_dkdv``, the pair :func:`bwd_route`
-    names (bf16: wgmma at d = 64 and 128, mma.sync at any other d; f32:
-    scalar): ``(dq, dk, dv)`` in the layouts and dtype of q, k, v, from
-    the forward's ``o`` and ``lse`` and ``dout``
-    (the gradient of o).  ``parts`` 1 or 2 launches only the first or the
+    names (bf16: wgmma at d % 8 == 0 from 64 to 128, mma.sync at any
+    other d; f32: scalar): ``(dq, dk, dv)`` in the layouts and dtype of
+    q, k, v, from the forward's ``o`` and ``lse`` and ``dout`` (the
+    gradient of o).  ``parts`` 1 or 2 launches only the first or the
     second kernel (to time one alone; the second reads the row sums D
     that the first wrote into ``scratch``, f32 [B, H, Sq], so it takes
     the ``scratch`` of an earlier call); the gradients the skipped kernel
@@ -191,10 +203,12 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     if D.shape != (B, H, Sq) or D.dtype != torch.float32 or parts not in (
             1, 2, 3):
         raise ValueError("scratch must be f32 [B, H, Sq], parts 1, 2 or 3")
-    if bwd_route(d, q.dtype) == "wgmma" and any(
-            t.data_ptr() % 16 for t in (q, k, v, o, dout)):
+    if bwd_route(d, q.dtype) == "wgmma" and (
+            d * q.element_size() % 16 or
+            any(t.data_ptr() % 16 for t in (q, k, v, o, dout))):
         raise ValueError("the wgmma backward reads q, k, v, o and dout "
-                         "through TMA: each must start on 16 bytes")
+                         "through TMA: each must start on 16 bytes, its "
+                         "rows a multiple of 16 bytes")
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_launch(

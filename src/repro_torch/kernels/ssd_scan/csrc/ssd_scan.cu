@@ -89,33 +89,42 @@
 // The backward (`ssd_scan_bwd_launch`) has no TPU kernel to replace: the
 // reference trains by differentiating its jnp ssd_chunked
 // (src/repro/models/mamba2.py).  It computes that gradient -- dx, ddt,
-// dA, dB, dC and d init_state from dy and d final -- in three launches:
+// dA, dB, dC and d init_state from dy and d final -- from the state each
+// chunk starts from, which the forward writes under autograd (`states`).
+// The gradient of the state chunk c ends with obeys the reverse recurrence
 //
-//   * carry: one block per (batch, head, slice of P) walks the chunks from
-//     last to first, dS <- exp(cum_last) dS + (dy o exp(cum))^T C, writing
-//     the gradient of each chunk's end state (dS_all) and leaving that of
-//     init_state.  It needs the state each chunk starts from, which the
-//     forward writes under autograd (`states`);
-//   * chunk: one block per (batch, chunk, head) computes that chunk's dx,
-//     its head's parts of dB and dC, and ddt and its part of dA through
-//     d cum (the algebra above each kernel);
-//   * reduce: the heads' parts of dB and dC, and the (batch, chunk) parts
-//     of dA, summed in a fixed order.
+//   dS_c = exp(cum_last,c+1) dS_c+1 + Delta_c+1,
+//   Delta_c = (dy_c o exp(cum_c))^T C_c,
+//
+// from dS_last = d final; what it leaves past the first chunk is d
+// init_state.  f32 runs the scalar kernels: a carry pass (one block
+// per (batch, head, slice of P) walking the chunks from last to first), a
+// chunk pass (one block per (batch, chunk, head): dx, the head's parts of
+// dB and dC, ddt and its part of dA through d cum) and a reduction of the
+// heads' parts in a fixed order.  bf16 splits the recurrence as Mamba2's
+// forward splits its own (chunk states, then state passing), run
+// backwards: a delta pass computes every chunk's Delta at once on wgmma,
+// a scan over the chunks, parallel over (batch, head, element of the
+// state), turns them into dS, and the chunk pass -- on wgmma, a block
+// owning a (batch, chunk) and a group of heads -- computes C B^T once for
+// the group, dy x^T once a head, and sums dB and dC over the group's
+// heads in the block before the reduction over groups (see "backward:
+// bf16 on wgmma" below).
 //
 // Nothing is summed with atomics, so two calls give the same bits (a
-// resumed training run must repeat its steps).  bf16 runs the carry and
-// chunk products on the tensor cores (`ssd_bwd_carry_tc`,
-// `ssd_bwd_chunk_tc`: mma.sync, f32 accumulators, f32 operands split in
-// two bf16 parts as in the forward), f32 the scalar `ssd_bwd_carry` and
-// `ssd_bwd_chunk`.  Bound on this card: bytes.  At mamba2-370m's training
-// microbatch (B = 2, S = 4096, H = 32, P = 64, N = 128) the function must
-// read x, dy, B, C, dt and the f32 chunk states and write dx, ddt, dB and
-// dC: 178 MB, 53 us at 3.35 TB/s, against 30.3 GFLOP of chunk products
-// (31 us at the bf16 peak).  What keeps it off that bound: the chunk pass
-// recomputes C B^T and dy x^T in both orientations for every head, the
-// carry pass has only B * H blocks, and the heads' f32 parts of dB and dC
-// go through device memory once more; chip_smoke.py measures it at about
-// 1.6 ms there on an H100 SXM at 700 W.
+// resumed training run must repeat its steps).  Bound on this card:
+// bytes.  At mamba2-370m's training microbatch (B = 2, S = 4096, H = 32,
+// P = 64, N = 128) the function must read x, dy, B, C, dt and the f32
+// chunk states and write dx, ddt, dB and dC: 178 MB, 53 us at 3.35 TB/s,
+// against 30.3 GFLOP of chunk products (31 us at the bf16 peak).  What
+// keeps the bf16 passes off that bound: the Deltas and the state
+// gradients go through device memory (the scan reads the Deltas and the
+// states, 134 MB, and writes their split, 134 MB, at that shape), the
+// chunk pass reads x and dS twice (for dB after the head loop: its
+// registers hold dC's sum and dGsum), every product is an m64n64 wgmma
+// waited on at once, and the elementwise work on the triangle (exp2, G,
+// the masks) is done per element in both orientations; the SSD
+// backward's times are in chip_smoke.py's kernels line and PERF.md.
 //
 // Plain C interface, bound from Python with ctypes.  The caller owns
 // every buffer (allocated with torch.empty) and the stream; the kernels
@@ -124,6 +133,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_tma_wgmma.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -1103,24 +1113,25 @@ ssd_bwd_chunk(const float* __restrict__ x, const float* __restrict__ dt,
         a * dda[j] + direct[j] + dw[j] * expf(cum_last - scum[j]);
 }
 
-// dB and dC: each head's part summed over the heads in order, in the
-// input dtype; dA: the (batch, chunk) parts summed in order (block 0).
+// dB and dC: the G parts of each token (the heads' parts, or the head
+// groups' sums) summed in order, in the input dtype; dA: the (batch,
+// chunk) parts of each of the H heads summed in order (block 0).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_reduce(const float* __restrict__ dB_h, const float* __restrict__ dC_h,
                const float* __restrict__ dA_part, T* __restrict__ dB,
                T* __restrict__ dC, float* __restrict__ dA, long long BS,
-               int H, int N, int n_parts) {
+               int G, int N, int n_parts, int H) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i < BS * N) {
     const long long t = i / N;
     const int n = (int)(i - t * N);
-    const float* pb = dB_h + (size_t)t * H * N + n;
-    const float* pc = dC_h + (size_t)t * H * N + n;
+    const float* pb = dB_h + (size_t)t * G * N + n;
+    const float* pc = dC_h + (size_t)t * G * N + n;
     float sb = 0.f, sc = 0.f;
-    for (int h = 0; h < H; ++h) {
-      sb += pb[(size_t)h * N];
-      sc += pc[(size_t)h * N];
+    for (int k = 0; k < G; ++k) {
+      sb += pb[(size_t)k * N];
+      sc += pc[(size_t)k * N];
     }
     dB[i] = from_f32<T>(sb);
     dC[i] = from_f32<T>(sc);
@@ -1172,230 +1183,193 @@ int launch_bwd_f32(const void* x, const void* dt, const void* A,
   ssd_bwd_reduce<float><<<(unsigned)((BS * N + kThreads - 1) / kThreads),
                           kThreads, 0, stream>>>(
       (const float*)dB_h, (const float*)dC_h, (const float*)dA_part,
-      (float*)dB, (float*)dC, (float*)dA, BS, H, N, B * n_chunks);
+      (float*)dB, (float*)dC, (float*)dA, BS, H, N, B * n_chunks, H);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// backward: tensor cores (bf16)
+// backward: bf16 on wgmma
 // ---------------------------------------------------------------------------
+//
+// Three passes and the ordered reduction, every tile a chunk of 128 rows
+// (Q <= 128 zero-padded; rows past the sequence are zero and dt = 0 there)
+// in 128B-swizzled [rows][64] bf16 boxes, the layout wgmma's descriptors
+// read (hopper_tma_wgmma.cuh):
+//
+//   ssd_bwd_delta_wg   one warpgroup per (batch, chunk, head): the chunk's
+//                      own part of the state gradient it hands back,
+//                      Delta_c = (dy o exp(cum))^T C, on wgmma (m64 over
+//                      P, n64 over N, k over the 128 tokens; dy^T o
+//                      exp(cum) from registers as a bf16 high and low part,
+//                      C from shared memory MN-major), into the slot of
+//                      chunk c - 1 (c = 0: into dinit), and the chunk's
+//                      decay exp(cum_last);
+//   ssd_bwd_state_scan one thread per (batch, head, column pair of the
+//                      state): dS_c-1 = exp(cum_last,c) dS_c + Delta_c from
+//                      the last chunk (dfinal) back to the first, in f32;
+//                      it writes each chunk's S_prev and dS as bf16 high and
+//                      low parts in the chunk pass's tile layout (one
+//                      contiguous copy a head there), its part of
+//                      sum(S_prev o dS), and dinit = decay_0 dS_0 + Delta_0;
+//   ssd_bwd_chunk_wg   two warpgroups per (batch, chunk, group of up to 8
+//                      heads): G = C B^T once (f32 in shared memory, the
+//                      masked lower triangle as three 64 x 64 tiles), then
+//                      per head D = dy x^T once (three 64 x 64 tiles), and
+//                        E = dy S_prev           d cum_i += e_i C_i . E_i,
+//                                                dC += e_i E_i
+//                        X = B dS^T              dw_j = x_j . X_j,
+//                        dx = w o X + scores^T dy  (scores^T from G, L, dt
+//                                                in registers, bf16 high
+//                                                and low part)
+//                        u = D o G o L           d cum_i, ddt's direct term
+//                        dGsum += D o L dt_j     (f32, the group's sum)
+//                      with the next head's tiles in flight (two stages
+//                      where N <= 64; where N = 128 the next head's split
+//                      states go in once E and X have read this head's);
+//                      then dC += dGsum B and dB = dGsum^T C + sum_h w_h o
+//                      (x_h dS_h) (x and dS read again); a warp a head then
+//                      scans its d cum into ddt and its dA part.  Its
+//                      copies: TMA boxes and bulk copies on mbarriers where
+//                      every row start is 16-byte aligned and a chunk is 128
+//                      tokens (the model's xBC slices), else cp.async;
+//   ssd_bwd_reduce     the groups' dB and dC parts and the (batch, chunk)
+//                      parts of dA, summed in order.
+//
+// Roundings: every product's bf16 inputs are exact except the f32 values
+// that enter as a high plus a low bf16 part (dy o exp(cum), S_prev, dS,
+// scores^T, dGsum), about 16 bits of mantissa each, as in the forward.
 
-// Carry pass for bf16: the forward kernel's state update run backwards
-// over the chunks, with the forward's layout (dy in x's tiles, C in B's)
-// and warp roles: warp w owns rows [16 w, 16 w + 16) of a 64-column
-// slice's dS in f32 registers, never rounded from one chunk to the next.
-//   dS <- exp(cum_last) dS + dy^T (C o exp(cum)),
-// dy^T's A fragments by ldmatrix.trans, C's by ldmatrix.trans scaled by
-// exp(cum_i) in registers and split into a high and a low bf16 part.
-template <int NTN>
-__global__ void __launch_bounds__(kTcThreads, 2)
-ssd_bwd_carry_tc(const bf16* __restrict__ dy, const float* __restrict__ dt,
-                 const float* __restrict__ A, const bf16* __restrict__ Cm,
-                 const float* __restrict__ dfinal, float* __restrict__ dS_all,
-                 float* __restrict__ dinit, int S, int H, int P, int N, int Q,
-                 long long csb, long long cst, int vec) {
-  constexpr int KS = NTN / 2;
-  extern __shared__ __align__(128) unsigned char ssd_smem[];
-  const TcLayout L = tc_layout(Q, P, N);
-  const Smem m = carve(ssd_smem, L);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n_slices = (P + kSliceP - 1) / kSliceP;
-  const int bh = blockIdx.x / n_slices;
-  const int p0 = (blockIdx.x - bh * n_slices) * kSliceP;
-  const int pw = min(kSliceP, P - p0);
-  const int b = bh / H, h = bh - b * H;
-  const float a = A[h];
-  const int nks = L.Np / 16;
-  const long long row = (long long)H * P;
-  const bf16* gb = dy + (size_t)b * S * row + (size_t)h * P + p0;
-  const bf16* cb = Cm + b * csb;
-  const float* dtb = dt + (size_t)b * S * H + h;
-  bf16* sg = m.x(0);
-  bf16* sc = m.b(0);
-  float* sdt = m.dt(0);
-  zero_cols(sg, L.Qp, pw, L.XW, L.xp, L.xs);
-  zero_cols(sc, L.Qp, N, L.Np, L.np, L.ns);
+constexpr int kWq = 128;                  // chunk rows a tile holds
+constexpr int kBoxQ = kWq * 128;          // bytes of a [128][64] bf16 box
+constexpr int kBoxP = 64 * 128;           // bytes of a [64][64] bf16 box
+constexpr int kGPitch = 68;               // f32 row pitch of a G tile
+constexpr int kGTile = 64 * kGPitch * 4;  // bytes of a [64][68] f32 tile
+constexpr int kDwThreads = 128;           // delta pass: one warpgroup
+constexpr int kCwThreads = 256;           // chunk pass: two warpgroups
+constexpr int kMaxGroup = 8;              // heads a chunk-pass block owns
+constexpr int kWave = 132;                // blocks of one wave on an H100
+// f32 rows of the chunk pass, then its six 8-byte mbarriers
+constexpr int kCwRows = 12 * kWq + 64 * 65 / 2 + 4 + 12;
 
-  const bool owns = warp * 16 < L.XW;
-  const int pr = warp * 16 + (lane >> 2);
-  const size_t state_off = (size_t)bh * P * N + (size_t)p0 * N;
-  float st[NTN][4];
-#pragma unroll
-  for (int nt = 0; nt < NTN; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = pr + (e >> 1) * 8, n = nt * 8 + (lane & 3) * 2 + (e & 1);
-      st[nt][e] = dfinal && owns && p < pw && n < N
-                      ? dfinal[state_off + (size_t)p * N + n] : 0.f;
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = hop::smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// Byte offset of element (row, col) of a tile of 64-column boxes of
+// `box_rows` rows each, 128B-swizzled (the 16-byte chunk index XORed with
+// the row mod 8; every box starts on 1024 bytes).
+__host__ __device__ __forceinline__ int box_off(int row, int col,
+                                                int box_rows) {
+  return (col >> 6) * box_rows * 128 + row * 128 +
+         ((((col >> 3) & 7) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+// Columns [0, width) of `rows` tokens (row stride `stride` elements, from
+// `src`) into a [128][64 * nbox] box tile; the rest of the tile zero.
+template <int NT>
+__device__ __forceinline__ void load_box_tile(unsigned char* dst, int nbox,
+                                              const bf16* src,
+                                              long long stride, int rows,
+                                              int width, bool vec) {
+  const int chunks = nbox * 8;
+  // rolled loops: the persistent sums leave few registers for addresses
+  if (vec) {
+#pragma unroll 1
+    for (int i = threadIdx.x; i < kWq * chunks; i += NT) {
+      const int r = i / chunks, c = (i - r * chunks) * 8;
+      const bool in = r < rows && c < width;
+      tc::cp_async16(dst + box_off(r, c, kWq), in ? src + r * stride + c : src,
+                     in ? 16 : 0);
     }
-  }
-  const int n_chunks = (S + Q - 1) / Q;
-  for (int ch = n_chunks - 1; ch >= 0; --ch) {
-    const int t0 = ch * Q, rows = min(Q, S - t0);
-    if (owns) {                      // the gradient this chunk ends with
-      float* out = dS_all + chunk_state_off(b, ch, h, n_chunks, H, P, N) +
-                   (size_t)p0 * N;
-#pragma unroll
-      for (int nt = 0; nt < NTN; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int p = pr + (e >> 1) * 8,
-                    n = nt * 8 + (lane & 3) * 2 + (e & 1);
-          if (p < pw && n < N) out[(size_t)p * N + n] = st[nt][e];
-        }
-      }
-    }
-    __syncthreads();                 // the previous chunk's tiles are read
-    load_rows(sg, L.xp, L.xs, gb, row, t0, rows, L.Qp, pw, vec);
-    load_rows(sc, L.np, L.ns, cb, cst, t0, rows, L.Qp, N, vec);
-    load_dt(sdt, dtb, H, t0, rows, L.Qp, vec);
-    tc::cp_async_commit();
-    tc::cp_async_wait<0>();
-    __syncthreads();
-    chunk_cumsum<kTcWarps>(sdt, a, m.cum, m.warp_sum, L.Qp);
-    const float* scum = m.cum;
-    if (!owns) continue;
-    const float decay = expf(scum[L.Qp - 1]);   // padded rows add dt = 0
-#pragma unroll
-    for (int nt = 0; nt < NTN; ++nt) {
-      st[nt][0] *= decay;
-      st[nt][1] *= decay;
-      st[nt][2] *= decay;
-      st[nt][3] *= decay;
-    }
-    for (int jk = 0; jk * 16 < rows; ++jk) {     // later rows are zero
-      uint32_t ga[4];                // dy^T: rows p of the warp, columns i
-      tc::ldsm_x4_t(ga, sg + tc::tile_off(
-                                jk * 16 + (lane & 7) + (lane >> 4) * 8,
-                                warp * 16 + ((lane >> 3) & 1) * 8, L.xp,
-                                L.xs));
-      const int jb = jk * 16 + (lane & 3) * 2;
-      float e[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        e[q] = expf(scum[jb + (q & 1) + (q >> 1) * 8]);
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        if (ks >= nks) continue;
-        uint32_t cw[4], hi[4], lo[4];
-        tc::ldsm_x4_t(cw, sc + tc::tile_off(
-                                  jk * 16 + (lane & 7) +
-                                      ((lane >> 3) & 1) * 8,
-                                  ks * 16 + (lane >> 4) * 8, L.np, L.ns));
-#pragma unroll
-        for (int r = 0; r < 4; ++r)   // c0/c2: i = jb, jb+1; c1/c3: +8
-          tc::scale_split_bf16(cw[r], e[(r & 1) * 2], e[(r & 1) * 2 + 1],
-                               hi[r], lo[r]);
-        tc::mma(st[2 * ks], ga, hi[0], hi[1]);
-        tc::mma(st[2 * ks + 1], ga, hi[2], hi[3]);
-        tc::mma(st[2 * ks], ga, lo[0], lo[1]);
-        tc::mma(st[2 * ks + 1], ga, lo[2], lo[3]);
-      }
-    }
-  }
-  if (dinit && owns) {
-#pragma unroll
-    for (int nt = 0; nt < NTN; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int p = pr + (e >> 1) * 8, n = nt * 8 + (lane & 3) * 2 + (e & 1);
-        if (p < pw && n < N) dinit[state_off + (size_t)p * N + n] = st[nt][e];
-      }
+  } else {
+    const int cols = chunks * 8;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < kWq * cols; i += NT) {
+      const int r = i / cols, c = i - r * cols;
+      *reinterpret_cast<bf16*>(dst + box_off(r, c, kWq)) =
+          r < rows && c < width ? src[r * stride + c] : __float2bfloat16(0.f);
     }
   }
 }
 
-constexpr int kBwdWarps = 8;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kBwdMaxP = 64;         // P the bf16 chunk pass holds whole
-
-// Shared-memory layout of the bf16 chunk pass: the chunk's x, dy, B and C
-// as bf16 tiles (Q, P and N padded to 16, swizzled or padded as the
-// forward's), S_prev and dS as [P][N] bf16 high and low parts, and eight
-// f32 rows of Q (dt, cum, exp(cum), w, the row sums of d cum, ddt's direct
-// term, dw, d(dt * a)) and the warps' sums.  Byte offsets.
-struct BwdLayout {
-  int Qp, Np, Pp, xp, xs, np, ns;
-  size_t x, g, b, c, s_hi, s_lo, d_hi, d_lo, rows, total;
-};
-
-__host__ __device__ inline BwdLayout bwd_layout(int Q, int P, int N) {
-  BwdLayout L;
-  L.Qp = (Q + 15) / 16 * 16;
-  L.Np = (N + 15) / 16 * 16;
-  L.Pp = (P + 15) / 16 * 16;
-  L.xp = tc::tile_pitch(L.Pp);
-  L.xs = tc::tile_swz(L.Pp);
-  L.np = tc::tile_pitch(L.Np);
-  L.ns = tc::tile_swz(L.Np);
-  const size_t qx = sizeof(bf16) * (size_t)L.Qp * L.xp;
-  const size_t qn = sizeof(bf16) * (size_t)L.Qp * L.np;
-  const size_t pn = sizeof(bf16) * (size_t)L.Pp * L.np;
-  L.x = 0;
-  L.g = qx;
-  L.b = 2 * qx;
-  L.c = L.b + qn;
-  L.s_hi = L.c + qn;
-  L.s_lo = L.s_hi + pn;
-  L.d_hi = L.s_lo + pn;
-  L.d_lo = L.d_hi + pn;
-  L.rows = L.d_lo + pn;
-  L.total = L.rows + sizeof(float) * (8 * (size_t)L.Qp + kBwdWarps);
-  return L;
+// `bytes` (a multiple of 16) from `src` to `dst` by 16-byte cp.async.
+template <int NT>
+__device__ __forceinline__ void copy_async(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int bytes) {
+#pragma unroll 1
+  for (int i = threadIdx.x * 16; i < bytes; i += NT * 16)
+    tc::cp_async16(dst + i, src + i, 16);
 }
 
-// Rows r0 .. r0 + 15, k-step ks of a row-major tile as A fragments.
-__device__ __forceinline__ void a_frag(uint32_t (&f)[4], const bf16* t,
-                                       int r0, int ks, int pitch, int swz,
-                                       int lane) {
-  tc::ldsm_x4(f, t + tc::tile_off(r0 + (lane & 15), ks * 16 + (lane >> 4) * 8,
-                                  pitch, swz));
+// 2^x by the SFU alone (ex2.approx.ftz: about 2 ulp, exp2(-inf) = 0)
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// B operand of two n8-tiles (columns n0 .. n0 + 15) at k-step ks from a
-// tile stored [n][k] (ldmatrix) ...
-__device__ __forceinline__ void b_nk(uint32_t (&f)[4], const bf16* t, int n0,
-                                     int ks, int pitch, int swz, int lane) {
-  tc::ldsm_x4(f, t + tc::tile_off(n0 + (lane & 7) + (lane >> 4) * 8,
-                                  ks * 16 + ((lane >> 3) & 1) * 8, pitch,
-                                  swz));
+constexpr float kLog2e = 1.4426950408889634f;
+
+// `p` as a value the compiler cannot see through: addresses and wgmma
+// descriptors derived from it are computed where they are used, not
+// hoisted out of the head loop (where dozens of 64-bit descriptors kept
+// live beside the persistent sums would spill).
+template <typename T>
+__device__ __forceinline__ T* fresh(T* p) {
+  asm volatile("" : "+l"(p));
+  return p;
 }
 
-// ... or from a tile stored [k][n] (ldmatrix.trans).
-__device__ __forceinline__ void b_kn(uint32_t (&f)[4], const bf16* t, int k0,
-                                     int n0, int pitch, int swz, int lane) {
-  tc::ldsm_x4_t(f, t + tc::tile_off(k0 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                    n0 + (lane >> 4) * 8, pitch, swz));
+// wgmma descriptors (hopper_tma_wgmma.cuh) of a freshly laundered
+// address: each is made just before the wgmma that reads it, not all of a
+// loop's ahead of it (64-bit values the persistent sums have no registers
+// for).
+__device__ __forceinline__ uint64_t desc_k(const void* p) {
+  return hop::desc_k_sw128(fresh(p));
+}
+__device__ __forceinline__ uint64_t desc_mn(const void* p,
+                                           uint32_t box_bytes) {
+  return hop::desc_mn_sw128(fresh(p), box_bytes);
 }
 
-// acc[2 q], acc[2 q + 1] += a * b for the B operand pair b (two n8-tiles).
-__device__ __forceinline__ void mma2(float (&d0)[4], float (&d1)[4],
-                                     const uint32_t (&a)[4],
-                                     const uint32_t (&b)[4]) {
-  tc::mma(d0, a, b[0], b[1]);
-  tc::mma(d1, a, b[2], b[3]);
-}
-
-// Rows g and g + 8 of sum_k A[r][k] * D[r][k], where A's fragments and the
-// accumulators D hold the same elements (the fragment layouts' identity):
-// this lane's part; the quad's four lanes add up to the whole rows.
-template <int KS>
-__device__ __forceinline__ void frag_dot(const uint32_t (&a)[KS][4],
-                                         const float (&d)[2 * KS][4],
-                                         int nks, float& ra, float& rb) {
+// One warp, lane l owning rows 4l .. 4l + 3 of a chunk: dt of its `rows`
+// tokens (stride H from dtb; zero past them), cum = inclusive cumsum of
+// dt * a, exp(cum) and w = exp(cum_last - cum) dt, into the f32 rows
+// `sdt`, `scum`, `se`, `sw`.
+__device__ __forceinline__ void chunk_rows_warp(const float* dtb, int H,
+                                                int rows, float a,
+                                                float* sdt, float* scum,
+                                                float* se, float* sw,
+                                                int lane) {
+  float d[4], c[4], run = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    if (ks >= nks) continue;
+  for (int k = 0; k < 4; ++k) {
+    const int j = 4 * lane + k;
+    d[k] = j < rows ? dtb[(size_t)j * H] : 0.f;
+    run += d[k] * a;
+    c[k] = run;
+  }
+  float incl = run;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {    // a0: d[2ks] row g; a1: row g + 8;
-      const float2 f = __bfloat1622float2(   // a2, a3: d[2ks + 1]
-          *reinterpret_cast<const __nv_bfloat162*>(&a[ks][r]));
-      const float(&t)[4] = d[2 * ks + (r >> 1)];
-      if (r & 1)
-        rb += f.x * t[2] + f.y * t[3];
-      else
-        ra += f.x * t[0] + f.y * t[1];
-    }
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += u;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) c[k] += excl;
+  const float last = __shfl_sync(0xffffffffu, c[3], 31);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = 4 * lane + k;
+    sdt[j] = d[k];
+    scum[j] = c[k];
+    se[j] = expf(c[k]);
+    const float w = expf(last - c[k]) * d[k];
+    sw[j] = w;
   }
 }
 
@@ -1404,381 +1378,531 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// An accumulator pair (two n8-tiles of one 16-row block) as the A
-// fragments of the next product, high and low parts.
-__device__ __forceinline__ void acc_to_a(const float (&t0)[4],
-                                         const float (&t1)[4],
-                                         uint32_t (&hi)[4],
-                                         uint32_t (&lo)[4]) {
-  tc::split_bf16(t0[0], t0[1], hi[0], lo[0]);
-  tc::split_bf16(t0[2], t0[3], hi[1], lo[1]);
-  tc::split_bf16(t1[0], t1[1], hi[2], lo[2]);
-  tc::split_bf16(t1[2], t1[3], hi[3], lo[3]);
+__device__ __forceinline__ float2 bf16x2_at(const unsigned char* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// Chunk pass for bf16: one block of 8 warps per (batch, chunk, head), the
-// scalar chunk pass's sums on the tensor cores (mma.sync m16n8k16, f32
-// accumulators).  No [Q][Q] tile is kept: the triangle is recomputed in
-// each orientation instead, 16 x 16 at a time in registers.
-//   rows i (warp w: row blocks w, w + 8, ...):
-//     E = exp(cum_i) (dy S_prev);  d cum_i += C_i . E_i
-//     G = C B^T, D = dy x^T;       d cum_i += sum_j D G L dt_j
-//     dC_h = E + dG B,             dG = D L dt_j  (j <= i)
-//   rows j (the same warps, column blocks j):
-//     dx = w (B dS^T) + scores^T dy,  scores^T = (B C^T) L^T dt_j
-//     dB_h = w (x dS) + dG^T C,       dG^T = (x dy^T) L^T dt_j  (i >= j)
-//     dw_j = B_j . (x dS)_j;  ddt_j's direct term sum_i D G L
-// A warp's row block i has i + 1 column blocks and its row block j has
-// Q/16 - j, so at Q = 128 every warp does the same work.  The f32
-// operands of a product (dG, scores, S_prev, dS) go in as a high plus a
-// low bf16 part, as in the forward.  d cum becomes ddt and dA as in the
-// scalar pass.
-template <int NTN>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-ssd_bwd_chunk_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ A, const bf16* __restrict__ Bm,
-                 const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
-                 const float* __restrict__ states,
-                 const float* __restrict__ dS_all, bf16* __restrict__ dx,
-                 float* __restrict__ ddt, float* __restrict__ dB_h,
-                 float* __restrict__ dC_h, float* __restrict__ dA_part, int S,
-                 int H, int P, int N, int Q, long long xsb, long long xst,
-                 long long bsb, long long bst, long long csb, long long cst,
-                 int vec) {
-  constexpr int KS = NTN / 2;          // k-steps over N allocated
-  constexpr int PK = kBwdMaxP / 16;    // k-steps over P allocated
-  extern __shared__ __align__(128) unsigned char ssd_smem[];
-  const BwdLayout L = bwd_layout(Q, P, N);
-  bf16* sx = reinterpret_cast<bf16*>(ssd_smem + L.x);
-  bf16* sg = reinterpret_cast<bf16*>(ssd_smem + L.g);
-  bf16* sb = reinterpret_cast<bf16*>(ssd_smem + L.b);
-  bf16* sc = reinterpret_cast<bf16*>(ssd_smem + L.c);
-  bf16* s_hi = reinterpret_cast<bf16*>(ssd_smem + L.s_hi);
-  bf16* s_lo = reinterpret_cast<bf16*>(ssd_smem + L.s_lo);
-  bf16* d_hi = reinterpret_cast<bf16*>(ssd_smem + L.d_hi);
-  bf16* d_lo = reinterpret_cast<bf16*>(ssd_smem + L.d_lo);
-  float* sdt = reinterpret_cast<float*>(ssd_smem + L.rows);
-  float* scum = sdt + L.Qp;
-  float* se = scum + L.Qp;           // exp(cum_i)
-  float* sw = se + L.Qp;             // exp(cum_last - cum_j) dt_j
-  float* rowd = sw + L.Qp;           // d cum_i through rows i
-  float* direct = rowd + L.Qp;       // d dt_j through scores' dt_j
-  float* sdw = direct + L.Qp;        // d w_j
-  float* dda = sdw + L.Qp;           // d (dt a)_j
-  float* red = dda + L.Qp;           // [kBwdWarps]
+size_t delta_wg_smem_bytes(int N) {
+  return 1024 + (size_t)(1 + (N <= 64 ? 1 : 2)) * kBoxQ +
+         sizeof(float) * 4 * kWq;
+}
 
+// One (batch, chunk, head)'s S_prev and dS as the state scan writes them
+// for the chunk pass: [S hi | S lo | dS hi | dS lo], each a [64][64 NB]
+// bf16 box tile (zero past P and N), the bytes a stage holds.
+__host__ __device__ constexpr int split_part_bytes(int nb) {
+  return nb * kBoxP;
+}
+__host__ __device__ constexpr int split_tile_bytes(int nb) {
+  return 4 * split_part_bytes(nb);
+}
+
+// Shared memory of the chunk pass (byte offsets from the 1024-aligned
+// base).  Phase 1: B and C, G's three f32 tiles, `st` stages (two where
+// N <= 64) of [x | dy | the split S_prev and dS], the f32 rows and the
+// mbarriers.  Phase 2 reuses G's and the stages' bytes: dGsum's high and
+// low parts ([128][128] each), then [x | dS's high, low parts].
+struct CwLayout {
+  int nb, st;
+  size_t b, c, g, xdy, stage, rows, total, gs, p2;
+};
+
+__host__ __device__ inline CwLayout cw_layout(int nb) {
+  CwLayout L;
+  L.nb = nb;
+  L.st = nb == 1 ? 2 : 1;
+  L.b = 0;
+  L.c = (size_t)nb * kBoxQ;
+  L.g = 2 * (size_t)nb * kBoxQ;
+  L.xdy = L.g + 3 * (size_t)kGTile;
+  L.stage = 2 * (size_t)kBoxQ + split_tile_bytes(nb);
+  L.rows = L.xdy + L.st * L.stage;
+  L.total = 1024 + L.rows + sizeof(float) * kCwRows;
+  L.gs = L.g;
+  L.p2 = L.g + 4 * (size_t)kBoxQ;
+  return L;
+}
+
+size_t chunk_wg_smem_bytes(int N) {
+  return cw_layout(N <= 64 ? 1 : 2).total;
+}
+
+// Heads a chunk-pass block owns, a divisor of H up to kMaxGroup: the
+// largest where the (batch, chunk, head) triples make at most a wave,
+// else the one whose blocks (one an SM) fill their last wave best, the
+// larger on a tie.
+int chunk_wg_group(int B, int n_chunks, int H) {
+  const long long bc = (long long)B * n_chunks;
+  int best = 0;
+  long long best_blocks = 0, best_waves = 1;
+  for (int d = kMaxGroup; d >= 1; --d) {
+    if (H % d) continue;
+    if (bc * H <= kWave) return d;
+    const long long blocks = bc * (H / d);
+    const long long waves = (blocks + kWave - 1) / kWave;
+    if (blocks * best_waves > best_blocks * waves) {
+      best = d;
+      best_blocks = blocks;
+      best_waves = waves;
+    }
+  }
+  return best;
+}
+
+template <int NB>   // 64-column boxes of N: 1 (N <= 64) or 2 (N <= 128)
+__global__ void __launch_bounds__(kDwThreads)
+ssd_bwd_delta_wg(const bf16* __restrict__ dy, const float* __restrict__ dt,
+                 const float* __restrict__ A, const bf16* __restrict__ Cm,
+                 float* __restrict__ dS_all, float* __restrict__ dinit,
+                 float* __restrict__ decay, int S, int H, int P, int N,
+                 int Q, long long csb, long long cst, int vec) {
+  extern __shared__ unsigned char ssd_wg_raw[];
+  unsigned char* const smem = align_1024(ssd_wg_raw);
+  unsigned char* const sY = smem;                 // dy [128][64]
+  unsigned char* const sC = smem + kBoxQ;         // C [128][64 NB]
+  float* const sdt = reinterpret_cast<float*>(sC + NB * kBoxQ);
+  float* const scum = sdt + kWq;
+  float* const se = scum + kWq;
+  float* const sw = se + kWq;
   const int n_chunks = (S + Q - 1) / Q;
-  const int h = blockIdx.x % H;
-  const int bc = blockIdx.x / H;
+  const int h = blockIdx.x % H, bc = blockIdx.x / H;
   const int c = bc % n_chunks, b = bc / n_chunks;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t0 = c * Q, rows = min(Q, S - t0);
-  const float a = A[h];
-  const int nks = L.Np / 16, npk = L.Pp / 16, nrb = L.Qp / 16;
-  const long long row = (long long)H * P;
-  const size_t so = chunk_state_off(b, c, h, n_chunks, H, P, N);
-  const float* sp = states + so;     // S_prev [P][N]
-  const float* dsp = dS_all + so;    // dS [P][N]
-
-  zero_cols<kBwdThreads>(sx, L.Qp, P, L.Pp, L.xp, L.xs);
-  zero_cols<kBwdThreads>(sg, L.Qp, P, L.Pp, L.xp, L.xs);
-  zero_cols<kBwdThreads>(sb, L.Qp, N, L.Np, L.np, L.ns);
-  zero_cols<kBwdThreads>(sc, L.Qp, N, L.Np, L.np, L.ns);
-  load_rows<kBwdThreads>(sx, L.xp, L.xs, x + b * xsb + (size_t)h * P, xst,
-                         t0, rows, L.Qp, P, vec);
-  load_rows<kBwdThreads>(sg, L.xp, L.xs,
-                         dy + (size_t)b * S * row + (size_t)h * P, row, t0,
-                         rows, L.Qp, P, vec);
-  load_rows<kBwdThreads>(sb, L.np, L.ns, Bm + b * bsb, bst, t0, rows, L.Qp,
-                         N, vec);
-  load_rows<kBwdThreads>(sc, L.np, L.ns, Cm + b * csb, cst, t0, rows, L.Qp,
-                         N, vec);
-  load_dt<kBwdThreads>(sdt, dt + (size_t)b * S * H + h, H, t0, rows, L.Qp,
-                       vec);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long yrow = (long long)H * P;
+  load_box_tile<kDwThreads>(sY, 1, dy + ((size_t)b * S + t0) * yrow +
+                                       (size_t)h * P,
+                            yrow, rows, P, vec);
+  load_box_tile<kDwThreads>(sC, NB, Cm + b * csb + t0 * cst, cst, rows, N,
+                            vec);
   tc::cp_async_commit();
-  // S_prev and dS as high and low parts, zero past P and N
-  const int hn = L.Np / 2;
-  for (int i = tid; i < L.Pp * hn; i += kBwdThreads) {
-    const int p = i / hn, n = (i - p * hn) * 2;
-    float s0 = 0.f, s1 = 0.f, g0 = 0.f, g1 = 0.f;
-    if (p < P && n < N) {
-      s0 = sp[(size_t)p * N + n];
-      g0 = dsp[(size_t)p * N + n];
-      if (n + 1 < N) {
-        s1 = sp[(size_t)p * N + n + 1];
-        g1 = dsp[(size_t)p * N + n + 1];
-      }
-    }
-    const int o = tc::tile_off(p, n, L.np, L.ns);
-    tc::split_bf16(s0, s1, *reinterpret_cast<uint32_t*>(s_hi + o),
-                   *reinterpret_cast<uint32_t*>(s_lo + o));
-    tc::split_bf16(g0, g1, *reinterpret_cast<uint32_t*>(d_hi + o),
-                   *reinterpret_cast<uint32_t*>(d_lo + o));
-  }
+  if (warp == 0)
+    chunk_rows_warp(dt + ((size_t)b * S + t0) * H + h, H, rows, A[h], sdt,
+                    scum, se, sw, lane);
   tc::cp_async_wait<0>();
+  hop::fence_proxy_async();
   __syncthreads();
-  chunk_cumsum<kBwdWarps>(sdt, a, scum, red, L.Qp);
-  const float cum_last = scum[L.Qp - 1];     // padded rows add dt = 0
-  for (int j = tid; j < L.Qp; j += kBwdThreads) {
-    se[j] = expf(scum[j]);
-    sw[j] = expf(cum_last - scum[j]) * sdt[j];
-  }
-  __syncthreads();
+  if (tid == 0)
+    decay[((size_t)b * n_chunks + c) * H + h] = expf(scum[kWq - 1]);
+  if (c == 0 && dinit == nullptr) return;     // Delta_0 feeds dinit only
 
-  // ---- rows i: dC_h and d cum_i ----
-  for (int rb = warp; rb < nrb; rb += kBwdWarps) {
-    const int i0 = rb * 16;
-    if (i0 >= rows) continue;
-    uint32_t cf[KS][4], yf[PK][4];
+  // A = dy^T o exp(cum): rows p of the warp, k = 16 tokens a step
+  uint32_t ah[8][4], al[8][4];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      if (ks < nks) a_frag(cf[ks], sc, i0, ks, L.np, L.ns, lane);
+  for (int jk = 0; jk < 8; ++jk) {
+    uint32_t ga[4];
+    tc::ldsm_x4_t(ga, sY + box_off(jk * 16 + (lane & 7) + (lane >> 4) * 8,
+                                   warp * 16 + ((lane >> 3) & 1) * 8, kWq));
+    const int jb = jk * 16 + (lane & 3) * 2;
+    const float e0 = se[jb], e1 = se[jb + 1], e8 = se[jb + 8],
+                e9 = se[jb + 9];
 #pragma unroll
-    for (int pk = 0; pk < PK; ++pk)
-      if (pk < npk) a_frag(yf[pk], sg, i0, pk, L.xp, L.xs, lane);
-    float acc[NTN][4];
+    for (int r = 0; r < 4; ++r)
+      tc::scale_split_bf16(ga[r], r < 2 ? e0 : e8, r < 2 ? e1 : e9,
+                           ah[jk][r], al[jk][r]);
+  }
+  float acc[NB][32];
 #pragma unroll
-    for (int nt = 0; nt < NTN; ++nt)
-      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    // E = exp(cum_i) (dy S_prev): S_prev [p][n] is k-major here
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int q = 0; q < KS; ++q) {
-      if (q >= nks) continue;
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+  hop::wgmma_fence();
 #pragma unroll
-      for (int pk = 0; pk < PK; ++pk) {
-        if (pk >= npk) continue;
-        uint32_t hi[4], lo[4];
-        b_kn(hi, s_hi, pk * 16, q * 16, L.np, L.ns, lane);
-        b_kn(lo, s_lo, pk * 16, q * 16, L.np, L.ns, lane);
-        mma2(acc[2 * q], acc[2 * q + 1], yf[pk], hi);
-        mma2(acc[2 * q], acc[2 * q + 1], yf[pk], lo);
-      }
+  for (int jk = 0; jk < 8; ++jk)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const uint64_t bd =
+          desc_mn(sC + nb * kBoxQ + jk * 16 * 128, kBoxQ);
+      hop::wgmma_rs(acc[nb], ah[jk], bd, 1);
+      hop::wgmma_rs(acc[nb], al[jk], bd, 1);
     }
-    const int ia = i0 + (lane >> 2), ib = ia + 8;
-    const float ca = scum[ia], cb = scum[ib];
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
 #pragma unroll
-    for (int nt = 0; nt < NTN; ++nt) {
-      acc[nt][0] *= se[ia];
-      acc[nt][1] *= se[ia];
-      acc[nt][2] *= se[ib];
-      acc[nt][3] *= se[ib];
-    }
-    float ra = 0.f, rbs = 0.f;       // d cum of rows ia and ib
-    frag_dot<KS>(cf, acc, nks, ra, rbs);
-    // the triangle, 16 columns j at a time
-    for (int jk = 0; jk <= rb; ++jk) {
-      float gt[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      float dd[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  for (int nb = 0; nb < NB; ++nb) hop::fence_regs(acc[nb]);
+
+  float* out = c > 0 ? dS_all + chunk_state_off(b, c - 1, h, n_chunks, H,
+                                                P, N)
+                     : dinit + ((size_t)b * H + h) * P * N;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        if (ks >= nks) continue;
-        uint32_t bk[4];
-        b_nk(bk, sb, jk * 16, ks, L.np, L.ns, lane);
-        mma2(gt[0], gt[1], cf[ks], bk);
-      }
+  for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int pk = 0; pk < PK; ++pk) {
-        if (pk >= npk) continue;
-        uint32_t xk[4];
-        b_nk(xk, sx, jk * 16, pk, L.xp, L.xs, lane);
-        mma2(dd[0], dd[1], yf[pk], xk);
-      }
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = jk * 16 + nt * 8 + (lane & 3) * 2 + (e & 1);
-          const int i = e < 2 ? ia : ib;
-          float dg = 0.f;
-          if (j <= i) {
-            const float l = expf((e < 2 ? ca : cb) - scum[j]) * sdt[j];
-            const float t = dd[nt][e] * gt[nt][e] * l;
-            if (e < 2)
-              ra += t;
-            else
-              rbs += t;
-            dg = dd[nt][e] * l;
-          }
-          dd[nt][e] = dg;
+      for (int half = 0; half < 2; ++half) {
+        const int p = warp * 16 + (lane >> 2) + 8 * half;
+        const int n = nb * 64 + j * 8 + (lane & 3) * 2;
+        if (p >= P || n >= N) continue;
+        const float v0 = acc[nb][4 * j + 2 * half],
+                    v1 = acc[nb][4 * j + 2 * half + 1];
+        float* o = out + (size_t)p * N + n;
+        if ((N & 1) == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (n + 1 < N) o[1] = v1;
         }
       }
-      uint32_t gh[4], gl[4];
-      acc_to_a(dd[0], dd[1], gh, gl);
-      // dC_h += dG B_j: B [j][n] is k-major here
+}
+
+// The reverse scan over the chunks, one thread per column pair (p, n,
+// n + 1) of the padded [64][64 NB] state of one (batch, head), from the
+// last chunk (dS = dfinal) to the first: writes each chunk's split tile
+// (S_prev from `states`, dS) for the chunk pass, and this block's part of
+// sum(S_prev o dS) to sdot[b, c, h, block]; dS_c-1 = exp(cum_last,c) dS_c
+// + Delta_c, where Delta_c lies in slot c - 1 of `delta`; dinit holds
+// Delta_0 on entry (unless null) and the gradient of init_state on exit.
+template <int NB>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_state_scan(const float* __restrict__ delta,
+                   const float* __restrict__ states,
+                   const float* __restrict__ dfinal,
+                   const float* __restrict__ decay,
+                   unsigned char* __restrict__ split,
+                   float* __restrict__ sdot, float* __restrict__ dinit,
+                   int n_chunks, int H, int P, int N) {
+  __shared__ float red[kThreads / 32];
+  constexpr int kPart = split_part_bytes(NB);
+  const int i = blockIdx.x * kThreads + threadIdx.x;   // < 64 * 32 * NB
+  const int p = i / (32 * NB), n = (i - p * (32 * NB)) * 2;
+  const bool in = p < P && n < N, two = in && n + 1 < N;
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t PN = (size_t)P * N, e = in ? (size_t)p * N + n : 0;
+  const int off = box_off(p, n, 64);
+  auto ld2 = [&](const float* m) {
+    float2 v = make_float2(0.f, 0.f);
+    if (two && (N & 1) == 0) {
+      v = *reinterpret_cast<const float2*>(m + e);
+    } else if (in) {
+      v.x = m[e];
+      if (two) v.y = m[e + 1];
+    }
+    return v;
+  };
+  auto at = [&](int c) { return chunk_state_off(b, c, h, n_chunks, H, P, N); };
+  float2 v = dfinal ? ld2(dfinal + bh * PN) : make_float2(0.f, 0.f);
+  float2 s = ld2(states + at(n_chunks - 1));
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    float2 s_next = make_float2(0.f, 0.f), d_c = make_float2(0.f, 0.f);
+    if (c > 0) {
+      s_next = ld2(states + at(c - 1));
+      d_c = ld2(delta + at(c - 1));
+    }
+    unsigned char* t =
+        split + (((size_t)b * n_chunks + c) * H + h) * split_tile_bytes(NB) +
+        off;
+    tc::split_bf16(s.x, s.y, *reinterpret_cast<uint32_t*>(t),
+                   *reinterpret_cast<uint32_t*>(t + kPart));
+    tc::split_bf16(v.x, v.y, *reinterpret_cast<uint32_t*>(t + 2 * kPart),
+                   *reinterpret_cast<uint32_t*>(t + 3 * kPart));
+    float dot = warp_sum(fmaf(s.x, v.x, s.y * v.y));
+    if (lane == 0) red[warp] = dot;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float sum = 0.f;
+      for (int k = 0; k < kThreads / 32; ++k) sum += red[k];
+      sdot[(((size_t)b * n_chunks + c) * H + h) * gridDim.x + blockIdx.x] =
+          sum;
+    }
+    __syncthreads();
+    if (c > 0) {
+      const float dec = decay[((size_t)b * n_chunks + c) * H + h];
+      v = make_float2(fmaf(dec, v.x, d_c.x), fmaf(dec, v.y, d_c.y));
+      s = s_next;
+    }
+  }
+  if (dinit && in) {
+    const float dec = decay[(size_t)b * n_chunks * H + h];
+    float* di = dinit + bh * PN + e;
+    di[0] = fmaf(dec, v.x, di[0]);
+    if (two) di[1] = fmaf(dec, v.y, di[1]);
+  }
+}
+
+// d cum -> d(dt a), a warp a (batch, chunk, head): the reverse cumsum of
+// the chunk pass's d cum over the chunk's rows (lane l owning rows 4 l ..
+// 4 l + 3), with d cum_last's other term, exp(cum_last) sum(S_prev o dS),
+// added on the last row; ddt += a d(dt a) and the (batch, chunk) part of
+// dA = sum dt d(dt a).
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dcum_scan(const float* __restrict__ dcum, const float* __restrict__ dt,
+                  const float* __restrict__ A,
+                  const float* __restrict__ decay,
+                  const float* __restrict__ sdot, float* __restrict__ ddt,
+                  float* __restrict__ dA_part, int S, int H, int Q,
+                  int n_sdot, long long n_items) {
+  const long long item =
+      (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (item >= n_items) return;               // a whole warp
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = (S + Q - 1) / Q;
+  const int h = (int)(item % H);
+  const long long bc = item / H;
+  const int c = (int)(bc % n_chunks), b = (int)(bc / n_chunks);
+  const int t0 = c * Q, rows = min(Q, S - t0);
+  float dc[4], suf[4], run = 0.f;
 #pragma unroll
-      for (int q = 0; q < KS; ++q) {
-        if (q >= nks) continue;
-        uint32_t bx[4];
-        b_kn(bx, sb, jk * 16, q * 16, L.np, L.ns, lane);
-        mma2(acc[2 * q], acc[2 * q + 1], gh, bx);
-        mma2(acc[2 * q], acc[2 * q + 1], gl, bx);
+  for (int k = 0; k < 4; ++k) {
+    const int j = 4 * lane + k;
+    dc[k] = j < rows ? dcum[((size_t)b * S + t0 + j) * H + h] : 0.f;
+    if (j == rows - 1) {
+      float sd = 0.f;
+      for (int i = 0; i < n_sdot; ++i) sd += sdot[item * n_sdot + i];
+      dc[k] = fmaf(decay[item], sd, dc[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 3; k >= 0; --k) {
+    run += dc[k];
+    suf[k] = run;
+  }
+  float t = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_down_sync(0xffffffffu, t, off);
+    if (lane + off < 32) t += u;
+  }
+  float excl = __shfl_down_sync(0xffffffffu, t, 1);
+  if (lane == 31) excl = 0.f;
+  const float a = A[h];
+  float da = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = 4 * lane + k;
+    if (j >= rows) continue;
+    const size_t o = ((size_t)b * S + t0 + j) * H + h;
+    const float dda = suf[k] + excl;
+    ddt[o] = fmaf(a, dda, ddt[o]);
+    da = fmaf(dt[o], dda, da);
+  }
+  da = warp_sum(da);
+  if (lane == 0) dA_part[item] = da;
+}
+
+// Pointers and values of one chunk-pass block that the warpgroups' parts
+// read.
+struct CwCtx {
+  const unsigned char *sB, *sC, *sx, *sy, *s_hi, *s_lo, *d_hi, *d_lo;
+  const float *sG, *sdt, *scum, *se, *sw;
+  float *rowdE, *rowdT, *sdw, *colp, *tri;
+  int warp, lane;
+};
+
+// The lower triangle of a 64 x 64 tile, row by row: element (i, j <= i).
+constexpr int kTri = 64 * 65 / 2;
+__device__ __forceinline__ int tri_off(int i, int j) {
+  return i * (i + 1) / 2 + j;
+}
+
+__device__ __forceinline__ float g_at(const float* sG, int i, int j) {
+  return sG[((i >> 6) + (j >> 6)) * (64 * kGPitch) + (i & 63) * kGPitch +
+            (j & 63)];
+}
+
+// acc[nb] += w_j (x dS)[rows R] for one head: dB's head term (x and dS
+// from the phase-2 stage)
+template <int W, int NB>
+__device__ __forceinline__ void db_head_term(float (&acc)[NB][32],
+                                             const unsigned char* px,
+                                             const unsigned char* pd_hi,
+                                             const unsigned char* pd_lo,
+                                             float w0, float w1) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    float X2[32];
+    hop::wgmma_fence();
+#pragma unroll
+    for (int part = 0; part < 2; ++part)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        hop::wgmma_ss_t<0, 1>(
+            X2, desc_k(px + W * 8192 + ks * 32),
+            desc_mn((part ? pd_lo : pd_hi) + nb * kBoxP +
+                               ks * 2048, kBoxP),
+            part > 0 || ks > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(X2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[nb][4 * j] = fmaf(w0, X2[4 * j], acc[nb][4 * j]);
+      acc[nb][4 * j + 1] = fmaf(w0, X2[4 * j + 1], acc[nb][4 * j + 1]);
+      acc[nb][4 * j + 2] = fmaf(w1, X2[4 * j + 2], acc[nb][4 * j + 2]);
+      acc[nb][4 * j + 3] = fmaf(w1, X2[4 * j + 3], acc[nb][4 * j + 3]);
+    }
+  }
+}
+
+// Warpgroup W's share of one head, rows R = [64 W, 64 W + 64), in two
+// parts.  The group's sum of dG = D o L dt_j, dGsum, is kept for three
+// 64 x 64 tiles, each by the warpgroup that computes its D: (1, 1) and
+// (1, 0) in the registers of warpgroups 0 and 1 (dGs), (0, 0) as a lower
+// triangle in shared memory (`tri`, added to by its owning threads only),
+// so that no warpgroup holds more than one tile of it beside dC's sum.  The first reads S_prev and dS: E on rows i of R (dC's head term
+// into dCacc, C_i . E_i) and X = B dS^T on rows j of R (dw_j; w o X starts
+// dx in X).  The second reads dy, x and G: scores^T dy into X, dx stored,
+// and the D tiles it owns (W = 0: (1, 1); W = 1: (0, 0) and (1, 0), which
+// balances the triangle's wgmma work with dx's: three tiles each).
+template <int W, int NB>
+__device__ __forceinline__ void chunk_head_a(const CwCtx& m0,
+                                             float (&dCacc)[NB][32],
+                                             float (&X)[32]) {
+  CwCtx m = m0;
+  const int warp = m.warp, lane = m.lane, gq = lane >> 2, cq = lane & 3;
+  const int r0 = 64 * W + 16 * warp + gq, r1 = r0 + 8;
+  // ---- E = dy S_prev on rows i of R ----
+  {
+    m.sy = fresh(m.sy);
+    m.s_hi = fresh(m.s_hi);
+    m.s_lo = fresh(m.s_lo);
+    float ce0 = 0.f, ce1 = 0.f;
+    const float e0 = m.se[r0], e1 = m.se[r1];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      float E[32];
+      hop::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        hop::wgmma_ss_t<0, 1>(
+            E, desc_k(m.sy + W * 8192 + ks * 32),
+            desc_mn(m.s_hi + nb * kBoxP + ks * 2048, kBoxP),
+            ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        hop::wgmma_ss_t<0, 1>(
+            E, desc_k(m.sy + W * 8192 + ks * 32),
+            desc_mn(m.s_lo + nb * kBoxP + ks * 2048, kBoxP), 1);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(E);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = nb * 64 + j * 8 + cq * 2;
+        const float2 c0 = bf16x2_at(m.sC + box_off(r0, n, kWq));
+        const float2 c1 = bf16x2_at(m.sC + box_off(r1, n, kWq));
+        ce0 = fmaf(c0.x, E[4 * j], fmaf(c0.y, E[4 * j + 1], ce0));
+        ce1 = fmaf(c1.x, E[4 * j + 2], fmaf(c1.y, E[4 * j + 3], ce1));
+        dCacc[nb][4 * j] = fmaf(e0, E[4 * j], dCacc[nb][4 * j]);
+        dCacc[nb][4 * j + 1] = fmaf(e0, E[4 * j + 1], dCacc[nb][4 * j + 1]);
+        dCacc[nb][4 * j + 2] = fmaf(e1, E[4 * j + 2], dCacc[nb][4 * j + 2]);
+        dCacc[nb][4 * j + 3] = fmaf(e1, E[4 * j + 3], dCacc[nb][4 * j + 3]);
       }
     }
-    ra = quad_sum(ra);
-    rbs = quad_sum(rbs);
-    if ((lane & 3) == 0) {
-      rowd[ia] = ra;
-      rowd[ib] = rbs;
+    ce0 = quad_sum(ce0) * e0;
+    ce1 = quad_sum(ce1) * e1;
+    if (cq == 0) {
+      m.rowdE[r0] = ce0;
+      m.rowdE[r1] = ce1;
+    }
+  }
+  // ---- X = B dS^T, dw, w o X on rows j of R ----
+  {
+    m.sB = fresh(m.sB);
+    m.d_hi = fresh(m.d_hi);
+    m.d_lo = fresh(m.d_lo);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4 * NB; ++ks)
+      hop::wgmma_ss_t<0, 0>(
+          X,
+          desc_k(m.sB + (ks >> 2) * kBoxQ + W * 8192 +
+                            (ks & 3) * 32),
+          desc_k(m.d_hi + (ks >> 2) * kBoxP + (ks & 3) * 32),
+          ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < 4 * NB; ++ks)
+      hop::wgmma_ss_t<0, 0>(
+          X,
+          desc_k(m.sB + (ks >> 2) * kBoxQ + W * 8192 +
+                            (ks & 3) * 32),
+          desc_k(m.d_lo + (ks >> 2) * kBoxP + (ks & 3) * 32), 1);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(X);
+    float dw0 = 0.f, dw1 = 0.f;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      const int p = jn * 8 + cq * 2;
+      const float2 x0 = bf16x2_at(m.sx + box_off(r0, p, kWq));
+      const float2 x1 = bf16x2_at(m.sx + box_off(r1, p, kWq));
+      dw0 = fmaf(x0.x, X[4 * jn], fmaf(x0.y, X[4 * jn + 1], dw0));
+      dw1 = fmaf(x1.x, X[4 * jn + 2], fmaf(x1.y, X[4 * jn + 3], dw1));
+    }
+    dw0 = quad_sum(dw0);
+    dw1 = quad_sum(dw1);
+    if (cq == 0) {
+      m.sdw[r0] = dw0;
+      m.sdw[r1] = dw1;
+    }
+    const float w0 = m.sw[r0], w1 = m.sw[r1];
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      X[4 * jn] *= w0;
+      X[4 * jn + 1] *= w0;
+      X[4 * jn + 2] *= w1;
+      X[4 * jn + 3] *= w1;
+    }
+  }
+}
+
+template <int W, int NB>
+__device__ __forceinline__ void chunk_head_b(
+    const CwCtx& m0, float (&dGs)[32], float (&X)[32],
+    bf16* __restrict__ dxr, long long xrow_out, int rows, int P) {
+  CwCtx m = m0;
+  const int warp = m.warp, lane = m.lane, gq = lane >> 2, cq = lane & 3;
+  const int r0 = 64 * W + 16 * warp + gq, r1 = r0 + 8;
+  // ---- dx = w o X + scores^T dy on rows j of R ----
+  {
+    m.sy = fresh(m.sy);
+    const float cj0 = m.scum[r0] * kLog2e, cj1 = m.scum[r1] * kLog2e;
+    const float dj0 = m.sdt[r0], dj1 = m.sdt[r1];
+    // k over the i >= 64 W, two k-steps (32 i) a batch
+#pragma unroll
+    for (int kb = 2 * W; kb < 4; ++kb) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int ib = 32 * kb + 16 * kk + cq * 2;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {   // a0/a2: row r0, a1/a3: row r1
+          const int j = r & 1 ? r1 : r0;
+          const float cj = r & 1 ? cj1 : cj0, dj = r & 1 ? dj1 : dj0;
+          const int i = ib + (r >> 1) * 8;
+          const float v0 =
+              i >= j ? g_at(m.sG, i, j) *
+                           exp2_sfu(fmaf(m.scum[i], kLog2e, -cj)) * dj
+                     : 0.f;
+          const float v1 =
+              i + 1 >= j ? g_at(m.sG, i + 1, j) *
+                               exp2_sfu(fmaf(m.scum[i + 1], kLog2e, -cj)) *
+                               dj
+                         : 0.f;
+          tc::split_bf16(v0, v1, ah[kk][r], al[kk][r]);
+        }
+      }
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint64_t bd =
+            desc_mn(m.sy + (32 * kb + 16 * kk) * 128, kBoxQ);
+        hop::wgmma_rs(X, ah[kk], bd, 1);
+        hop::wgmma_rs(X, al[kk], bd, 1);
+      }
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(X);
     }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int i = half ? ib : ia;
-      if (i >= rows) continue;
-      float* dst = dC_h + (((size_t)b * S + t0 + i) * H + h) * N;
-#pragma unroll
-      for (int nt = 0; nt < NTN; ++nt) {
-        const int n = nt * 8 + (lane & 3) * 2;
-        if (n < N) dst[n] = acc[nt][2 * half];
-        if (n + 1 < N) dst[n + 1] = acc[nt][2 * half + 1];
-      }
-    }
-  }
-
-  // ---- rows j: dx, dB_h, dw_j and ddt_j's direct term ----
-  for (int jb = warp; jb < nrb; jb += kBwdWarps) {
-    const int j0 = jb * 16;
-    if (j0 >= rows) continue;
-    uint32_t bf[KS][4], xf[PK][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      if (ks < nks) a_frag(bf[ks], sb, j0, ks, L.np, L.ns, lane);
-#pragma unroll
-    for (int pk = 0; pk < PK; ++pk)
-      if (pk < npk) a_frag(xf[pk], sx, j0, pk, L.xp, L.xs, lane);
-    float ax[2 * PK][4], ab[NTN][4];
-#pragma unroll
-    for (int t = 0; t < 2 * PK; ++t)
-      ax[t][0] = ax[t][1] = ax[t][2] = ax[t][3] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NTN; ++nt)
-      ab[nt][0] = ab[nt][1] = ab[nt][2] = ab[nt][3] = 0.f;
-    // B dS^T (dS [p][n] as [n][k]) and x dS (dS [p][n] k-major)
-#pragma unroll
-    for (int q = 0; q < PK; ++q) {
-      if (q >= npk) continue;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        if (ks >= nks) continue;
-        uint32_t hi[4], lo[4];
-        b_nk(hi, d_hi, q * 16, ks, L.np, L.ns, lane);
-        b_nk(lo, d_lo, q * 16, ks, L.np, L.ns, lane);
-        mma2(ax[2 * q], ax[2 * q + 1], bf[ks], hi);
-        mma2(ax[2 * q], ax[2 * q + 1], bf[ks], lo);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < KS; ++q) {
-      if (q >= nks) continue;
-#pragma unroll
-      for (int pk = 0; pk < PK; ++pk) {
-        if (pk >= npk) continue;
-        uint32_t hi[4], lo[4];
-        b_kn(hi, d_hi, pk * 16, q * 16, L.np, L.ns, lane);
-        b_kn(lo, d_lo, pk * 16, q * 16, L.np, L.ns, lane);
-        mma2(ab[2 * q], ab[2 * q + 1], xf[pk], hi);
-        mma2(ab[2 * q], ab[2 * q + 1], xf[pk], lo);
-      }
-    }
-    const int ja = j0 + (lane >> 2), jb2 = ja + 8;
-    float wa = 0.f, wb = 0.f;        // dw of rows ja and jb2
-    frag_dot<KS>(bf, ab, nks, wa, wb);
-    const float swa = sw[ja], swb = sw[jb2];
-#pragma unroll
-    for (int t = 0; t < 2 * PK; ++t) {
-      ax[t][0] *= swa;
-      ax[t][1] *= swa;
-      ax[t][2] *= swb;
-      ax[t][3] *= swb;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NTN; ++nt) {
-      ab[nt][0] *= swa;
-      ab[nt][1] *= swa;
-      ab[nt][2] *= swb;
-      ab[nt][3] *= swb;
-    }
-    const float ca = scum[ja], cb = scum[jb2];
-    const float da = sdt[ja], db = sdt[jb2];
-    float ua = 0.f, ub = 0.f;        // ddt's direct term of ja and jb2
-    for (int ik = jb; ik < nrb && ik * 16 < rows; ++ik) {
-      float gt[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      float dd[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        if (ks >= nks) continue;
-        uint32_t ck[4];
-        b_nk(ck, sc, ik * 16, ks, L.np, L.ns, lane);
-        mma2(gt[0], gt[1], bf[ks], ck);
-      }
-#pragma unroll
-      for (int pk = 0; pk < PK; ++pk) {
-        if (pk >= npk) continue;
-        uint32_t yk[4];
-        b_nk(yk, sg, ik * 16, pk, L.xp, L.xs, lane);
-        mma2(dd[0], dd[1], xf[pk], yk);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = ik * 16 + nt * 8 + (lane & 3) * 2 + (e & 1);
-          const int j = e < 2 ? ja : jb2;
-          float sc_ = 0.f, dg = 0.f;
-          if (i >= j) {
-            const float l = expf(scum[i] - (e < 2 ? ca : cb));
-            const float dtj = e < 2 ? da : db;
-            const float u = dd[nt][e] * gt[nt][e] * l;
-            if (e < 2)
-              ua += u;
-            else
-              ub += u;
-            sc_ = gt[nt][e] * l * dtj;
-            dg = dd[nt][e] * l * dtj;
-          }
-          gt[nt][e] = sc_;
-          dd[nt][e] = dg;
-        }
-      }
-      uint32_t th[4], tl[4], gh[4], gl[4];
-      acc_to_a(gt[0], gt[1], th, tl);
-      acc_to_a(dd[0], dd[1], gh, gl);
-      // dx += scores^T dy_i, dB_h += dG^T C_i (dy and C k-major here)
-#pragma unroll
-      for (int q = 0; q < PK; ++q) {
-        if (q >= npk) continue;
-        uint32_t bx[4];
-        b_kn(bx, sg, ik * 16, q * 16, L.xp, L.xs, lane);
-        mma2(ax[2 * q], ax[2 * q + 1], th, bx);
-        mma2(ax[2 * q], ax[2 * q + 1], tl, bx);
-      }
-#pragma unroll
-      for (int q = 0; q < KS; ++q) {
-        if (q >= nks) continue;
-        uint32_t bx[4];
-        b_kn(bx, sc, ik * 16, q * 16, L.np, L.ns, lane);
-        mma2(ab[2 * q], ab[2 * q + 1], gh, bx);
-        mma2(ab[2 * q], ab[2 * q + 1], gl, bx);
-      }
-    }
-    ua = quad_sum(ua);
-    ub = quad_sum(ub);
-    wa = quad_sum(wa);
-    wb = quad_sum(wb);
-    if ((lane & 3) == 0) {
-      direct[ja] = ua;
-      direct[jb2] = ub;
-      sdw[ja] = wa;
-      sdw[jb2] = wb;
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int j = half ? jb2 : ja;
+      const int j = half ? r1 : r0;
       if (j >= rows) continue;
-      bf16* xr = dx + ((size_t)b * S + t0 + j) * row + (size_t)h * P;
+      bf16* xr = dxr + (long long)j * xrow_out;
 #pragma unroll
-      for (int t = 0; t < 2 * PK; ++t) {
-        const int p = t * 8 + (lane & 3) * 2;
-        const float v0 = ax[t][2 * half], v1 = ax[t][2 * half + 1];
+      for (int jn = 0; jn < 8; ++jn) {
+        const int p = jn * 8 + cq * 2;
+        const float v0 = X[4 * jn + 2 * half], v1 = X[4 * jn + 2 * half + 1];
         if (p + 1 < P && (P & 1) == 0) {
           *reinterpret_cast<uint32_t*>(xr + p) = tc::pack_bf16(v0, v1);
         } else {
@@ -1786,61 +1910,495 @@ ssd_bwd_chunk_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
           if (p + 1 < P) xr[p + 1] = __float2bfloat16(v1);
         }
       }
-      float* br = dB_h + (((size_t)b * S + t0 + j) * H + h) * N;
+    }
+  }
+  // ---- the D tiles: u = D o G o L and dGsum += D o L dt_j ----
+  {
+    m.sy = fresh(m.sy);
+    m.sx = fresh(m.sx);
+    constexpr int TJ = W == 0 ? 1 : 0;         // column block of its tiles
+    constexpr int NT = W == 0 ? 1 : 2;
 #pragma unroll
-      for (int nt = 0; nt < NTN; ++nt) {
-        const int n = nt * 8 + (lane & 3) * 2;
-        if (n < N) br[n] = ab[nt][2 * half];
-        if (n + 1 < N) br[n + 1] = ab[nt][2 * half + 1];
+    for (int k = 0; k < NT; ++k) {
+      const int ti = W == 0 ? 1 : k;
+      float Dt[32];
+      hop::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        hop::wgmma_ss_t<0, 0>(
+            Dt, desc_k(m.sy + ti * 8192 + ks * 32),
+            desc_k(m.sx + TJ * 8192 + ks * 32), ks > 0);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(Dt);
+      const int i0 = 64 * ti + 16 * warp + gq, i1 = i0 + 8;
+      const float ci0 = m.scum[i0] * kLog2e, ci1 = m.scum[i1] * kLog2e;
+      float ra = 0.f, rb = 0.f;
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        float colp[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? i0 : i1;
+          const int j = 64 * TJ + jn * 8 + cq * 2 + (e & 1);
+          if (j > i) continue;
+          const float l =
+              exp2_sfu((e < 2 ? ci0 : ci1) - m.scum[j] * kLog2e);
+          const float dtj = m.sdt[j], D = Dt[4 * jn + e];
+          const float u = D * g_at(m.sG, i, j) * l;
+          if (e < 2)
+            ra = fmaf(u, dtj, ra);
+          else
+            rb = fmaf(u, dtj, rb);
+          colp[e & 1] += u;
+          if (W == 1 && k == 0)     // tile (0, 0): the shared triangle
+            m.tri[tri_off(i, j)] = fmaf(D * l, dtj, m.tri[tri_off(i, j)]);
+          else
+            dGs[4 * jn + e] = fmaf(D * l, dtj, dGs[4 * jn + e]);
+        }
+        // the warp's sums of these two columns; a second tile (the same
+        // columns) adds on
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float v = colp[q];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          float* dst = m.colp + warp * kWq + 64 * TJ + jn * 8 + cq * 2 + q;
+          if (gq == 0) *dst = k ? *dst + v : v;
+        }
+      }
+      ra = quad_sum(ra);
+      rb = quad_sum(rb);
+      if (cq == 0) {
+        m.rowdT[W * kWq + i0] = ra;
+        m.rowdT[W * kWq + i1] = rb;
       }
     }
   }
-
-  // dS . S_prev in f32 from device memory, for the decay exp(cum_last)
-  float v = 0.f;
-  for (int i = tid; i < P * N; i += kBwdThreads) v = fmaf(dsp[i], sp[i], v);
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (tid == 0) {
-    float sdot = 0.f, wsum = 0.f;
-    for (int k = 0; k < kBwdWarps; ++k) sdot += red[k];
-    for (int j = 0; j < rows; ++j) wsum = fmaf(sdw[j], sw[j], wsum);
-    float run = expf(cum_last) * sdot + wsum;    // d cum_last's extra
-    float da = 0.f;
-    for (int j = L.Qp - 1; j >= 0; --j) {
-      if (j < rows) run += rowd[j] - direct[j] * sdt[j] - sdw[j] * sw[j];
-      dda[j] = run;
-      da = fmaf(sdt[j], run, da);
-    }
-    dA_part[((size_t)b * n_chunks + c) * H + h] = da;
-  }
-  __syncthreads();
-  for (int j = tid; j < rows; j += kBwdThreads)
-    ddt[((size_t)b * S + t0 + j) * H + h] =
-        a * dda[j] + direct[j] + sdw[j] * expf(cum_last - scum[j]);
 }
 
-template <int NTN>
-int launch_bwd_tc(const void* x, const void* dt, const void* A,
+// dGsum's tiles of warpgroup W into [128 i][128 j] high and low boxes
+// dGsum's tiles of warpgroup W into [128 i][128 j] high and low boxes
+// (tile (0, 1) is never read; (0, 0)'s upper triangle is written zero)
+template <int W>
+__device__ __forceinline__ void store_dgsum(const float (&dGs)[32],
+                                            const float* tri,
+                                            unsigned char* gs_hi,
+                                            unsigned char* gs_lo, int warp,
+                                            int lane) {
+  constexpr int NT = W == 0 ? 1 : 2;
+#pragma unroll
+  for (int k = 0; k < NT; ++k) {
+    const int ti = W == 0 ? 1 : 1 - k, tj = W == 0 ? 1 : 0;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int il = 16 * warp + (lane >> 2) + 8 * half;
+        const int jl = jn * 8 + (lane & 3) * 2;
+        float v0 = dGs[4 * jn + 2 * half], v1 = dGs[4 * jn + 2 * half + 1];
+        if (W == 1 && k == 1) {     // tile (0, 0), from the triangle
+          v0 = jl <= il ? tri[tri_off(il, jl)] : 0.f;
+          v1 = jl + 1 <= il ? tri[tri_off(il, jl + 1)] : 0.f;
+        }
+        const int off = box_off(64 * ti + il, 64 * tj + jl, kWq);
+        tc::split_bf16(v0, v1, *reinterpret_cast<uint32_t*>(gs_hi + off),
+                       *reinterpret_cast<uint32_t*>(gs_lo + off));
+      }
+  }
+}
+
+// acc[nb] += dGsum[rows R] B (W = 0: k over j < 64, where dGsum's upper
+// tile is zero; W = 1: all 128)
+template <int W, int NB>
+__device__ __forceinline__ void dc_from_dgsum(float (&acc)[NB][32],
+                                              const unsigned char* gs_hi,
+                                              const unsigned char* gs_lo,
+                                              const unsigned char* sB) {
+  constexpr int KS = W == 0 ? 4 : 8;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    hop::fence_regs(acc[nb]);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int part = 0; part < 2; ++part)
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        hop::wgmma_ss_t<0, 1>(
+            acc[nb],
+            desc_k((part ? gs_lo : gs_hi) + (ks >> 2) * kBoxQ +
+                              W * 8192 + (ks & 3) * 32),
+            desc_mn(sB + nb * kBoxQ + ks * 2048, kBoxQ), 1);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc[nb]);
+  }
+}
+
+// acc[nb] = dGsum^T[rows R] C, k over i >= 64 W (dGsum^T read MN-major)
+template <int W, int NB>
+__device__ __forceinline__ void db_from_dgsum(float (&acc)[NB][32],
+                                              const unsigned char* gs_hi,
+                                              const unsigned char* gs_lo,
+                                              const unsigned char* sC) {
+  constexpr int K0 = W == 0 ? 0 : 4;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    hop::wgmma_fence();
+#pragma unroll
+    for (int part = 0; part < 2; ++part)
+#pragma unroll
+      for (int ks = K0; ks < 8; ++ks)
+        hop::wgmma_ss_t<1, 1>(
+            acc[nb],
+            desc_mn((part ? gs_lo : gs_hi) + W * kBoxQ +
+                               ks * 2048, kBoxQ),
+            desc_mn(sC + nb * kBoxQ + ks * 2048, kBoxQ),
+            part > 0 || ks > K0);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(acc[nb]);
+  }
+}
+
+// rows r0 and r0 + 8 (those below `rows`) of acc[NB] into the f32 rows of
+// `out` (row stride `stride`), columns below N
+template <int NB>
+__device__ __forceinline__ void store_f32_rows(float* out, long long stride,
+                                               const float (&acc)[NB][32],
+                                               int r0, int rows, int N,
+                                               int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r >= rows) continue;
+    float* o = out + (long long)r * stride;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = nb * 64 + j * 8 + (lane & 3) * 2;
+        const float v0 = acc[nb][4 * j + 2 * half],
+                    v1 = acc[nb][4 * j + 2 * half + 1];
+        if ((N & 1) == 0 && n + 1 < N) {
+          *reinterpret_cast<float2*>(o + n) = make_float2(v0, v1);
+        } else {
+          if (n < N) o[n] = v0;
+          if (n + 1 < N) o[n + 1] = v1;
+        }
+      }
+  }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kCwThreads, 1)
+ssd_bwd_chunk_wg(const bf16* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const bf16* __restrict__ Bm,
+                 const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+                 const unsigned char* __restrict__ split,
+                 bf16* __restrict__ dx, float* __restrict__ ddt,
+                 float* __restrict__ dcum, float* __restrict__ dB_g,
+                 float* __restrict__ dC_g, int S, int H, int P, int N,
+                 int Q, int HG, long long xsb,
+                 long long xst, long long bsb, long long bst, long long csb,
+                 long long cst, int vec, int tma,
+                 const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_dy,
+                 const __grid_constant__ CUtensorMap tm_b,
+                 const __grid_constant__ CUtensorMap tm_c) {
+  constexpr int ST = NB == 1 ? 2 : 1;
+  constexpr int kPart = split_part_bytes(NB);
+  const CwLayout L = cw_layout(NB);
+  extern __shared__ unsigned char ssd_wg_raw[];
+  unsigned char* const smem = align_1024(ssd_wg_raw);
+  unsigned char* const sB = smem + L.b;
+  unsigned char* const sC = smem + L.c;
+  float* const sG = reinterpret_cast<float*>(smem + L.g);
+  float* const rw = reinterpret_cast<float*>(smem + L.rows);
+  float* const sdt = rw;
+  float* const scum = rw + kWq;
+  float* const se = rw + 2 * kWq;
+  float* const sw = rw + 3 * kWq;
+  float* const rowdE = rw + 4 * kWq;
+  float* const rowdT = rw + 5 * kWq;        // [2][128]
+  float* const sdw = rw + 7 * kWq;
+  float* const colp = rw + 8 * kWq;         // [4][128]
+  float* const tri = rw + 12 * kWq;         // [kTri] dGsum's tile (0, 0)
+  float* const wpart = tri + kTri;          // [4] a warp's w . dw
+  // the TMA route's mbarriers: B and C; each stage's x and dy, and its
+  // split states; phase 2's x and dS
+  uint64_t* const bar_bc = reinterpret_cast<uint64_t*>(wpart + 4);
+  uint64_t* const bar_xy = bar_bc + 1;
+  uint64_t* const bar_sp = bar_xy + 2;
+  uint64_t* const bar_p2 = bar_sp + 2;
+  constexpr int kBars = 6;
+
+  const int n_chunks = (S + Q - 1) / Q, n_groups = H / HG;
+  const int g = blockIdx.x % n_groups, bc = blockIdx.x / n_groups;
+  const int c = bc % n_chunks, b = bc / n_chunks;
+  const int t0 = c * Q, rows = min(Q, S - t0);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3,
+            lane = tid & 31;
+  const long long yrow = (long long)H * P;
+  const bf16* const xb = x + b * xsb + t0 * xst;
+  const bf16* const yb = dy + ((size_t)b * S + t0) * yrow;
+  auto split_of = [&](int h) {
+    return split + (((size_t)b * n_chunks + c) * H + h) * (4 * kPart);
+  };
+  // stage s: x, dy, then S_prev and dS (hi, lo each) as the scan split them
+  auto stage_x = [&](int s) { return smem + L.xdy + s * L.stage; };
+  // The two copy routes (chosen on the host from the layout): TMA boxes
+  // and one bulk copy, issued by thread 0 and awaited on mbarriers; or
+  // every thread's cp.async, awaited by wait_group.  Either way a stage is
+  // refilled only after a block barrier that follows its last read.
+  auto issue_xy = [&](int s, int h) {
+    if (!tma) {
+      load_box_tile<kCwThreads>(stage_x(s), 1, xb + (size_t)h * P, xst, rows,
+                                P, vec);
+      load_box_tile<kCwThreads>(stage_x(s) + kBoxQ, 1, yb + (size_t)h * P,
+                                yrow, rows, P, vec);
+    } else if (tid == 0) {
+      hop::mbar_arrive_expect_tx(&bar_xy[s], 2 * kBoxQ);
+      hop::tma_load_4d(stage_x(s), &tm_x, &bar_xy[s], 0, h, t0, b);
+      hop::tma_load_4d(stage_x(s) + kBoxQ, &tm_dy, &bar_xy[s], 0, h, t0, b);
+    }
+  };
+  auto issue_sp = [&](int s, int h) {
+    if (!tma) {
+      copy_async<kCwThreads>(stage_x(s) + 2 * kBoxQ, split_of(h), 4 * kPart);
+    } else if (tid == 0) {
+      hop::mbar_arrive_expect_tx(&bar_sp[s], 4 * kPart);
+      hop::bulk_load(stage_x(s) + 2 * kBoxQ, split_of(h), 4 * kPart,
+                     &bar_sp[s]);
+    }
+  };
+
+  if (tma && tid == 0) {
+    for (int i = 0; i < kBars; ++i) hop::mbar_init(&bar_bc[i], 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+  if (!tma) {
+    load_box_tile<kCwThreads>(sB, NB, Bm + b * bsb + t0 * bst, bst, rows, N,
+                              vec);
+    load_box_tile<kCwThreads>(sC, NB, Cm + b * csb + t0 * cst, cst, rows, N,
+                              vec);
+  } else if (tid == 0) {
+    hop::mbar_arrive_expect_tx(bar_bc, 2 * NB * kBoxQ);
+    for (int nb = 0; nb < NB; ++nb) {
+      hop::tma_load_3d(sB + nb * kBoxQ, &tm_b, bar_bc, 64 * nb, t0, b);
+      hop::tma_load_3d(sC + nb * kBoxQ, &tm_c, bar_bc, 64 * nb, t0, b);
+    }
+  }
+  issue_xy(0, g * HG);
+  issue_sp(0, g * HG);
+  if (tma) {
+    hop::mbar_wait(bar_bc, 0);
+  } else {
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    hop::fence_proxy_async();
+    __syncthreads();
+  }
+  {  // G = C B^T: warpgroup 0 the tile (1, 1), 1 the tiles (0, 0), (1, 0)
+    const int nt = wg == 0 ? 1 : 2;
+    for (int k = 0; k < nt; ++k) {
+      const int ti = wg == 0 ? 1 : k, tj = wg == 0 ? 1 : 0;
+      float acc[32];
+      hop::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4 * NB; ++ks)
+        hop::wgmma_ss_t<0, 0>(
+            acc,
+            desc_k(sC + (ks >> 2) * kBoxQ + ti * 8192 +
+                              (ks & 3) * 32),
+            desc_k(sB + (ks >> 2) * kBoxQ + tj * 8192 +
+                              (ks & 3) * 32),
+            ks > 0);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      float* tile = sG + (ti + tj) * (64 * kGPitch);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int il = 16 * warp + (lane >> 2) + 8 * half;
+          *reinterpret_cast<float2*>(tile + il * kGPitch + j * 8 +
+                                     (lane & 3) * 2) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+        }
+    }
+  }
+
+  float dCacc[NB][32], dGs[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) dCacc[nb][i] = 0.f;
+    dGs[i] = 0.f;
+  }
+  for (int i = tid; i < kTri; i += kCwThreads) tri[i] = 0.f;
+  const long long grow = (long long)n_groups * N;   // a token of dB_g/dC_g
+  for (int hh = 0; hh < HG; ++hh) {
+    const int h = g * HG + hh, st = ST == 2 ? (hh & 1) : 0;
+    if (ST == 2 && hh + 1 < HG) {
+      issue_xy(st ^ 1, h + 1);
+      issue_sp(st ^ 1, h + 1);
+      if (!tma) tc::cp_async_commit();
+    }
+    if (tid < 32)
+      chunk_rows_warp(dt + ((size_t)b * S + t0) * H + h, H, rows, A[h], sdt,
+                      scum, se, sw, lane);
+    if (tma) {
+      hop::mbar_wait(&bar_xy[st], (hh / ST) & 1);
+      hop::mbar_wait(&bar_sp[st], (hh / ST) & 1);
+    } else if (ST == 2 && hh + 1 < HG) {
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    hop::fence_proxy_async();
+    __syncthreads();
+    unsigned char* const sp = stage_x(st) + 2 * kBoxQ;
+    const CwCtx m{sB, sC, stage_x(st), stage_x(st) + kBoxQ, sp, sp + kPart,
+                  sp + 2 * kPart, sp + 3 * kPart, sG, sdt, scum, se, sw,
+                  rowdE, rowdT, sdw, colp, tri, warp, lane};
+    bf16* const dxr = dx + ((size_t)b * S + t0) * yrow + (size_t)h * P;
+    float X[32];
+    if (wg == 0)
+      chunk_head_a<0, NB>(m, dCacc, X);
+    else
+      chunk_head_a<1, NB>(m, dCacc, X);
+    if (ST == 1) {     // the split states are read: the next head's go in
+      hop::fence_proxy_async();
+      __syncthreads();
+      if (hh + 1 < HG) {
+        issue_sp(0, h + 1);
+        if (!tma) tc::cp_async_commit();
+      }
+    }
+    if (wg == 0)
+      chunk_head_b<0, NB>(m, dGs, X, dxr, yrow, rows, P);
+    else
+      chunk_head_b<1, NB>(m, dGs, X, dxr, yrow, rows, P);
+    hop::fence_proxy_async();
+    __syncthreads();
+    if (ST == 1 && hh + 1 < HG) {
+      issue_xy(0, h + 1);
+      if (!tma) tc::cp_async_commit();
+    }
+    if (tid < kWq) {   // row j's d cum and ddt's terms but d(dt a)'s
+      const int j = tid;
+      const float dir = colp[j] + colp[kWq + j] + colp[2 * kWq + j] +
+                        colp[3 * kWq + j];
+      float rowd = rowdT[kWq + j] + rowdE[j];
+      if (j >= 64) rowd += rowdT[j];
+      const float q = sdw[j] * sw[j];
+      if (j < rows) {
+        const size_t o = ((size_t)b * S + t0 + j) * H + h;
+        dcum[o] = rowd - dir * sdt[j] - q;
+        ddt[o] = dir +
+                 sdw[j] * exp2_sfu((scum[kWq - 1] - scum[j]) * kLog2e);
+      }
+      const float qs = warp_sum(q);
+      if (lane == 0) wpart[tid >> 5] = qs;
+    }
+    hop::fence_proxy_async();
+    __syncthreads();
+    if (tid == 0)      // d cum_last's w . dw, on the chunk's last row
+      dcum[((size_t)b * S + t0 + rows - 1) * H + h] +=
+          wpart[0] + wpart[1] + wpart[2] + wpart[3];
+  }
+
+  // ---- phase 2: dC += dGsum B; dB = dGsum^T C + sum_h w_h o (x_h dS_h),
+  // the last in a second pass over the heads (beside dC's sum and dGsum,
+  // registers have no room for dB's in the first) ----
+  unsigned char* const gs_hi = smem + L.gs;
+  unsigned char* const gs_lo = gs_hi + 2 * kBoxQ;
+  if (wg == 0)
+    store_dgsum<0>(dGs, tri, gs_hi, gs_lo, warp, lane);
+  else
+    store_dgsum<1>(dGs, tri, gs_hi, gs_lo, warp, lane);
+  unsigned char* const p2 = smem + L.p2;      // x, then dS's hi, lo parts
+  auto issue_xd = [&](int h) {
+    if (!tma) {
+      load_box_tile<kCwThreads>(p2, 1, xb + (size_t)h * P, xst, rows, P,
+                                vec);
+      copy_async<kCwThreads>(p2 + kBoxQ, split_of(h) + 2 * kPart,
+                             2 * kPart);
+      tc::cp_async_commit();
+    } else if (tid == 0) {
+      hop::mbar_arrive_expect_tx(bar_p2, kBoxQ + 2 * kPart);
+      hop::tma_load_4d(p2, &tm_x, bar_p2, 0, h, t0, b);
+      hop::bulk_load(p2 + kBoxQ, split_of(h) + 2 * kPart, 2 * kPart,
+                     bar_p2);
+    }
+  };
+  issue_xd(g * HG);
+  hop::fence_proxy_async();
+  __syncthreads();
+  const int r0 = 64 * wg + 16 * warp + (lane >> 2);
+  if (wg == 0)
+    dc_from_dgsum<0, NB>(dCacc, gs_hi, gs_lo, sB);
+  else
+    dc_from_dgsum<1, NB>(dCacc, gs_hi, gs_lo, sB);
+  store_f32_rows<NB>(dC_g + ((size_t)b * S + t0) * grow + (size_t)g * N,
+                     grow, dCacc, r0, rows, N, lane);
+  float dBacc[NB][32];
+  if (wg == 0)
+    db_from_dgsum<0, NB>(dBacc, gs_hi, gs_lo, sC);
+  else
+    db_from_dgsum<1, NB>(dBacc, gs_hi, gs_lo, sC);
+  for (int hh = 0; hh < HG; ++hh) {
+    const int h = g * HG + hh;
+    if (tid < 32)       // w of this head again
+      chunk_rows_warp(dt + ((size_t)b * S + t0) * H + h, H, rows, A[h],
+                      sdt, scum, se, sw, lane);
+    if (tma)
+      hop::mbar_wait(bar_p2, hh & 1);
+    else
+      tc::cp_async_wait<0>();
+    hop::fence_proxy_async();
+    __syncthreads();
+    const float w0 = sw[r0], w1 = sw[r0 + 8];
+    if (wg == 0)
+      db_head_term<0, NB>(dBacc, p2, p2 + kBoxQ, p2 + kBoxQ + kPart, w0,
+                          w1);
+    else
+      db_head_term<1, NB>(dBacc, p2, p2 + kBoxQ, p2 + kBoxQ + kPart, w0,
+                          w1);
+    hop::fence_proxy_async();
+    __syncthreads();
+    if (hh + 1 < HG) issue_xd(h + 1);
+  }
+  store_f32_rows<NB>(dB_g + ((size_t)b * S + t0) * grow + (size_t)g * N,
+                     grow, dBacc, r0, rows, N, lane);
+}
+
+template <int NB>
+int launch_bwd_wg(const void* x, const void* dt, const void* A,
                   const void* Bm, const void* Cm, const void* dy,
                   const void* dfinal, const void* states, void* dS_all,
-                  void* dB_h, void* dC_h, void* dA_part, void* dx, void* ddt,
+                  void* dB_g, void* dC_g, void* dA_part, void* decay,
+                  void* split, void* sdot, void* dcum, void* dx, void* ddt,
                   void* dA, void* dB, void* dC, void* dinit, int B, int S,
-                  int H, int P, int N, int Q, long long xsb, long long xst,
+                  int H,
+                  int P, int N, int Q, long long xsb, long long xst,
                   long long bsb, long long bst, long long csb, long long cst,
                   cudaStream_t stream) {
-  const TcLayout Lc = tc_layout(Q, P, N);
-  const BwdLayout Lb = bwd_layout(Q, P, N);
-  if (P > kBwdMaxP || Lc.total > kSmemLimit || Lb.total > kSmemLimit)
+  if (P > 64 || N > 64 * NB || Q > kWq || !decay || !split || !sdot ||
+      !dcum || (uintptr_t)split % 16)
     return (int)cudaErrorInvalidValue;
+  const size_t s_d = delta_wg_smem_bytes(N), s_c = chunk_wg_smem_bytes(N);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_carry_tc<NTN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Lc.total);
+      ssd_bwd_delta_wg<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)s_d);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(ssd_bwd_chunk_tc<NTN>,
+  err = cudaFuncSetAttribute(ssd_bwd_chunk_wg<NB>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Lb.total);
+                             (int)s_c);
   if (err != cudaSuccess) return (int)err;
   const long long row = (long long)H * P;
   const int vec = P % 8 == 0 && N % 8 == 0 &&
@@ -1848,26 +2406,62 @@ int launch_bwd_tc(const void* x, const void* dt, const void* A,
                   ((uintptr_t)x | (uintptr_t)Bm | (uintptr_t)Cm |
                    (uintptr_t)dy) % 16 == 0;
   const int n_chunks = (S + Q - 1) / Q;
-  ssd_bwd_carry_tc<NTN><<<B * H * ((P + kSliceP - 1) / kSliceP),
-                          kTcThreads, Lc.total, stream>>>(
+  const int HG = chunk_wg_group(B, n_chunks, H);
+  // the chunk pass's copy route: TMA where every row start is 16-byte
+  // aligned and a chunk fills its 128-row tiles (a box would otherwise
+  // bring the next chunk's rows), else cp.async
+  const int tma = vec && Q == kWq;
+  CUtensorMap tm_x{}, tm_dy{}, tm_b{}, tm_c{};
+  if (tma) {
+    const cuuint32_t box4[4] = {64, 1, (cuuint32_t)kWq, 1};
+    const cuuint32_t box3[3] = {64, (cuuint32_t)kWq, 1};
+    const cuuint64_t dx4[4] = {(cuuint64_t)P, (cuuint64_t)H, (cuuint64_t)S,
+                               (cuuint64_t)B};
+    const cuuint64_t sx[3] = {2ull * P, 2ull * xst, 2ull * xsb};
+    const cuuint64_t sy[3] = {2ull * P, 2ull * row, 2ull * row * S};
+    const cuuint64_t dn3[3] = {(cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t sb[2] = {2ull * bst, 2ull * bsb};
+    const cuuint64_t sc[2] = {2ull * cst, 2ull * csb};
+    int e = hop_host::strided_map(&tm_x, x, 4, dx4, sx, box4);
+    if (!e) e = hop_host::strided_map(&tm_dy, dy, 4, dx4, sy, box4);
+    if (!e) e = hop_host::strided_map(&tm_b, Bm, 3, dn3, sb, box3);
+    if (!e) e = hop_host::strided_map(&tm_c, Cm, 3, dn3, sc, box3);
+    if (e) return e;
+  }
+  ssd_bwd_delta_wg<NB><<<B * n_chunks * H, kDwThreads, s_d, stream>>>(
       (const bf16*)dy, (const float*)dt, (const float*)A, (const bf16*)Cm,
-      (const float*)dfinal, (float*)dS_all, (float*)dinit, S, H, P, N, Q, csb,
-      cst, vec);
+      (float*)dS_all, (float*)dinit, (float*)decay, S, H, P, N, Q, csb, cst,
+      vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ssd_bwd_chunk_tc<NTN><<<B * n_chunks * H, kBwdThreads, Lb.total, stream>>>(
+  ssd_bwd_state_scan<NB><<<dim3(8 * NB, B * H), kThreads, 0, stream>>>(
+      (const float*)dS_all, (const float*)states, (const float*)dfinal,
+      (const float*)decay, (unsigned char*)split, (float*)sdot,
+      (float*)dinit, n_chunks, H, P, N);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_chunk_wg<NB><<<B * n_chunks * (H / HG), kCwThreads, s_c, stream>>>(
       (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)Bm,
-      (const bf16*)Cm, (const bf16*)dy, (const float*)states,
-      (const float*)dS_all, (bf16*)dx, (float*)ddt, (float*)dB_h,
-      (float*)dC_h, (float*)dA_part, S, H, P, N, Q, xsb, xst, bsb, bst, csb,
-      cst, vec);
+      (const bf16*)Cm, (const bf16*)dy, (const unsigned char*)split,
+      (bf16*)dx, (float*)ddt, (float*)dcum, (float*)dB_g, (float*)dC_g, S,
+      H, P, N, Q, HG, xsb, xst, bsb, bst, csb, cst, vec, tma, tm_x, tm_dy,
+      tm_b, tm_c);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long items = (long long)B * n_chunks * H;
+  ssd_bwd_dcum_scan<<<(unsigned)((items + kThreads / 32 - 1) /
+                                 (kThreads / 32)),
+                      kThreads, 0, stream>>>(
+      (const float*)dcum, (const float*)dt, (const float*)A,
+      (const float*)decay, (const float*)sdot, (float*)ddt, (float*)dA_part,
+      S, H, Q, 8 * NB, items);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long BS = (long long)B * S;
   ssd_bwd_reduce<bf16><<<(unsigned)((BS * N + kThreads - 1) / kThreads),
                          kThreads, 0, stream>>>(
-      (const float*)dB_h, (const float*)dC_h, (const float*)dA_part,
-      (bf16*)dB, (bf16*)dC, (float*)dA, BS, H, N, B * n_chunks);
+      (const float*)dB_g, (const float*)dC_g, (const float*)dA_part,
+      (bf16*)dB, (bf16*)dC, (float*)dA, BS, H / HG, N, B * n_chunks, H);
   return (int)cudaGetLastError();
 }
 
@@ -1917,43 +2511,51 @@ extern "C" int ssd_scan_f32_slice(int Q, int P, int N) {
 // dC in it; everything else f32).  Reads x, B and C through their strides
 // as the forward does; dy [B, S, H, P] and dfinal (null: zeros) contiguous,
 // states [B, C, H, P, N] as the forward wrote it.  Scratch the caller
-// allocates: dS_all [B, C, H, P, N], dB_h and dC_h [B, S, H, N], dA_part
-// [B, C, H], all f32.  Writes dx [B, S, H, P], ddt [B, S, H], dA [H], dB
-// and dC [B, S, N] and, unless null, dinit [B, H, P, N].  Three launches on
-// `stream`: the carry pass, the chunk pass, the reduction over heads.
+// allocates: dS_all [B, C, H, P, N], dB_g and dC_g [B, S, G, N], dA_part
+// [B, C, H], all f32, G = H for f32 and H / ssd_scan_bwd_group(B, C, H)
+// for bf16, which also takes decay [B, C, H] f32, split [B, C, H,
+// ssd_scan_bwd_split_bytes(N)] bytes, sdot [B, C, H, 8 NB] f32, NB = 1
+// for N <= 64 else 2, and dcum [B, S, H] f32 (all null for f32).  Writes
+// dx [B, S, H, P], ddt [B, S, H], dA [H], dB and dC [B, S, N] and, unless
+// null, dinit [B, H, P, N].  On `stream`: f32 the carry pass, the chunk
+// pass and the reduction over heads; bf16 (P <= 64, N <= 128, Q <= 128)
+// the delta pass, the state scan, the chunk pass and the reduction over
+// head groups.
 extern "C" int ssd_scan_bwd_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* dy, const void* dfinal, const void* states,
-    void* dS_all, void* dB_h, void* dC_h, void* dA_part, void* dx, void* ddt,
-    void* dA, void* dB, void* dC, void* dinit, int dtype, int B, int S,
-    int H, int P, int N, int Q, long long xsb, long long xst, long long bsb,
-    long long bst, long long csb, long long cst, void* stream) {
+    void* dS_all, void* dB_g, void* dC_g, void* dA_part, void* decay,
+    void* split, void* sdot, void* dcum, void* dx, void* ddt, void* dA,
+    void* dB, void* dC, void* dinit, int dtype, int B, int S, int H, int P,
+    int N, int Q, long long xsb, long long xst, long long bsb, long long bst,
+    long long csb, long long cst, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_bwd_f32(x, dt, A, Bm, Cm, dy, dfinal, states, dS_all,
-                          dB_h, dC_h, dA_part, dx, ddt, dA, dB, dC, dinit, B,
+                          dB_g, dC_g, dA_part, dx, ddt, dA, dB, dC, dinit, B,
                           S, H, P, N, Q, xsb, xst, bsb, bst, csb, cst, st);
   if (N <= 64)
-    return launch_bwd_tc<8>(x, dt, A, Bm, Cm, dy, dfinal, states, dS_all,
-                            dB_h, dC_h, dA_part, dx, ddt, dA, dB, dC, dinit,
-                            B, S, H, P, N, Q, xsb, xst, bsb, bst, csb, cst,
-                            st);
+    return launch_bwd_wg<1>(x, dt, A, Bm, Cm, dy, dfinal, states, dS_all,
+                            dB_g, dC_g, dA_part, decay, split, sdot, dcum, dx,
+                            ddt, dA, dB, dC, dinit, B, S, H, P, N, Q, xsb,
+                            xst, bsb, bst, csb, cst, st);
   if (N <= 128)
-    return launch_bwd_tc<16>(x, dt, A, Bm, Cm, dy, dfinal, states, dS_all,
-                             dB_h, dC_h, dA_part, dx, ddt, dA, dB, dC, dinit,
-                             B, S, H, P, N, Q, xsb, xst, bsb, bst, csb, cst,
-                             st);
+    return launch_bwd_wg<2>(x, dt, A, Bm, Cm, dy, dfinal, states, dS_all,
+                            dB_g, dC_g, dA_part, decay, split, sdot, dcum, dx,
+                            ddt, dA, dB, dC, dinit, B, S, H, P, N, Q, xsb,
+                            xst, bsb, bst, csb, cst, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of a block of the backward's carry pass (pass 0;
-// f32: a slice of ssd_scan_bwd_carry_slice columns) and of its chunk pass
-// (pass 1), for dtype 0 = f32 (the scalar kernels) or 1 = bf16.
+// Dynamic shared memory of a block of the backward's first pass (pass 0:
+// f32 the carry pass, a slice of ssd_scan_bwd_carry_slice columns; bf16
+// the delta pass) and of its chunk pass (pass 1), for dtype 0 = f32 (the
+// scalar kernels) or 1 = bf16 (the wgmma kernels).
 extern "C" long long ssd_scan_bwd_smem_bytes(int Q, int P, int N, int dtype,
                                              int pass) {
   if (dtype == 1)
-    return (long long)(pass == 0 ? tc_layout(Q, P, N).total
-                                 : bwd_layout(Q, P, N).total);
+    return (long long)(pass == 0 ? delta_wg_smem_bytes(N)
+                                 : chunk_wg_smem_bytes(N));
   return (long long)(pass == 0 ? carry_smem_bytes(Q, carry_slice(Q, P, N), N)
                                : chunk_smem_bytes(Q));
 }
@@ -1962,3 +2564,15 @@ extern "C" long long ssd_scan_bwd_smem_bytes(int Q, int P, int N, int dtype,
 extern "C" int ssd_scan_bwd_carry_slice(int Q, int P, int N) {
   return carry_slice(Q, P, N);
 }
+
+// Heads a block of the bf16 chunk pass owns and sums dB and dC over.
+extern "C" int ssd_scan_bwd_group(int B, int n_chunks, int H) {
+  return chunk_wg_group(B, n_chunks, H);
+}
+
+// Bytes of one (batch, chunk, head)'s split S_prev and dS, which the bf16
+// backward's state scan writes for its chunk pass.
+extern "C" int ssd_scan_bwd_split_bytes(int N) {
+  return split_tile_bytes(N <= 64 ? 1 : 2);
+}
+

@@ -17,7 +17,10 @@ SOURCE = Path(__file__).parent / "csrc" / "ssd_scan.cu"
 SMEM_LIMIT = 232_448         # dynamic shared memory one block may use
 TC_MAX_STATE = 128           # N the bf16 (tensor-core) kernel takes
 TC_SLICE_P = 64              # P columns per block of the bf16 kernel
-TC_BWD_MAX_P = 64            # P the bf16 backward's chunk pass holds whole
+TC_BWD_MAX_P = 64            # P the bf16 backward's passes hold whole
+TC_BWD_MAX_Q = 128           # chunk rows the bf16 backward's tiles hold
+BWD_MAX_GROUP = 8            # heads a bf16 chunk-pass block sums over
+BWD_WAVE = 132               # blocks of one wave on an H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -86,28 +89,66 @@ def chunk_smem_bytes(Q: int) -> int:
     return 4 * (2 * Q * (Q + 1) + 9 * Q + 8)
 
 
-def tc_chunk_smem_bytes(Q: int, P: int, N: int) -> int:
-    """The bf16 backward chunk pass's dynamic shared memory (``bwd_layout``
-    in the source): the chunk's x, dy, B and C as bf16 tiles (padded and
-    swizzled as :func:`tc_smem_bytes` says), S_prev and dS as [P][N] bf16
-    high and low parts, eight f32 rows of Q and eight warp sums."""
-    def r16(n):
-        return -(-n // 16) * 16
+def delta_wg_smem_bytes(N: int) -> int:
+    """The bf16 backward delta pass's dynamic shared memory
+    (``delta_wg_smem_bytes`` in the source): 1024 bytes of alignment slack,
+    the chunk's dy and C as [128][64] bf16 boxes (one for dy, one or two
+    for C) and four f32 rows of 128."""
+    nb = 1 if N <= 64 else 2
+    return 1024 + (1 + nb) * 128 * 128 + 4 * 4 * 128
 
-    def pitch(w):
-        return w if w % 64 == 0 else w + 8
-    Qp, Np, Pp = r16(Q), r16(N), r16(P)
-    return 2 * (2 * Qp * pitch(Pp) + 2 * Qp * pitch(Np) + 4 * Pp * pitch(Np)) \
-        + 4 * (8 * Qp + 8)
+
+def chunk_wg_smem_bytes(N: int) -> int:
+    """The bf16 backward chunk pass's dynamic shared memory (``cw_layout``
+    in the source): alignment slack; B and C as [128][64] bf16 boxes (one
+    or two each); G = C B^T's lower triangle as three [64][68] f32 tiles;
+    stages of a head's x and dy and its S_prev and dS as the state scan
+    split them (:func:`split_state_bytes`), two stages where N <= 64;
+    twelve f32 rows of 128, one 64 x 64 tile's lower triangle of the
+    group's dG sum in f32, four warp sums and six 8-byte mbarriers.  The
+    phase after the head loop reuses G's and the stages' bytes."""
+    nb = 1 if N <= 64 else 2
+    stages = 2 if nb == 1 else 1
+    return 1024 + 2 * nb * 128 * 128 + 3 * 64 * 68 * 4 + \
+        stages * (2 * 128 * 128 + split_state_bytes(N)) + \
+        4 * (12 * 128 + 64 * 65 // 2 + 4) + 8 * 6
+
+
+def split_state_bytes(N: int) -> int:
+    """Bytes of one (batch, chunk, head)'s S_prev and dS as the bf16
+    backward's state scan writes them for its chunk pass
+    (``ssd_scan_bwd_split_bytes`` in the source): a high and a low bf16
+    part of each, [64][64] boxes, one or two of them a part."""
+    return 4 * (1 if N <= 64 else 2) * 64 * 128
+
+
+def bwd_heads_per_block(B: int, n_chunks: int, H: int) -> int:
+    """Heads a block of the bf16 backward's chunk pass owns, summing dB
+    and dC over them (``chunk_wg_group`` in the source), a divisor of H up
+    to :data:`BWD_MAX_GROUP`: the largest where the (batch, chunk, head)
+    triples make at most a wave of :data:`BWD_WAVE` blocks, else the one
+    whose blocks (one an SM) fill their last wave best, the larger on a
+    tie (mamba2-370m's training shape 8, zamba2-7b's 7: 512 blocks fill
+    four waves where 8 heads' 448 leave the fourth 40% full)."""
+    divs = [d for d in range(BWD_MAX_GROUP, 0, -1) if H % d == 0]
+    if B * n_chunks * H <= BWD_WAVE:
+        return divs[0]
+    best, best_blocks, best_waves = 0, 0, 1
+    for d in divs:
+        blocks = B * n_chunks * (H // d)
+        waves = -(-blocks // BWD_WAVE)
+        if blocks * best_waves > best_blocks * waves:
+            best, best_blocks, best_waves = d, blocks, waves
+    return best
 
 
 def bwd_smem_bytes(Q: int, P: int, N: int, dtype=torch.float32) -> tuple:
-    """Dynamic shared memory a block of each backward pass uses, ``(carry,
-    chunk)``: for f32 the scalar passes, the carry pass's P split as
-    :func:`carry_slice_p` splits it; for bf16 the tensor-core passes (the
-    carry pass in the forward's layout)."""
+    """Dynamic shared memory a block of the backward's two tiled passes
+    uses: for f32 ``(carry, chunk)``, the scalar passes, the carry pass's
+    P split as :func:`carry_slice_p` splits it; for bf16 ``(delta,
+    chunk)``, the wgmma passes (the state scan uses none)."""
     if dtype == torch.bfloat16:
-        return tc_smem_bytes(Q, P, N), tc_chunk_smem_bytes(Q, P, N)
+        return delta_wg_smem_bytes(N), chunk_wg_smem_bytes(N)
     return (carry_smem_bytes(Q, max(1, carry_slice_p(Q, P, N)), N),
             chunk_smem_bytes(Q))
 
@@ -118,7 +159,7 @@ def _library():
     lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 9 + \
         [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     lib.ssd_scan_launch.restype = ctypes.c_int
-    lib.ssd_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 18 + \
+    lib.ssd_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 22 + \
         [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     lib.ssd_scan_bwd_launch.restype = ctypes.c_int
     lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -129,6 +170,10 @@ def _library():
     lib.ssd_scan_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_bwd_carry_slice.argtypes = [ctypes.c_int] * 3
     lib.ssd_scan_bwd_carry_slice.restype = ctypes.c_int
+    lib.ssd_scan_bwd_group.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_bwd_group.restype = ctypes.c_int
+    lib.ssd_scan_bwd_split_bytes.argtypes = [ctypes.c_int]
+    lib.ssd_scan_bwd_split_bytes.restype = ctypes.c_int
     for shape in ((128, 64, 64), (32, 16, 8), (100, 200, 72),
                   (128, 64, 128)):
         if (lib.ssd_scan_smem_bytes(*shape, 0),
@@ -142,6 +187,15 @@ def _library():
                 *bwd_smem_bytes(*shape, torch.bfloat16),
                 carry_slice_p(*shape)):
             raise RuntimeError("ssd_scan library and smem_bytes disagree")
+    for shape in ((2, 32, 32), (1, 32, 112), (2, 3, 4), (1, 1, 7),
+                  (4, 8, 24)):
+        if lib.ssd_scan_bwd_group(*shape) != bwd_heads_per_block(*shape):
+            raise RuntimeError("ssd_scan library and bwd_heads_per_block "
+                               "disagree")
+    for N in (8, 64, 65, 128):
+        if lib.ssd_scan_bwd_split_bytes(N) != split_state_bytes(N):
+            raise RuntimeError("ssd_scan library and split_state_bytes "
+                               "disagree")
     return lib
 
 
@@ -244,9 +298,11 @@ def ssd_scan_bwd_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                         states: torch.Tensor, *, chunk: int,
                         dfinal: Optional[torch.Tensor] = None,
                         want_dinit: bool = False) -> tuple:
-    """Launch the backward on PyTorch's current stream: the carry pass,
-    the chunk pass and the reduction over heads (tensor-core passes for
-    bf16, which take P up to 64, scalar ones for f32).  The forward's inputs as
+    """Launch the backward on PyTorch's current stream: for bf16 (P up to
+    64, N up to 128, chunk up to 128) the wgmma delta pass, the state scan,
+    the wgmma chunk pass over groups of :func:`bwd_heads_per_block` heads,
+    the scan of each chunk's d cum and the reduction over the groups; for
+    f32 the scalar carry pass, chunk pass and reduction over heads.  The forward's inputs as
     :func:`ssd_scan_kernel` takes them, ``states`` as it wrote them
     (``with_states``), dy [B,S,H,P] in the xh dtype and dfinal [B,H,P,N]
     in f32 (None for zeros), both contiguous.  Returns ``(dx, ddt, dA, dB,
@@ -274,10 +330,12 @@ def ssd_scan_bwd_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     strides = token_strides(xh, Bm, Cm)
     if not 1 <= chunk <= 1024 or min(P, N) < 1:
         raise ValueError(f"unsupported chunk {chunk} or P={P}, N={N}")
-    if xh.dtype == torch.bfloat16 and (P > TC_BWD_MAX_P
-                                       or N > TC_MAX_STATE):
-        raise ValueError(f"P={P}, N={N}: the bf16 backward holds P up to "
-                         f"{TC_BWD_MAX_P} and N up to {TC_MAX_STATE}")
+    bf16 = xh.dtype == torch.bfloat16
+    if bf16 and (P > TC_BWD_MAX_P or N > TC_MAX_STATE or
+                 chunk > TC_BWD_MAX_Q):
+        raise ValueError(f"P={P}, N={N}, chunk {chunk}: the bf16 backward "
+                         f"holds P up to {TC_BWD_MAX_P}, N up to "
+                         f"{TC_MAX_STATE} and chunks up to {TC_BWD_MAX_Q}")
     need = max(bwd_smem_bytes(chunk, P, N, xh.dtype))
     if need > SMEM_LIMIT:
         raise ValueError(f"chunk {chunk} with P={P}, N={N} needs {need} "
@@ -298,20 +356,34 @@ def ssd_scan_bwd_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dinit.copy_(torch.zeros_like(dinit) if dfinal is None
                         else dfinal)
         return dx, ddt, dA, dB, dC, dinit
-    # scratch: each chunk's state gradient, the heads' parts of dB and
-    # dC, the (batch, chunk) parts of dA
+    # scratch: each chunk's state gradient (bf16: first each chunk's own
+    # part, Delta), the parts of dB and dC (f32: one a head; bf16: one a
+    # group of heads), the (batch, chunk) parts of dA; for bf16 also each
+    # chunk's decay exp(cum_last), S_prev and dS split into bf16 high and
+    # low parts, the state scan's parts of sum(S_prev o dS), and the
+    # chunk pass's d cum of every row
+    groups = H // bwd_heads_per_block(B, n_chunks, H) if bf16 else H
     dS_all = torch.empty_like(states)
-    dB_h = torch.empty((B, S, H, N), dtype=f32, device=dev)
-    dC_h = torch.empty((B, S, H, N), dtype=f32, device=dev)
+    dB_g = torch.empty((B, S, groups, N), dtype=f32, device=dev)
+    dC_g = torch.empty((B, S, groups, N), dtype=f32, device=dev)
     dA_part = torch.empty((B, n_chunks, H), dtype=f32, device=dev)
+    decay = split = sdot = dcum = None
+    if bf16:
+        nb = 1 if N <= 64 else 2
+        decay = torch.empty((B, n_chunks, H), dtype=f32, device=dev)
+        split = torch.empty((B, n_chunks, H, split_state_bytes(N)),
+                            dtype=torch.uint8, device=dev)
+        sdot = torch.empty((B, n_chunks, H, 8 * nb), dtype=f32, device=dev)
+        dcum = torch.empty((B, S, H), dtype=f32, device=dev)
     lib = _library()
 
     def ptr(t):
         return None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = lib.ssd_scan_bwd_launch(
-            *map(ptr, (xh, dt, A, Bm, Cm, dy, dfinal, states, dS_all, dB_h,
-                       dC_h, dA_part, dx, ddt, dA, dB, dC, dinit)),
+            *map(ptr, (xh, dt, A, Bm, Cm, dy, dfinal, states, dS_all, dB_g,
+                       dC_g, dA_part, decay, split, sdot, dcum, dx, ddt,
+                       dA, dB, dC, dinit)),
             _DTYPES[xh.dtype], B, S, H, P, N, chunk, *strides,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -14,8 +14,11 @@
 * :func:`ssd_scan_bwd_plain` -- the gradient of :func:`ssd_chunked`,
   chunk by chunk, the plain version of the backward kernels (the
   reference has none: it differentiates its jnp ``ssd_chunked``).
+* :func:`ssd_bwd_states_plain` -- the state gradients of that backward
+  as the bf16 kernels split them: every chunk's own part at once (the
+  delta pass), then the reverse scan over the chunks (the state scan).
 
-All three compute in f32, or in f64 where the inputs are f64.
+All compute in f32, or in f64 where the inputs are f64.
 """
 from __future__ import annotations
 
@@ -228,3 +231,38 @@ def ssd_scan_bwd_plain(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (tokens(dx.permute(0, 1, 3, 2, 4)),
             tokens(ddt.permute(0, 1, 3, 2)), dA, tokens(dB), tokens(dC),
             None if init_state is None else dS)
+
+
+def ssd_bwd_states_plain(dt: torch.Tensor, A: torch.Tensor,
+                         Cm: torch.Tensor, dy: torch.Tensor, *, chunk: int,
+                         dfinal: Optional[torch.Tensor] = None):
+    """The gradient of the state each chunk ends with, computed as the
+    bf16 backward's delta pass and state scan compute it: first every
+    chunk's own part at once,
+
+      Delta_c = (dy_c o exp(cum_c))^T C_c          [B, C, H, P, N],
+
+    then the reverse recurrence dS_c = exp(cum_last,c+1) dS_c+1 +
+    Delta_c+1 from dS_last = dfinal (zeros when None).  Returns ``(delta,
+    dS, dinit)``: dS [B, C, H, P, N] and dinit = exp(cum_last,0) dS_0 +
+    Delta_0, the gradient of init_state; :func:`ssd_scan_bwd_plain`
+    carries the same dS chunk by chunk.  In f32 (f64 for f64 inputs)."""
+    B, S, H, P = dy.shape
+    N = Cm.shape[-1]
+    Q = chunk
+    pad = (-S) % Q
+    wd = torch.promote_types(torch.float32, dy.dtype)
+    g = _chunks(dy, pad, Q, wd).permute(0, 1, 3, 2, 4)     # [B,C,H,Q,P]
+    d = _chunks(dt, pad, Q, wd).permute(0, 1, 3, 2)        # [B,C,H,Q]
+    Cc = _chunks(Cm, pad, Q, wd)                           # [B,C,Q,N]
+    cum = torch.cumsum(d * A.to(wd)[:, None], dim=-1)
+    delta = torch.einsum("bchq,bchqp,bcqn->bchpn", torch.exp(cum), g, Cc)
+    decay = torch.exp(cum[..., -1])                        # [B,C,H]
+    nC = delta.shape[1]
+    s = torch.zeros((B, H, P, N), dtype=wd, device=dy.device) \
+        if dfinal is None else dfinal.to(wd)
+    dS = [None] * nC
+    for c in reversed(range(nC)):
+        dS[c] = s
+        s = decay[:, c, :, None, None] * s + delta[:, c]
+    return delta, torch.stack(dS, dim=1), s

@@ -134,9 +134,10 @@ def _attention_head_dims() -> dict:
 
 def test_bwd_route_for_every_arch_head_dim():
     """bf16 at d = 128 (qwen3-1.7b, gemma3-27b, the dense, MoE and VLM
-    archs) and d = 64 (whisper-medium) takes the wgmma pair, zamba2-7b's
-    d = 112 the mma.sync pair, f32 the scalar pair; no other d takes
-    wgmma, and a d or dtype no kernel takes raises."""
+    archs), d = 112 (zamba2-7b) and d = 64 (whisper-medium) takes the
+    wgmma pair, f32 the scalar pair; the wgmma pair takes exactly the d
+    that are multiples of 8 from 64 to 128, and a d or dtype no kernel
+    takes raises."""
     dims = _attention_head_dims()
     assert dims == {"whisper-medium": 64, "arctic-480b": 128,
                     "qwen2-moe-a2.7b": 128, "gemma3-27b": 128,
@@ -144,12 +145,12 @@ def test_bwd_route_for_every_arch_head_dim():
                     "internvl2-26b": 128, "zamba2-7b": 112}
     routes = {a: tkernel.bwd_route(d, torch.bfloat16)
               for a, d in dims.items()}
-    assert routes == {a: "mma_sync" if a == "zamba2-7b" else "wgmma"
-                      for a in dims}
+    assert routes == {a: "wgmma" for a in dims}
     assert {tkernel.bwd_route(d, torch.float32) for d in dims.values()} == \
         {"scalar"}
     assert [d for d in range(1, tkernel.MAX_HEAD_DIM + 1)
-            if tkernel.bwd_route(d, torch.bfloat16) == "wgmma"] == [64, 128]
+            if tkernel.bwd_route(d, torch.bfloat16) == "wgmma"] == \
+        list(range(64, 129, 8))
     for d, dtype in ((0, torch.bfloat16), (129, torch.float32),
                      (64, torch.float16)):
         with pytest.raises(ValueError):
@@ -161,7 +162,8 @@ def test_bwd_kernels_fit_shared_memory_at_every_served_head_dim():
     kernel's block fits the card's 232,448 bytes: the wgmma pair's rings
     (dq: Q and dO of 128 rows and three stages of K and V; dkdv: K and V
     of 128 keys and two stages of Q and dO) take 165,432 and 133,160
-    bytes at d = 128, one block an SM."""
+    bytes at d = 128 and at zamba2-7b's d = 112, whose tiles are 128
+    columns wide too, one block an SM."""
     for d in sorted(set(_attention_head_dims().values())):
         for dtype in (torch.bfloat16, torch.float32):
             dq, dkdv = tkernel.bwd_smem_bytes(d, dtype)
@@ -169,8 +171,37 @@ def test_bwd_kernels_fit_shared_memory_at_every_served_head_dim():
             assert 0 < dkdv <= tkernel.SMEM_LIMIT, (d, dtype, dkdv)
     assert tkernel.bwd_smem_bytes(128, torch.bfloat16) == (165_432, 133_160)
     assert tkernel.bwd_smem_bytes(64, torch.bfloat16) == (83_512, 67_624)
-    assert tkernel.bwd_smem_bytes(112, torch.bfloat16) == (93_184, 93_184)
+    assert tkernel.bwd_smem_bytes(112, torch.bfloat16) == (165_432, 133_160)
     assert tkernel.bwd_smem_bytes(128, torch.float32) == (148_736, 165_888)
+
+
+def test_bwd_route_and_shared_memory_at_every_head_dim():
+    """At every d from 1 to 128: bf16 takes the wgmma pair exactly where d
+    % 8 == 0 and d >= 64 (the TMA reads rows of 2 d bytes, a multiple of
+    16), on tiles 64 columns wide at d = 64 and 128 above it, and each of
+    its kernels' shared memory is that of its tile width (the bytes of d
+    = 64 or d = 128), whatever d; every other bf16 d takes the mma.sync
+    pair, whose tiles follow d padded to 16; f32 the scalar pair.  Every
+    route's blocks fit the card.  (``_library()`` holds the library's own
+    rule and bytes to these at every d when it loads.)"""
+    wide = {c: tkernel.bwd_smem_bytes(c, torch.bfloat16) for c in (64, 128)}
+    padded = {}                  # the mma.sync pair's bytes by d padded
+    for d in range(1, tkernel.MAX_HEAD_DIM + 1):
+        route = tkernel.bwd_route(d, torch.bfloat16)
+        assert route == ("wgmma" if d % 8 == 0 and d >= 64 else "mma_sync")
+        assert tkernel.bwd_route(d, torch.float32) == "scalar"
+        smem = tkernel.bwd_smem_bytes(d, torch.bfloat16)
+        if route == "wgmma":
+            assert tkernel.wgmma_tile_cols(d) == (64 if d == 64 else 128)
+            assert smem == wide[tkernel.wgmma_tile_cols(d)]
+        else:
+            assert padded.setdefault(d + (-d) % 16, smem) == smem, d
+        for dtype in (torch.bfloat16, torch.float32):
+            assert max(tkernel.bwd_smem_bytes(d, dtype)) <= \
+                tkernel.SMEM_LIMIT, (d, dtype)
+    assert sorted(padded) == list(range(16, 129, 16))
+    assert [padded[p] for p in sorted(padded)] == \
+        sorted(padded[p] for p in padded)
 
 
 @pytest.fixture

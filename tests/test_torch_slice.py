@@ -317,9 +317,11 @@ def test_train_checks_run_on_the_cpu():
     assert bwd["no_visible_key_float32"]["inf_rows"] > 0
     assert bwd["whisper_cross_bfloat16"]["shape"][1:3] == [37, 24]
     # the route each shape would take on the card (SMALL's head dims, 32
-    # and 8, go to the mma.sync pair) and two calls' same bits
+    # and 8, go to the mma.sync pair, as d = 100 does; d = 96 to the wgmma
+    # pair) and two calls' same bits
     assert {k: v["route"] for k, v in bwd.items()} == {
-        f"{k}_{t}": "mma_sync" if t == "bfloat16" else "scalar"
+        f"{k}_{t}": ("wgmma" if k == "d96_wgmma" else "mma_sync")
+        if t == "bfloat16" else "scalar"
         for k in chip_smoke.flash_bwd_shapes(sz)
         for t in ("bfloat16", "float32")}
     assert all(v["bitwise_repeat"] for v in bwd.values())
@@ -343,16 +345,18 @@ def test_train_checks_run_on_the_cpu():
 
 def test_the_card_checks_both_bf16_backward_routes():
     """At full size the backward check's bf16 shapes take the wgmma pair
-    at d = 128 (the training shape, gemma3's window) and d = 64 (whisper's
-    cross shape), and the mma.sync pair at zamba2's d = 112 and the
+    at d = 128 (the training shape, gemma3's window), zamba2's d = 112
+    and d = 96 (128-column tiles) and d = 64 (whisper's cross shape), and
+    the mma.sync pair at d = 100 (not a multiple of 8) and the
     no-visible-key rows' d = 8."""
     shapes = chip_smoke.flash_bwd_shapes(chip_smoke.FULL)
     assert {k: chip_smoke.fa_kernel.bwd_route(v[5], torch.bfloat16)
             for k, v in shapes.items()} == {
-        "qwen3_train": "wgmma", "zamba2_train": "mma_sync",
-        "zamba2_d112": "mma_sync",
+        "qwen3_train": "wgmma", "zamba2_train": "wgmma",
+        "zamba2_d112": "wgmma",
         "whisper_cross": "wgmma", "gemma3_window": "wgmma",
-        "no_visible_key": "mma_sync"}
+        "no_visible_key": "mma_sync", "d96_wgmma": "wgmma",
+        "d100_mma_sync": "mma_sync"}
 
 
 def test_flash_bounds_at_the_training_shape():
@@ -582,3 +586,29 @@ def test_the_build_phase_holds_the_wgmma_backward_to_hgmma_and_no_spill():
         chip_smoke.check_wgmma_bwd_build(rows(hgmma_instr=0))
     with pytest.raises(AssertionError, match="spills"):
         chip_smoke.check_wgmma_bwd_build(rows(spill_bytes=4))
+
+
+def test_the_build_phase_holds_the_ssd_backward_to_hgmma_and_no_spill():
+    """``check_ssd_bwd_build`` passes when each wgmma pass of the SSD
+    backward (the delta and chunk passes at one and two 64-column boxes
+    of N) has HGMMA and no spill, whatever the scalar passes do, and
+    fails on a missing one, one without HGMMA, or a spill."""
+    names = ["ssd_bwd_delta_wg<1>", "ssd_bwd_delta_wg<2>",
+             "ssd_bwd_chunk_wg<1>", "ssd_bwd_chunk_wg<2>"]
+    assert sorted(chip_smoke.SSD_BWD_FUNCTIONS) == sorted(names)
+
+    def rows(**bad):
+        return [{"kernel": n, "registers": 200, "spill_bytes": 0,
+                 "tensor_core_instr": 32, "hgmma_instr": 32,
+                 **(bad if n == "ssd_bwd_chunk_wg<2>" else {})}
+                for n in names] + [{"kernel": "ssd_chunk_scan<float>",
+                                    "registers": 64, "spill_bytes": 60,
+                                    "tensor_core_instr": 0,
+                                    "hgmma_instr": 0}]
+    assert set(chip_smoke.check_ssd_bwd_build(rows())) == set(names)
+    with pytest.raises(AssertionError, match="lacks"):
+        chip_smoke.check_ssd_bwd_build(rows()[1:])
+    with pytest.raises(AssertionError, match="no HGMMA"):
+        chip_smoke.check_ssd_bwd_build(rows(hgmma_instr=0))
+    with pytest.raises(AssertionError, match="spills"):
+        chip_smoke.check_ssd_bwd_build(rows(spill_bytes=116))

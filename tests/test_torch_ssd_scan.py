@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.kernels.ssd_scan import kernel as tkernel
 from repro_torch.kernels.ssd_scan.ops import SsdScanFn, ssd_scan, ssd_scan_bwd
-from repro_torch.kernels.ssd_scan.ref import (ssd_chunked, ssd_ref,
+from repro_torch.kernels.ssd_scan.ref import (ssd_bwd_states_plain,
+                                              ssd_chunked, ssd_ref,
                                               ssd_scan_bwd_plain)
 
 
@@ -452,6 +453,54 @@ def test_plain_backward_matches_jax_vjp(jx, shape, with_init):
         assert _scaled_err(a.numpy(), w) <= 1e-5, name
 
 
+@pytest.mark.parametrize("shape,with_dfinal", [
+    ((2, 64, 3, 8, 16, 16), False),
+    ((2, 50, 3, 8, 16, 16), False),          # pads to whole chunks
+    ((2, 64, 3, 8, 16, 16), True),           # a d final
+    (_tiny_ssd_shape(), True),               # mamba2-370m's tiny() SSD
+], ids=["plain", "ragged", "dfinal", "mamba2_tiny"])
+def test_state_split_matches_plain_backward_and_jax_vjp(jx, shape,
+                                                        with_dfinal):
+    """The bf16 backward's split of the state pass (every chunk's own
+    Delta at once, then the reverse scan; ``ssd_bwd_states_plain``) in
+    f64: the gradient of each chunk's end state equals the d init_state
+    of ``ssd_scan_bwd_plain`` run on the chunks after it from the state
+    the forward carries into them, its d init_state equals
+    ``ssd_scan_bwd_plain``'s (1e-10 of its max), and equals ``jax.vjp``
+    of the reference's ``ssd_chunked`` with respect to init_state (f32:
+    1e-5 of its max)."""
+    B, S, H, P, N, Q = shape
+    f64 = torch.float64
+    ins = _inputs(31, B, S, H, P, N)
+    dy, dfinal, init = _cotangents(32, B, S, H, P, N)
+    xh, dt, A, Bm, Cm = (t.to(f64) for t in _t(*ins))
+    dy_, init_ = (t.to(f64) for t in _t(dy, init))
+    dfinal_ = torch.as_tensor(dfinal).to(f64) if with_dfinal else None
+    delta, dS, dinit = ssd_bwd_states_plain(dt, A, Cm, dy_, chunk=Q,
+                                            dfinal=dfinal_)
+    nC = -(-S // Q)
+    assert delta.shape == dS.shape == (B, nC, H, P, N)
+    want = ssd_scan_bwd_plain(xh, dt, A, Bm, Cm, dy_, chunk=Q,
+                              init_state=init_, dfinal=dfinal_)[5]
+    assert _scaled_err(dinit, want) <= 1e-10
+    for c in range(nC - 1):           # the chunks after c, from its state
+        t = (c + 1) * Q
+        _, carry = ssd_chunked(xh[:, :t], dt[:, :t], A, Bm[:, :t],
+                               Cm[:, :t], Q, init_state=init_)
+        tail = ssd_scan_bwd_plain(
+            xh[:, t:], dt[:, t:], A, Bm[:, t:], Cm[:, t:], dy_[:, t:],
+            chunk=Q, init_state=carry, dfinal=dfinal_)[5]
+        assert _scaled_err(dS[:, c], tail) <= 1e-10, c
+    last = torch.zeros_like(init_) if dfinal_ is None else dfinal_
+    assert torch.equal(dS[:, -1], last)
+    j = [jx.jnp.asarray(a) for a in ins]
+    _, vjp = jx.jax.vjp(lambda i: jx.chunked(*j, Q, init_state=i),
+                        jx.jnp.asarray(init))
+    jd = vjp((jx.jnp.asarray(dy), jx.jnp.asarray(dfinal) if with_dfinal
+              else jx.jnp.zeros_like(jx.jnp.asarray(init))))[0]
+    assert _scaled_err(dinit.numpy(), jd) <= 1e-5
+
+
 def test_chunked_gradient_stays_finite_where_the_masked_exp_overflows(jx):
     """Where cum falls by more than 88 within a chunk (large dt), the
     reference's ``where(mask, exp(diff), 0)`` overflows above the
@@ -540,9 +589,16 @@ def test_backward_fits_shared_memory_at_every_trained_ssm_shape():
     """Each backward pass's block fits the card's 232,448 bytes at every
     SSM arch's chunk, full and ``tiny()``, in both dtypes: the f32 carry
     pass holds mamba2's whole P (133,888 bytes), the f32 chunk pass two
-    [Q][Q + 1] tiles (136,736); the bf16 chunk pass holds P = 64 whole
-    (167,968 bytes at mamba2's N = 128, 102,432 at zamba2's 64), its carry
-    pass the forward's layout."""
+    [Q][Q + 1] tiles (136,736); the bf16 passes hold a chunk of up to 128
+    rows, P = 64 and N = 128 whole: the delta pass dy and C (52,224 bytes
+    at mamba2's N = 128, 35,840 at zamba2's 64), the chunk pass B, C, G's
+    triangle in f32, and stages of x, dy and S_prev and dS in high and
+    low parts (231,616 bytes: one stage at N = 128, two at 64).  The
+    chunk pass sums dB and dC over 8 heads a block at mamba2-370m's
+    training shape and 7 at zamba2-7b's, so its f32 scratch for each of
+    them shrinks by that factor from the [B, S, H, N] one a head: 16.8 MB
+    instead of 134.2 at mamba2-370m's [2, 4096, 32, 128], 16.8 instead of
+    117.4 at zamba2-7b's [1, 4096, 112, 64]."""
     from repro_torch.configs.registry import ARCHS, tiny
     shapes = {(c.ssm_chunk, c.ssm_head_dim, c.ssm_state)
               for c in ARCHS.values() if c.ssm_state}
@@ -552,13 +608,21 @@ def test_backward_fits_shared_memory_at_every_trained_ssm_shape():
     for Q, P, N in shapes:
         assert tkernel.carry_slice_p(Q, P, N) == P
         assert P <= tkernel.TC_BWD_MAX_P and N <= tkernel.TC_MAX_STATE
+        assert Q <= tkernel.TC_BWD_MAX_Q
         for dtype in (torch.float32, torch.bfloat16):
             assert max(tkernel.bwd_smem_bytes(Q, P, N, dtype)) <= \
                 tkernel.SMEM_LIMIT
     assert tkernel.bwd_smem_bytes(128, 64, 128) == (133_888, 136_736)
     assert tkernel.bwd_smem_bytes(128, 64, 128, torch.bfloat16) == \
-        (165_392, 167_968)
-    assert tkernel.tc_chunk_smem_bytes(128, 64, 64) == 102_432
+        (52_224, 231_616)
+    assert tkernel.bwd_smem_bytes(128, 64, 64, torch.bfloat16) == \
+        (35_840, 231_616)
+    for (B, S, H, N), group, mb in (
+            ((2, 4096, 32, 128), 8, (134.2, 16.8)),
+            ((1, 4096, 112, 64), 7, (117.4, 16.8))):
+        assert tkernel.bwd_heads_per_block(B, -(-S // 128), H) == group
+        assert (round(B * S * H * N * 4 / 1e6, 1),
+                round(B * S * (H // group) * N * 4 / 1e6, 1)) == mb
     # a chunk whose two f32 tiles overflow a block does not fit
     assert tkernel.chunk_smem_bytes(256) > tkernel.SMEM_LIMIT
 

@@ -17,12 +17,19 @@ inputs and output, each rounds its intermediates at fixed points:
   high part plus a bf16 low part (two products); the state itself is
   carried in f32.  One bf16 each is not enough: at the serve shape
   (B = 4, H = 112) the card measured 0.283 on y where the intra- and
-  inter-chunk terms cancel, beyond 5e-2 abs + rel.
+  inter-chunk terms cancel, beyond 5e-2 abs + rel;
+* the SSD backward (its wgmma passes): dy o exp(cum) in each chunk's
+  own state gradient, S_prev and dS as the state scan writes them for
+  the chunk pass, scores^T, and dG summed over a block's group of heads
+  in f32 before it meets B and C, each split into a high and a low part;
+  dB and dC summed over the group's heads in f32, then over the groups
+  in order, and rounded to bf16 once.
 
 The models below repeat those roundings at the kernels' tiles (64-key
 tiles; chunks of 128 tokens) and show, on the CPU, that they stay inside
 2e-2 (attention) and 5e-2 (SSD), abs + rel, of the f32 references, and
-the backward's within ``2e-2 * max|ref|``, the card's tolerance.
+the backwards' within ``2e-2 * max|ref|`` (attention) and ``5e-2 *
+max|ref|`` (SSD), the card's tolerances.
 """
 import numpy as np
 import pytest
@@ -31,7 +38,8 @@ import torch
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention_bwd_plain, flash_attention_lse_plain,
     flash_attention_plain)
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_ref
+from repro_torch.kernels.ssd_scan.ref import (_segsum_exp, ssd_chunked,
+                                              ssd_ref, ssd_scan_bwd_plain)
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -185,11 +193,13 @@ def attention_bwd_tc_model(q, k, v, o, lse, do, *, causal=True, window=0):
 # Sq != Sk at d = 64
 BWD_ROUNDING_CASES = [(1, 200, 200, 4, 2, 128, True, 0),
                       (1, 384, 384, 4, 2, 128, True, 128),
-                      (1, 136, 328, 4, 4, 64, False, 0)]
+                      (1, 136, 328, 4, 4, 64, False, 0),
+                      (1, 200, 200, 4, 4, 112, True, 0)]
 
 
 @pytest.mark.parametrize("case", BWD_ROUNDING_CASES,
-                         ids=["causal_gqa_d128", "window", "noncausal_d64"])
+                         ids=["causal_gqa_d128", "window", "noncausal_d64",
+                              "causal_d112"])
 def test_attention_bwd_bf16_roundings_fit_the_tolerance(case):
     """The wgmma backward's roundings against ``flash_attention_bwd_plain``
     in f32 on the same bf16 values (o rounded to bf16 as the forward
@@ -270,3 +280,115 @@ def test_ssd_bf16_roundings_fit_the_tolerance(S):
                       / (tol + tol * want.abs())).max())
     assert 3 * used(y, cy) < used(y1, cy)
     assert 100 * used(final, cfin) < used(final1, cfin)
+
+
+def ssd_bwd_tc_model(xh, dt, A, Bm, Cm, dy, chunk, group, rnd=_split):
+    """The bf16 SSD backward's arithmetic (its delta pass, state scan and
+    chunk pass) in f32 on bf16 values, from zero init_state and d final:
+    xh, dy [B,S,H,P] and Bm/Cm [B,S,N] bf16, dt [B,S,H] and A [H] f32;
+    ``group`` heads a chunk-pass block (H % group == 0).  The rounding
+    points, through ``rnd``: dy o exp(cum) (each chunk's own state
+    gradient), S_prev and dS (the split tiles), scores^T (dx) and the
+    group's sum of dG (dC and dB); dB and dC summed in f32 over the
+    group's heads, then over the groups, and rounded to bf16 once, as dx.
+    Returns (dx, ddt, dA, dB, dC)."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    pad = (-S) % Q
+
+    def chunks(t):                       # [B,S,...] -> [B,C,Q,...] f32
+        t = torch.nn.functional.pad(t.float(),
+                                    (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape((B, -1, Q) + t.shape[2:])
+    x = chunks(xh).permute(0, 1, 3, 2, 4)                   # [B,C,H,Q,P]
+    g = chunks(dy).permute(0, 1, 3, 2, 4)
+    d = chunks(dt).permute(0, 1, 3, 2)                      # [B,C,H,Q]
+    Bc, Cc = chunks(Bm), chunks(Cm)                         # [B,C,Q,N]
+    nC, nG = x.shape[1], H // group
+    cum = torch.cumsum(d * A.float()[:, None], dim=-1)
+    L = _segsum_exp(cum)
+    G = (Cc @ Bc.transpose(-1, -2))[:, :, None]             # f32, once
+    e = torch.exp(cum)
+    w = torch.exp(cum[..., -1:] - cum) * d
+    decay = torch.exp(cum[..., -1])
+    # the forward's chunk start states (in f32, as the forward writes them)
+    sloc = torch.einsum("bchq,bcqn,bchqp->bchpn", w, Bc, x)
+    s_ = torch.zeros((B, H, P, N))
+    before = []
+    for c in range(nC):
+        before.append(s_)
+        s_ = decay[:, c, :, None, None] * s_ + sloc[:, c]
+    S_prev = torch.stack(before, dim=1)
+    # delta pass and state scan
+    inc = torch.einsum("bchqp,bcqn->bchpn", rnd(e[..., None] * g), Cc)
+    dS_ = torch.zeros((B, H, P, N))
+    after = [None] * nC
+    for c in reversed(range(nC)):
+        after[c] = dS_
+        dS_ = decay[:, c, :, None, None] * dS_ + inc[:, c]
+    dS = torch.stack(after, dim=1)
+    sdot = (dS * S_prev).sum((-1, -2))                      # f32 in the scan
+    Sr, dSr = rnd(S_prev), rnd(dS)
+    # chunk pass, a head at a time within its group
+    dsc = g @ x.transpose(-1, -2)
+    dG = dsc * L * d[..., None, :]
+    bds = torch.einsum("bcjn,bchpn->bchjp", Bc, dSr)
+    dw = (x * bds).sum(-1)
+    scores = G * L * d[..., None, :]
+    dx = w[..., None] * bds + rnd(scores).transpose(-1, -2) @ g
+    E = g @ Sr
+    rowdE = e * (Cc[:, :, None] * E).sum(-1)
+    u = dsc * G * L
+    direct = u.sum(-2)
+    dcum = (u * d[..., None, :]).sum(-1) + rowdE - direct * d - dw * w
+    dcum[..., -1] += (dw * w).sum(-1) + decay * sdot
+
+    def by_group(t):                     # [B,C,H,...] -> [B,C,nG,...]
+        return t.reshape((B, nC, nG, group) + t.shape[3:]).sum(3)
+    dGsum = rnd(by_group(dG))
+    dC = (by_group(e[..., None] * E) + dGsum @ Bc[:, :, None]).sum(2)
+    dB = (dGsum.transpose(-1, -2) @ Cc[:, :, None]
+          + by_group(w[..., None] * (x @ dSr))).sum(2)
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    ddt = A.float()[:, None] * ddA + direct + \
+        dw * torch.exp(cum[..., -1:] - cum)
+    dA = (d * ddA).sum((0, 1, 3))
+
+    def tokens(t):
+        return t.reshape((B, -1) + t.shape[3:])[:, :S]
+    return (tokens(dx.permute(0, 1, 3, 2, 4)).to(BF16),
+            tokens(ddt.permute(0, 1, 3, 2)), dA, tokens(dB).to(BF16),
+            tokens(dC).to(BF16))
+
+
+@pytest.mark.parametrize("N,S", [(128, 256), (64, 250)],
+                         ids=["mamba2_state", "zamba2_state_ragged"])
+def test_ssd_bwd_bf16_roundings_fit_the_tolerance(N, S):
+    """The SSD backward's roundings (``ssd_bwd_tc_model``: 4 heads a
+    group, two groups) against ``ssd_scan_bwd_plain`` in f32 on the same
+    bf16 values, at mamba2-370m's and zamba2-7b's P, N and chunk (a ragged
+    S at zamba2's): each gradient within ``5e-2 * max|ref|``, the card's
+    tolerance, and not equal to the f32 result rounded once.  The bf16
+    outputs (dx, dB, dC) use their share mostly in their own final
+    rounding; the splits buy the f32 outputs' margin: with one bf16
+    rounding at each point ddt uses over a hundred times more of it and
+    dA over five times more."""
+    B, H, P, Q = 1, 8, 64, 128
+    xh, dt, A, Bm, Cm, _ = _ssd_inputs(N + S, B, S, H, P, N)
+    rng = np.random.default_rng(N)
+    dy = torch.as_tensor(rng.standard_normal((B, S, H, P)),
+                         dtype=F32).to(BF16)
+    got = ssd_bwd_tc_model(xh, dt, A, Bm, Cm, dy, Q, 4)
+    want = ssd_scan_bwd_plain(xh.float(), dt, A, Bm.float(), Cm.float(),
+                              dy.float(), chunk=Q)[:5]
+    one = ssd_bwd_tc_model(xh, dt, A, Bm, Cm, dy, Q, 4, rnd=_bf16)
+
+    def used(a, w):
+        return float((a.float() - w).abs().max() / w.abs().max()) / 5e-2
+    for name, a, w, a1 in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                              one):
+        assert used(a, w) <= 1, (name, used(a, w))
+        assert not torch.equal(a.float(), w.to(a.dtype).float()), name
+    assert 100 * used(got[1], want[1]) < used(one[1], want[1])
+    assert 5 * used(got[2], want[2]) < used(one[2], want[2])
