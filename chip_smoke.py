@@ -71,9 +71,14 @@ Fifteen phases, each of which fails the run when it fails:
    the engine's stub, 24 non-causal launches over 1500 frames, 24 cross
    launches and 24 causal ones at d = 64, each counted at its shape),
    internvl2-26b (vlm: a 256-token vision prefix, GQA 48:8; 48) at full
-   width and depth, and arctic-480b (moe, 128 experts top-2 and a dense
+   width and depth, arctic-480b (moe, 128 experts top-2 and a dense
    residual, GQA 56:8; 1) at full width cut to one layer
-   (``DEPTH_CUTS``); the same numbers as the model phase for each;
+   (``DEPTH_CUTS``), and the two largest dense archs at full width and
+   depth: qwen1.5-32b (35.2 B parameters, MHA 40:40, QKV bias; 64) and
+   gemma3-27b (28.4 B, GQA 32:16, qk-norm; 62 a prefill, counted by
+   shape: 52 local layers with their window of 1024, 10 global ones);
+   the same numbers as the model phase for each, the init's peak memory
+   among them;
 7. ``train``  -- qwen3-1.7b at full width and depth (bf16, 2.03 B
    parameters, AdamW with f32 moments, ``remat="block"``) trained 3
    steps through ``make_train_step`` on ``TokenPipeline`` batches of
@@ -91,13 +96,20 @@ Fifteen phases, each of which fails the run when it fails:
    ``ssd_scan`` 2 x 24 x 4 and 24 x 4, its shared block's
    ``flash_attention`` 2 x 4 x 4 and 4 x 4), every launch at the
    training shape and every layer's A_log and dt_bias gradient nonzero
-   (only the SSD backward feeds them).  Step seconds, tokens/s, peak
-   memory and one profiled step (the SSD backward's share) are printed.
-   Then ``run_training``'s crash/resume recipe on the tiny form of each,
-   in f32 and in bf16: 30 steps with a checkpoint every 10, a crash
-   before step 20's manifest publish, a restart that resumes from step
-   10 and repeats the uninterrupted run's losses bit for bit
-   (``reduced``: ``train_reduced``);
+   (only the SSD backward feeds them); and qwen2-moe-a2.7b at full width
+   cut to 4 layers (2.90 B, 4 microbatches of [1, 4096]: flash 2 x 4 x 4
+   and 4 x 4 at MHA 16:16), every layer's wq/wk/wv and QKV-bias gradient
+   and its router and expert tensors' nonzero (the dispatch's backward
+   alone feeds the experts).  Step seconds, tokens/s, peak memory and one
+   profiled step (the SSD backward's share; the MoE dispatch's and
+   combine's) are printed.  Then ``run_training``'s crash/resume recipe
+   on the tiny form of each, in f32 and in bf16: 30 steps with a
+   checkpoint every 10, a crash before step 20's manifest publish, a
+   restart that resumes from step 10 and repeats the uninterrupted run's
+   losses bit for bit (``reduced``: ``train_reduced``); the same recipe on
+   tiny arctic-480b (bf16 AdamW moments), and three AdamW steps of its
+   tiny form in 2 microbatches on the card held against the CPU: the
+   bf16 accumulator bit for bit, the bf16 moments within one bf16 ulp;
 8. ``load``   -- ``obs/loadgen.py``'s ``LoadHarness`` (the points of
    ``benchmarks/loadtest.py``) against a ``RequestLog`` whose dedup map
    lives, and grows, on the card: batches of 1024 rids, a 2^16 retain
@@ -153,8 +165,17 @@ Fifteen phases, each of which fails the run when it fails:
    shapes and a ragged S with an init_state and a cotangent on the final
    state; and the loss and every gradient in f32 at full width, [1, 512],
    with the kernels against the plain attention and plain scan (1e-4 of
-   each leaf's max), for qwen3-1.7b and mamba2-370m at 2 layers and
-   zamba2-7b at 6 (one shared-block call);
+   each leaf's max), for qwen3-1.7b, mamba2-370m and qwen2-moe-a2.7b (no
+   token dropped) at 2 layers and zamba2-7b at 6 (one shared-block call);
+   ``make_compressed_psum_grads`` over 4 replicas of a 2^26-element leaf,
+   the card's bits the CPU's, its NCCL form at world size 1 (a
+   ``FileStore``) equal to the replica form, and the 50-step error
+   feedback sum; and the GPipe schedule (4 stages of 2 blocks, d_model
+   2048, d_ff 8192, 8 microbatches of [2, 512], f32) against the
+   sequential stack at 1e-5 of its max; qwen1.5-32b's and gemma3-27b's
+   bf16 attention shapes (gemma3's local ones with their window) and
+   f32 consistency at depth 12; qwen2-moe-a2.7b's training shape in the
+   backward checks;
 11. ``ordered`` -- the map phase's stream on the ordered map at the same
    scale (2^22 keys in a 2^23-node pool) through
    ``update_parallel_ordered``, the towers rebuilt after every batch,
@@ -209,11 +230,13 @@ Fifteen phases, each of which fails the run when it fails:
    lies at ``build/chip_scripts/nvt_probe_warp_a_query.cu``;
    ``flash_attention`` once a main-path shape, each entry with the
    launches made at its shape: zamba2-7b's and qwen2-7b's serve shapes,
-   the engine point's and the families' six (SDPA with the same mask, and
+   the engine point's and the families' nine (SDPA with the same mask, and
    ``enable_gqa`` where K < H); at qwen3-1.7b's training shape the
    forward and each backward kernel (``flash_bwd_dq``, ``flash_bwd_dkdv``,
    beside SDPA's backward), and the same at zamba2-7b's (the wgmma pair
-   at d = 112, on 128-column tiles); ``ssd_scan`` at zamba2-7b's and
+   at d = 112, on 128-column tiles) and qwen2-moe-a2.7b's (MHA 16:16);
+   qwen1.5-32b's and gemma3-27b's serve shapes (gemma3's global and
+   windowed local ones); ``ssd_scan`` at zamba2-7b's and
    mamba2-370m's serve shapes, each also timed in f32, and at their
    training shapes the
    forward (writing the chunk states) and the backward
@@ -277,6 +300,7 @@ from repro_torch.launch.train import (CUBLAS_WORKSPACE,  # noqa: E402
                                       deterministic, run_training)
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import mamba2 as model_mamba2  # noqa: E402
+from repro_torch.models import transformer as model_transformer  # noqa
 from repro_torch.models.frontends import (  # noqa: E402
     synth_audio_frames, synth_vision_patches)
 from repro_torch.models.model import (Model, padded_vocab,  # noqa: E402
@@ -293,7 +317,10 @@ from repro_torch.serving.engine import (RequestLog,  # noqa: E402
                                         ServeEngine, stub_inputs)
 from repro_torch.training.optimizer import (Optimizer,  # noqa: E402
                                             make_optimizer)
-from repro_torch.training.train_loop import make_train_step  # noqa: E402
+from repro_torch.training.pipeline import (  # noqa: E402
+    gpipe_ticks, init_pipeline_params, make_gpipe_fn, sequential_forward)
+from repro_torch.training.train_loop import (  # noqa: E402
+    make_compressed_psum_grads, make_train_step)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
@@ -390,6 +417,18 @@ class Sizes:
     train_steps: int = 3
     train_check_layers: int = 2
     train_check_seq: int = 512
+    # checks phase: the compressed gradient reduce over 4 replicas of a
+    # 2^26-element leaf, and the GPipe demo stack (4 stages of 2 blocks at
+    # d_model 2048, d_ff 8192; 8 microbatches of [2, 512], f32)
+    reduce_replicas: int = 4
+    reduce_elems: int = 2**26
+    gpipe_stages: int = 4
+    gpipe_layers: int = 2
+    gpipe_d: int = 2048
+    gpipe_ff: int = 8192
+    gpipe_micro: int = 8
+    gpipe_batch: int = 2
+    gpipe_seq: int = 512
 
 
 FULL = Sizes()
@@ -408,7 +447,8 @@ SMALL = Sizes(capacity=2**12, n_buckets=2**8, prefill=2**10,
               bridge_buckets=2**5, hist_ops=2**8, hist_key_hi=2**9,
               prefix_ops=2**6, load_ops=24, load_open_ops=18,
               load_batch=16, load_retain=256, load_capacity=64,
-              train_seq=32, train_steps=2, train_check_seq=24)
+              train_seq=32, train_steps=2, train_check_seq=24,
+              reduce_elems=2**10, gpipe_d=16, gpipe_ff=32, gpipe_seq=8)
 # crash sites of each ported scenario (tests/test_torch_faultinject.py
 # pins the same counts against the JAX scenarios)
 CRASH_SITES = {"log": 29, "log2": 31, "checkpoint": 19, "migrate": 25,
@@ -907,47 +947,65 @@ def prefill_bound_ms(cfg, sz: Sizes):
         / BF16_FLOP_PER_S * 1e3
 
 
-# families phase: the MoE, SSM, encoder-decoder and VLM archs, served at
-# full width one at a time (arctic-480b cut in depth, DEPTH_CUTS)
+# families phase: the MoE, SSM, encoder-decoder and VLM archs, and the two
+# largest dense archs, served at full width one at a time (arctic-480b cut
+# in depth, DEPTH_CUTS)
 FAMILY_ARCHS = ("qwen2-moe-a2.7b", "mamba2-370m", "whisper-medium",
-                "internvl2-26b", "arctic-480b")
+                "internvl2-26b", "arctic-480b", "qwen1.5-32b", "gemma3-27b")
+# family_flash_shapes' keys and the arch of each (whisper's three keys are
+# whisper-medium's)
+FLASH_SHAPE_ARCHS = {"qwen2_moe": "qwen2-moe-a2.7b",
+                     "internvl2": "internvl2-26b", "arctic": "arctic-480b",
+                     "qwen1_5": "qwen1.5-32b", "gemma3_global": "gemma3-27b",
+                     "gemma3_local": "gemma3-27b"}
 
 
 def family_flash_shapes(sz: Sizes, S: int = None) -> dict:
-    """(B, Sq, Sk, H, K, d, causal) of each flash_attention shape the
-    families' prefills launch, at prompt length ``S`` (default the
-    longer): the MoE archs' and internvl2's causal self-attention (over
-    the vision prefix and the prompt), whisper's bidirectional encoder
-    over its frames, its cross-attention from the prompt to them, and its
-    decoder's causal self-attention."""
+    """(B, Sq, Sk, H, K, d, causal, window) of each flash_attention shape
+    the families' prefills launch, at prompt length ``S`` (default the
+    longer): the MoE archs', internvl2's (over the vision prefix and the
+    prompt) and qwen1.5-32b's causal self-attention, gemma3-27b's at its
+    global layers and, with the window of ``_layer_window``, at its local
+    ones, whisper's bidirectional encoder over its frames, its
+    cross-attention from the prompt to them, and its decoder's causal
+    self-attention."""
     S = S or max(sz.prompt_lens)
     B = sz.model_batch
     out = {}
-    for key, arch in (("qwen2_moe", "qwen2-moe-a2.7b"),
-                      ("internvl2", "internvl2-26b"),
-                      ("arctic", "arctic-480b")):
+    for key, arch in FLASH_SHAPE_ARCHS.items():
         cfg = model_config(sz, arch)
         Sv = S + prefix_tokens(cfg)
+        window = cfg.local_window if key == "gemma3_local" else 0
         out[key] = (B, Sv, Sv, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                    True)
+                    True, window)
     w = model_config(sz, "whisper-medium")
     heads = (w.n_heads, w.n_kv_heads, w.head_dim)
-    out["whisper_encoder"] = (B, w.enc_seq, w.enc_seq, *heads, False)
-    out["whisper_cross"] = (B, S, w.enc_seq, *heads, False)
-    out["whisper_decoder"] = (B, S, S, *heads, True)
+    out["whisper_encoder"] = (B, w.enc_seq, w.enc_seq, *heads, False, 0)
+    out["whisper_cross"] = (B, S, w.enc_seq, *heads, False, 0)
+    out["whisper_decoder"] = (B, S, S, *heads, True, 0)
+    return out
+
+
+def layer_windows(cfg) -> dict:
+    """{window: layers} of a dense arch's attention (gemma3's local and
+    global layers; one window, 0, elsewhere)."""
+    out = {}
+    for idx in range(cfg.n_layers):
+        w = model_transformer._layer_window(cfg, idx)
+        out[w] = out.get(w, 0) + 1
     return out
 
 
 def launches_at(flash_shapes, shape) -> int:
     """The launches among ``flash_shapes`` (run_model's rows ``[B, Sq,
-    Sk, H, K, d, causal, count]``) at ``shape`` with either prompt
-    length: the same batch, heads, head dim and mask, and self-attention
-    (Sq == Sk) for a self-attention shape, the same keys (Sk != Sq) for a
-    cross-attention one."""
-    B, Sq, Sk, H, K, d, causal = shape
+    Sk, H, K, d, causal, window, count]``) at ``shape`` with either prompt
+    length: the same batch, heads, head dim, mask and window, and
+    self-attention (Sq == Sk) for a self-attention shape, the same keys
+    (Sk != Sq) for a cross-attention one."""
+    B, Sq, Sk, H, K, d, causal, window = shape
     total = 0
-    for b, sq, sk, h, k, dd, c, n in flash_shapes:
-        if (b, h, k, dd, bool(c)) != (B, H, K, d, causal):
+    for b, sq, sk, h, k, dd, c, w, n in flash_shapes:
+        if (b, h, k, dd, bool(c), w) != (B, H, K, d, causal, window):
             continue
         if (sq == sk) if Sq == Sk else (sk == Sk and sq != sk):
             total += n
@@ -969,22 +1027,30 @@ def run_families(sz: Sizes, dev, seed: int) -> dict:
     dedup hits and the launches a prefill checked), one model on the card
     at a time.  whisper-medium must launch flash_attention once an
     encoder layer, once a decoder layer at its cross shape and once at
-    its causal shape, a prefill."""
+    its causal shape, a prefill; gemma3-27b once a local layer with its
+    window and once a global layer without."""
     t0 = time.perf_counter()
     archs = []
     for arch in FAMILY_ARCHS:
         out = run_model(sz, dev, seed, arch)
-        if dev.type == "cuda" and arch == "whisper-medium":
-            cfg = model_config(sz, arch)
-            shapes = family_flash_shapes(sz)
-            for key, layers in (("whisper_encoder", cfg.enc_layers),
-                                ("whisper_cross", cfg.n_layers),
-                                ("whisper_decoder", cfg.n_layers)):
-                got = launches_at(out["flash_shapes"], shapes[key])
-                if got != layers * out["prefills"]:
-                    raise AssertionError(
-                        f"whisper {key}: {got} launches for "
-                        f"{out['prefills']} prefills of {layers} layers")
+        cfg = model_config(sz, arch)
+        shapes = family_flash_shapes(sz)
+        per_layer = {}
+        if arch == "whisper-medium":
+            per_layer = {"whisper_encoder": cfg.enc_layers,
+                         "whisper_cross": cfg.n_layers,
+                         "whisper_decoder": cfg.n_layers}
+        elif arch == "gemma3-27b":
+            windows = layer_windows(cfg)
+            per_layer = {"gemma3_local": windows.get(cfg.local_window, 0),
+                         "gemma3_global": windows.get(0, 0)}
+            out["layers_by_window"] = windows
+        for key, layers in per_layer.items():
+            got = launches_at(out["flash_shapes"], shapes[key])
+            if dev.type == "cuda" and got != layers * out["prefills"]:
+                raise AssertionError(
+                    f"{arch} {key}: {got} launches for {out['prefills']} "
+                    f"prefills of {layers} layers")
         archs.append(out)
     return {"archs": archs, "reduced": families_reduced(sz),
             "phase_s": time.perf_counter() - t0}
@@ -997,16 +1063,47 @@ def run_families(sz: Sizes, dev, seed: int) -> dict:
 TRAIN_ARCH = "qwen3-1.7b"
 # the archs the SSD backward trains, after qwen3-1.7b, one at a time
 SSM_TRAIN_ARCHS = ("mamba2-370m", "zamba2-7b")
+# the MoE arch trained after them
+MOE_TRAIN_ARCH = "qwen2-moe-a2.7b"
 # full-width archs the train phase cuts in depth: (layers, why)
 TRAIN_DEPTH_CUTS = {"zamba2-7b": (
     24, "6.75 B parameters are about 108 GB with AdamW's f32 moments and "
         "the f32 gradient accumulator (16 B a parameter), more than one "
         "80 GB card holds; 24 layers, a multiple of shared_attn_every = 6, "
-        "keep 4 shared-attention calls")}
-# the leaves whose gradient flows only through a kernel's backward: each
-# layer's must be nonzero (flash_attention's; ssd_scan's)
-ATTN_GRAD_LEAVES = ("wq", "wk", "wv", "q_norm", "k_norm")
+        "keep 4 shared-attention calls"),
+    "qwen2-moe-a2.7b": (
+    4, "14.32 B parameters are about 229 GB with AdamW's f32 moments and "
+       "the f32 gradient accumulator (16 B a parameter); 6 layers (4.05 B, "
+       "64.7 GB) leave too little of 80 GB for the f32 logits and the "
+       "activations, 4 layers hold 2.90 B (46.5 GB)")}
+# the leaves whose gradient flows only through a kernel's or the MoE
+# dispatch's backward, by group: each layer's must be nonzero.  Attention:
+# the projections (and the QKV biases, the head norms) that feed q, k and
+# v; a Mamba2 layer: A_log and dt_bias; a MoE layer: the router and each
+# expert tensor
 SSM_GRAD_LEAVES = ("A_log", "dt_bias")
+
+
+def grad_leaf_groups(cfg) -> dict:
+    """{group: the suffixes of the leaves of one layer} that
+    :func:`_train_run` holds nonzero: ``attn`` for the archs that attend
+    in every layer (from the arch's own leaves: QKV biases where
+    ``qkv_bias``, the head norms where ``qk_norm``), ``moe`` for a MoE
+    arch, ``ssm`` for the SSM and hybrid ones."""
+    if cfg.family in ("ssm", "hybrid"):
+        return {"ssm": SSM_GRAD_LEAVES}
+    fused = ("wqkv",) if cfg.fused_qkv else ("wq", "wk", "wv")
+    attn = fused + ((("bqkv",) if cfg.fused_qkv else ("bq", "bk", "bv"))
+                    if cfg.qkv_bias else ()) \
+        + (("q_norm", "k_norm") if cfg.qk_norm else ())
+    out = {"attn": tuple(f"attn.{n}" for n in attn)}
+    if cfg.family == "moe":
+        experts = ("w_gate_up",) if cfg.fused_gate_up else ("w_gate", "w_up")
+        out["moe"] = ("moe.router",) + tuple(
+            f"moe.experts.{n}" for n in experts + ("w_down",))
+    return out
+
+
 # run_training's crash/resume recipe (the README's train CLI example), on
 # the tiny form of each trained arch
 RECIPE = dict(arch="tiny:qwen3-1.7b", steps=30, ckpt_every=10)
@@ -1070,16 +1167,17 @@ def _train_run(sz: Sizes, dev, seed: int, arch: str = TRAIN_ARCH,
     peak memory; with ``profile``, one more step under ``torch.profiler``
     after the counts are read."""
     cfg = train_config(sz, arch)
-    leaves = ATTN_GRAD_LEAVES if cfg.family not in ("ssm", "hybrid") \
-        else SSM_GRAD_LEAVES
+    groups = grad_leaf_groups(cfg)
     model = Model(cfg)
     opt = make_optimizer(cfg)
     nonzero = {}
 
     def update(grads, state, params, step):
         if not nonzero:            # the first step's, read after the run
-            nonzero.update({n: g.abs().max() > 0 for n, g in grads.items()
-                            if n.split(".")[-1] in leaves})
+            for group, suffixes in groups.items():
+                nonzero[group] = {
+                    n: g.abs().max() > 0 for n, g in grads.items()
+                    if any(n.endswith("." + x) for x in suffixes)}
         return opt.update(grads, state, params, step)
     train_step = make_train_step(model, cfg, Optimizer(opt.init, update))
     pipe = TokenPipeline(cfg, ShapeConfig("train_4k", sz.train_seq,
@@ -1108,23 +1206,24 @@ def _train_run(sz: Sizes, dev, seed: int, arch: str = TRAIN_ARCH,
             _sync(dev)
             times.append(time.perf_counter() - t0)
         out["launches"] = {w.__name__: w.launches for w in TRAIN_WRAPPERS}
+        key = train_shape(sz, arch) + (0,)     # no window
         out["launches_at_shape"] = {
-            "flash_attention": flash_attention.shapes[train_shape(sz, arch)],
-            "flash_attention_bwd": flash_attention_bwd.shapes[
-                train_shape(sz, arch)]}
-        if leaves is SSM_GRAD_LEAVES:
+            "flash_attention": flash_attention.shapes[key],
+            "flash_attention_bwd": flash_attention_bwd.shapes[key]}
+        if "ssm" in groups:
             out["launches_at_shape"].update(
                 ssd_scan=ssd_scan.shapes[ssd_train_shape(sz, arch)],
                 ssd_scan_bwd=ssd_scan_bwd.shapes[ssd_train_shape(sz, arch)])
         out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) \
             if dev.type == "cuda" else None
-        out["zero_grads"] = sorted(n for n, nz in nonzero.items()
-                                   if not bool(nz))
-        out["grad_leaves"] = len(nonzero)
+        out["zero_grads"] = sorted(n for g in nonzero.values()
+                                   for n, nz in g.items() if not bool(nz))
+        out["grad_leaves"] = {g: len(v) for g, v in nonzero.items()}
         if profile and dev.type == "cuda":
             batch = pipe.next_batch()
             out["profile"] = profile_step(lambda: train_step(
-                params, opt_state, batch, sz.train_steps), dev, top=10)
+                params, opt_state, batch, sz.train_steps), dev, top=10,
+                groups=DISPATCH_KERNELS if "moe" in groups else None)
     del params, opt_state
     free_card(dev)
     out.update(losses=losses, step_s=times)
@@ -1186,10 +1285,10 @@ def train_launches(cfg, steps: int) -> dict:
 def _train_arch(sz: Sizes, dev, seed: int, arch: str) -> dict:
     """``arch`` trained ``sz.train_steps`` steps twice from the same seed:
     finite losses, the same bits in both runs, every layer's gradients
-    that only a kernel's backward feeds nonzero (attention: wq, wk, wv,
-    q_norm, k_norm; a Mamba2 layer: A_log, dt_bias), and on the card the
-    launches of :func:`train_launches`, at the training shapes and
-    nowhere else; then the crash/resume recipe on ``tiny(arch)``."""
+    that only a kernel's or the MoE dispatch's backward feeds nonzero
+    (:func:`grad_leaf_groups`), and on the card the launches of
+    :func:`train_launches`, at the training shapes and nowhere else; then
+    the crash/resume recipe on ``tiny(arch)``."""
     t0 = time.perf_counter()
     cfg = train_config(sz, arch)
     first = _train_run(sz, dev, seed, arch, profile=True)
@@ -1200,9 +1299,8 @@ def _train_arch(sz: Sizes, dev, seed: int, arch: str) -> dict:
     if again["losses"] != losses:
         raise AssertionError(f"{arch}: two runs from seed {seed} differ: "
                              f"{losses} and {again['losses']}")
-    ssm = cfg.family in ("ssm", "hybrid")
-    n_leaves = cfg.n_layers * len(SSM_GRAD_LEAVES if ssm
-                                  else ATTN_GRAD_LEAVES)
+    n_leaves = {g: cfg.n_layers * len(v)
+                for g, v in grad_leaf_groups(cfg).items()}
     if first["zero_grads"] or first["grad_leaves"] != n_leaves:
         raise AssertionError(f"{arch}: gradients zero or missing: "
                              f"{first['zero_grads']} "
@@ -1232,17 +1330,23 @@ def _train_arch(sz: Sizes, dev, seed: int, arch: str) -> dict:
            "launches_at_shape": first["launches_at_shape"],
            "launches_per_step": {k: v / steps
                                  for k, v in first["launches"].items()},
-           ("ssm_grad_leaves_nonzero" if ssm
-            else "attn_grad_leaves_nonzero"): first["grad_leaves"],
+           **{f"{g}_grad_leaves_nonzero": n
+              for g, n in first["grad_leaves"].items()},
            "profile": first.get("profile"),
            "recipe": train_recipe(dev, seed, f"tiny:{arch}"),
            "reduced": train_reduced(sz, arch)}
+    ssm = cfg.family in ("ssm", "hybrid")
     if ssm:
         out["ssd_shape"] = list(ssd_train_shape(sz, arch))
         if out["profile"]:         # the SSD backward's share of the step
             out["ssd_bwd_share"] = sum(k["share"] for k in
                                        out["profile"]["port"]
                                        if "ssd_bwd" in k["name"])
+    if cfg.family == "moe" and out["profile"]:
+        # the dispatch's and the combine's indexing and sorts, with their
+        # backward, under deterministic algorithms
+        out["dispatch_share"] = out["profile"]["groups"]["dispatch_combine"][
+            "share"]
     if cfg.family == "hybrid":
         out["shared_attn_calls"] = cfg.n_layers // cfg.shared_attn_every
         out["attn_shape"] = list(train_shape(sz, arch))
@@ -1250,29 +1354,151 @@ def _train_arch(sz: Sizes, dev, seed: int, arch: str) -> dict:
     return out
 
 
+# arctic-480b trains only in its tiny form: the recipe (bf16 moments), and
+# three AdamW steps on the card held against the CPU
+BF16_OPT_ARCH = "arctic-480b"
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor,
+              scale: torch.Tensor) -> float:
+    """max |got - want| over one bf16 ulp of ``scale`` (elementwise: the
+    spacing of bf16 at |scale|'s binade, normal numbers only)."""
+    mag = scale.float().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def check_bf16_optimizer(sz: Sizes, dev, seed: int,
+                         arch: str = BF16_OPT_ARCH) -> dict:
+    """Three steps of ``make_train_step`` with ``microbatches=2`` and
+    AdamW on ``tiny(arch)`` (bf16 moments and a bf16 microbatch
+    accumulator: its ``opt_dtype``) on ``dev`` and on the CPU from the
+    same parameters and seeded gradients.  The loss is linear in the
+    parameters, sum(p o g), so that both devices differentiate to ``g``
+    exactly (a model's own gradients differ at f32 noise, hundreds of
+    bf16 ulps where they cancel), as ``tests/test_torch_train.py`` holds
+    the port's accumulator against the reference's.  Each step: the accumulator
+    handed to AdamW bit for bit; each bf16 moment within one bf16 ulp of
+    its update's largest operand (|new|, b |old| or (1 - b) |g|, with g^2
+    for nu: the global norm's clip scale sums in another order on the
+    card, and a moment one f32 ulp off may round the other way); the
+    parameters within 1e-5."""
+    cfg = dataclasses.replace(tiny(get_arch(arch)), microbatches=2)
+    if cfg.opt_dtype != "bfloat16":
+        raise AssertionError(f"{arch}: opt_dtype {cfg.opt_dtype}")
+    model = Model(cfg)
+    cpu = torch.device("cpu")
+    host = model.init(torch.Generator().manual_seed(seed), trainable=True)
+    rng = np.random.default_rng(seed)
+    names = [n for n, _ in host.named_parameters()]
+    batches = [{n: np.stack([rng.standard_normal(p.shape).astype(np.float32)
+                             for _ in range(2)])
+                for n, p in host.named_parameters()} for _ in range(3)]
+    lin = SimpleNamespace(loss=lambda p, mb: sum(
+        (leaf * mb[n]).sum() for n, leaf in p.named_parameters()))
+    runs = {}
+    for where in (cpu, dev):
+        params = copy.deepcopy(host).to(where)
+        opt = make_optimizer(cfg)
+        seen = []
+
+        def update(grads, state, p, step, opt=opt, seen=seen):
+            seen.append({n: g.clone() for n, g in grads.items()})
+            return opt.update(grads, state, p, step)
+        step_fn = make_train_step(lin, cfg, Optimizer(opt.init, update))
+        state = opt.init(params)
+        moments = []
+        with deterministic(where):
+            for i, batch in enumerate(batches):
+                params, state, _ = step_fn(params, state, batch, i)
+                moments.append({m: {n: t.clone().cpu()
+                                    for n, t in state[m].items()}
+                                for m in ("mu", "nu")})
+        runs[where.type] = {"acc": [{n: g.cpu() for n, g in a.items()}
+                                    for a in seen],
+                            "moments": moments,
+                            "params": {n: p.detach().cpu() for n, p in
+                                       params.named_parameters()}}
+    host_run, card = runs["cpu"], runs[dev.type]
+    worst = {"mu": 0.0, "nu": 0.0}
+    for i in range(len(batches)):
+        for n in names:
+            a, w = card["acc"][i][n], host_run["acc"][i][n]
+            if not torch.equal(a, w):
+                raise AssertionError(f"bf16 accumulator step {i} {n}: not "
+                                     f"the CPU's bits")
+        prev = host_run["moments"][i - 1] if i else None
+        for m, b in (("mu", 0.9), ("nu", 0.95)):
+            for n in names:
+                t, w = card["moments"][i][m][n], host_run["moments"][i][m][n]
+                if t.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+                    raise AssertionError(f"{m} {n}: {t.dtype}, not bf16")
+                g = host_run["acc"][i][n].float()
+                term = (1 - b) * (g if m == "mu" else g * g).abs()
+                old = b * prev[m][n].float().abs() if prev else \
+                    torch.zeros_like(term)
+                scale = torch.maximum(w.float().abs(),
+                                      torch.maximum(old, term))
+                ulps = bf16_ulps(t, w, scale)
+                if ulps > 1.0:
+                    raise AssertionError(f"bf16 {m} step {i} {n}: {ulps} "
+                                         f"ulps from the CPU's")
+                worst[m] = max(worst[m], ulps)
+    param_err = max(max_err(card["params"][n], host_run["params"][n])
+                    for n in names)
+    if not param_err <= 1e-5:
+        raise AssertionError(f"bf16 optimizer: parameters {param_err} from "
+                             f"the CPU's")
+    return {"arch": f"tiny:{arch}", "steps": len(batches),
+            "microbatches": cfg.microbatches, "opt_dtype": cfg.opt_dtype,
+            "leaves": len(names), "accumulator_bitwise": True,
+            "worst_moment_ulps": worst, "param_max_abs_err": param_err}
+
+
 def run_train(sz: Sizes, dev, seed: int) -> dict:
-    """qwen3-1.7b (its results at the top level), then mamba2-370m and
-    zamba2-7b (under their names), one model on the card at a time, each
-    trained twice from one seed and put through the crash/resume recipe
-    (:func:`_train_arch`)."""
+    """qwen3-1.7b (its results at the top level), then mamba2-370m,
+    zamba2-7b and qwen2-moe-a2.7b (under their names), one model on the
+    card at a time, each trained twice from one seed and put through the
+    crash/resume recipe (:func:`_train_arch`); then arctic-480b's tiny
+    form: the recipe under its bf16 moments and
+    :func:`check_bf16_optimizer`."""
     t0 = time.perf_counter()
     out = _train_arch(sz, dev, seed, TRAIN_ARCH)
-    for arch in SSM_TRAIN_ARCHS:
+    for arch in SSM_TRAIN_ARCHS + (MOE_TRAIN_ARCH,):
         out[arch] = _train_arch(sz, dev, seed, arch)
+    t1 = time.perf_counter()
+    out[BF16_OPT_ARCH] = {
+        "recipe": train_recipe(dev, seed, f"tiny:{BF16_OPT_ARCH}"),
+        "bf16_optimizer": check_bf16_optimizer(sz, dev, seed),
+        "reduced": [f"{BF16_OPT_ARCH} trains only as tiny(): one layer at "
+                    f"full width is 14.07 B parameters, about 141 GB under "
+                    f"its bf16 AdamW, more than one 80 GB card holds"],
+        "phase_s": time.perf_counter() - t1}
     out["phase_s"] = time.perf_counter() - t0
     return out
+
+
+# the kernels of the MoE dispatch and combine and their backward under
+# deterministic algorithms (profile_step's ``groups``): gathers, the
+# sort-based index_put, scatters, sorts and searchsorted (the embedding's
+# backward sorts its indices through the same radix sort)
+DISPATCH_KERNELS = {"dispatch_combine": (
+    "index_elementwise", "indexing_backward", "index_put", "scatter",
+    "RadixSort", "SortKV", "sort", "searchsorted")}
 
 
 PORT_KERNELS = ("nvt_probe", "flash_fwd", "flash_bwd", "ssd_scan_tc",
                 "ssd_chunk_scan", "ssd_bwd")
 
 
-def profile_step(fn, dev, top: int = 8) -> dict:
+def profile_step(fn, dev, top: int = 8, groups: dict = None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its host-clock wall
     time (device synced), the device time of every kernel and copy it
     ran, the share of the wall the device was busy, the kernels that took
     the most device time, and the port's own kernels wherever they rank
-    (``port``: each one's device time and share of the step's)."""
+    (``port``: each one's device time and share of the step's); with
+    ``groups`` ({name: substrings of kernel names}) each group's device
+    time, share and calls."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1300,7 +1526,15 @@ def profile_step(fn, dev, top: int = 8) -> dict:
                       "calls": e.count,
                       "share": dev_us(e) / 1e3 / device_ms}
                      for e in events
-                     if any(k in e.key for k in PORT_KERNELS)]}
+                     if any(k in e.key for k in PORT_KERNELS)],
+            "groups": {name: {
+                "ms": sum(dev_us(e) for e in hit) / 1e3,
+                "share": sum(dev_us(e) for e in hit) / 1e3 / device_ms,
+                "calls": sum(e.count for e in hit),
+                "kernels": [e.key[:80] for e in hit[:top]]}
+                for name, keys in (groups or {}).items()
+                for hit in ([e for e in events
+                             if any(k in e.key for k in keys)],)}}
 
 
 def profile_model(model, params, requests: dict, sz: Sizes, dev) -> dict:
@@ -1361,34 +1595,35 @@ def engine_flash_shape(sz: Sizes) -> tuple:
 
 def check_flash(sz: Sizes, dev) -> dict:
     """flash_attention against attention_ref: at the serve shapes of every
-    served arch (zamba2-7b, qwen2-7b and the families') and at the engine
+    served arch (zamba2-7b, qwen2-7b and the families', gemma3-27b's local
+    layers with their window) and at the engine
     point's shape (shorter than one tile) in bf16 (reference in f32,
     2e-2), and the tests/test_kernels.py sweep in f32 (2e-5: f32 sums in
     another order)."""
     errs = {}
 
-    def bf16(key, B, S, H, K, d, Sk=None, causal=True):
+    def bf16(key, B, S, H, K, d, Sk=None, causal=True, window=0):
         q, k, v = flash_inputs(dev, B, S, H, d, torch.bfloat16, S, K, Sk)
-        got = flash_attention(q, k, v, causal=causal)
+        got = flash_attention(q, k, v, causal=causal, window=window)
         want = flash_attention_plain(q.float(), k.float(), v.float(),
-                                     causal=causal)
+                                     causal=causal, window=window)
         errs[key] = _check_close(
-            f"flash {key} {[B, S, Sk or S, H, K, d, causal]}", got, want,
-            2e-2)
+            f"flash {key} {[B, S, Sk or S, H, K, d, causal, window]}", got,
+            want, 2e-2)
     for arch, (B, H, K, d) in FLASH_SHAPES.items():
         tag = "" if arch == "zamba2-7b" else "qwen2_"
         for S in sz.check_lens:
             bf16(f"{tag}bf16_S{S}", B, S, H, K, d)
     bf16("qwen2_engine_bf16", *engine_flash_shape(sz))
     # the families' shapes: non-causal (a ragged last KV tile), Sq != Sk,
-    # d = 64, GQA 6:1 and 7:1
+    # d = 64, GQA 6:1 and 7:1, MHA 40:40, gemma3's window
     for S in sz.check_lens:
-        for key, (B, Sq, Sk, H, K, d, causal) in \
+        for key, (B, Sq, Sk, H, K, d, causal, window) in \
                 family_flash_shapes(sz, S).items():
             name = f"{key}_bf16" if key == "whisper_encoder" else \
                 f"{key}_bf16_S{S}"
             if name not in errs:
-                bf16(name, B, Sq, H, K, d, Sk, causal)
+                bf16(name, B, Sq, H, K, d, Sk, causal, window)
     sweep = [(1, 128, 128, 2, 2, 64), (2, 256, 256, 4, 2, 64),
              (1, 256, 256, 8, 2, 32), (2, 64, 192, 2, 1, 128)]
     for i, (B, Sq, Sk, H, K, d) in enumerate(sweep):
@@ -1417,7 +1652,8 @@ LSE_TOL = 1e-4
 def flash_bwd_shapes(sz: Sizes) -> dict:
     """(B, Sq, Sk, H, K, d, causal, window) of the backward checks: a
     qwen3-1.7b training microbatch, a zamba2-7b one (its shared block,
-    d = 112, the wgmma pair on 128-column tiles), zamba2-7b's d = 112 at
+    d = 112, the wgmma pair on 128-column tiles), a qwen2-moe-a2.7b one
+    (MHA 16:16 over [1, 4096]), zamba2-7b's d = 112 at
     the serve shape, whisper-medium's cross shape (non-causal, Sq != Sk,
     a ragged last tile), a gemma3-27b local layer (its window over twice
     its length), rows with no visible key (ROADMAP Queue 3's case), and
@@ -1429,6 +1665,7 @@ def flash_bwd_shapes(sz: Sizes) -> dict:
     g = model_config(sz, "gemma3-27b")
     return {"qwen3_train": train_shape(sz) + (0,),
             "zamba2_train": train_shape(sz, "zamba2-7b") + (0,),
+            "qwen2_moe_train": train_shape(sz, MOE_TRAIN_ARCH) + (0,),
             "zamba2_d112": (sz.model_batch, S, S, z.n_heads, z.n_kv_heads,
                             z.head_dim, True, 0),
             "whisper_cross": (sz.model_batch, min(sz.check_lens), w.enc_seq,
@@ -1551,6 +1788,17 @@ class plain_ssd:
         model_mamba2.ssd_scan = self.saved
 
 
+def no_drops(cfg):
+    """A MoE ``cfg`` with its capacity factor raised to ``n_experts /
+    top_k``, so that no token is dropped (the two sides of a consistency
+    check may route a near-tied token otherwise, and with drops one
+    changed route moves which tokens drop); other configs as they are."""
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=max(
+        cfg.capacity_factor, cfg.n_experts / cfg.top_k))
+
+
 TRAIN_CONSISTENCY_TOL = 1e-4
 # the depth of each arch's f32 gradient check, where not
 # ``sz.train_check_layers``: zamba2-7b keeps one shared-attention call
@@ -1571,10 +1819,12 @@ def check_train_consistency(sz: Sizes, dev, seed: int,
     within TRAIN_CONSISTENCY_TOL x its max magnitude, which must be
     nonzero (f32 sums in other orders; a dropped or wrong gradient moves
     a leaf by O(1)).  On the card the kernel side must launch each
-    backward once a layer that runs its kernel."""
-    cfg = train_config(sz, arch, n_layers=train_check_layers(sz, arch),
-                       param_dtype="float32", compute_dtype="float32",
-                       microbatches=1)
+    backward once a layer that runs its kernel.  A MoE's capacity factor
+    is raised so that no token drops (:func:`no_drops`)."""
+    cfg = no_drops(train_config(sz, arch,
+                                n_layers=train_check_layers(sz, arch),
+                                param_dtype="float32",
+                                compute_dtype="float32", microbatches=1))
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed + 2),
                         trainable=True)
@@ -1615,7 +1865,116 @@ def check_train_consistency(sz: Sizes, dev, seed: int,
            "tol": TRAIN_CONSISTENCY_TOL}
     if cfg.family == "hybrid":
         out["shared_attn_calls"] = cfg.n_layers // cfg.shared_attn_every
+    if cfg.n_experts:
+        out["capacity_factor"] = cfg.capacity_factor
     return out
+
+
+def _leaf(dev, shape, seed: int) -> torch.Tensor:
+    """f32 values of many magnitudes (a normal times e^(3 N)), drawn on
+    ``dev`` from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev) * torch.exp(
+        3 * torch.randn(shape, generator=g, device=dev))
+
+
+def check_compressed_grads(sz: Sizes, dev, seed: int) -> dict:
+    """``make_compressed_psum_grads``: the replica form (``axis=0``) at
+    ``sz.reduce_replicas`` replicas of a ``sz.reduce_elems``-element f32
+    leaf, with an error of residual size, on ``dev`` and on the CPU: the
+    reduced gradient and the new error bit for bit the same.  The process
+    group form at world size 1 (NCCL on the card, gloo on the CPU; its
+    store a ``FileStore``, no network) equal to the replica form at R = 1.
+    And ``tests/test_train_loop.py``'s error-feedback sum: a gradient of
+    1e-3 + 1e-6 (below bf16's resolution there) on 2 replicas, 50 steps,
+    within rel 1e-3 of 50 x its value."""
+    import torch.distributed as dist
+    R, n = sz.reduce_replicas, sz.reduce_elems
+    g = _leaf(dev, (R, n), seed)
+    e = _leaf(dev, (R, n), seed + 1) * 2.0 ** -12
+    f = make_compressed_psum_grads(axis=0)
+    t0 = time.perf_counter()
+    red, err = f({"w": g}, {"w": e})
+    _sync(dev)
+    dev_s = time.perf_counter() - t0
+    hred, herr = f({"w": g.cpu()}, {"w": e.cpu()})
+    if not (torch.equal(red["w"].cpu(), hred["w"])
+            and torch.equal(err["w"].cpu(), herr["w"])):
+        raise AssertionError("compressed reduce: the card's replica form "
+                             "is not the CPU's bits")
+    one = make_compressed_psum_grads(axis=0)(
+        {"w": g[:1]}, {"w": e[:1]})
+    with tempfile.TemporaryDirectory() as d:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dist.init_process_group(backend, store=dist.FileStore(
+            f"{d}/store", 1), rank=0, world_size=1)
+        try:
+            fg = make_compressed_psum_grads(group=dist.group.WORLD)
+            gred, gerr = fg({"w": g[0]}, {"w": e[0]})
+            _sync(dev)
+        finally:
+            dist.destroy_process_group()
+    if not (torch.equal(gred["w"], one[0]["w"][0])
+            and torch.equal(gerr["w"], one[1]["w"][0])):
+        raise AssertionError(f"compressed reduce: the {backend} form at "
+                             f"world size 1 is not the replica form's")
+    w = torch.full((2, 1), 1e-3 + 1e-6, device=dev)
+    es = {"w": torch.zeros_like(w)}
+    total = 0.0
+    for _ in range(50):
+        r, es = f({"w": w}, es)
+        total += float(r["w"][0, 0])
+    want = 50 * (1e-3 + 1e-6)
+    if not abs(total - want) <= 1e-3 * want:
+        raise AssertionError(f"error feedback: {total} after 50 steps, "
+                             f"not {want}")
+    del g, e, red, err, hred, herr
+    free_card(dev)
+    return {"replicas": R, "elements": n, "replica_bitwise_vs_cpu": True,
+            "replica_s": dev_s, "group_backend": backend,
+            "group_world_1_equals_replica": True,
+            "feedback_sum_50": total, "feedback_want": want,
+            "feedback_rel_err": abs(total - want) / want}
+
+
+GPIPE_TOL = 1e-5
+
+
+def check_gpipe(sz: Sizes, dev, seed: int) -> dict:
+    """The GPipe schedule (``training/pipeline.py``) on ``dev``:
+    ``sz.gpipe_stages`` stages of ``sz.gpipe_layers`` blocks at d_model
+    ``sz.gpipe_d`` and d_ff ``sz.gpipe_ff``, ``sz.gpipe_micro``
+    microbatches of [``sz.gpipe_batch``, ``sz.gpipe_seq``], f32, through
+    ``make_gpipe_fn``, against the port's sequential stack on the same
+    values: within GPIPE_TOL of the stack's max magnitude (f32 products
+    batched over the stages against one block at a time).  Both times on
+    the host clock, the device synced, after a warm-up call of each."""
+    S, L, M = sz.gpipe_stages, sz.gpipe_layers, sz.gpipe_micro
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_pipeline_params(gen, n_stages=S, layers_per_stage=L,
+                                  d_model=sz.gpipe_d, d_ff=sz.gpipe_ff)
+    x = torch.randn((M, sz.gpipe_batch, sz.gpipe_seq, sz.gpipe_d),
+                    generator=gen, device=dev)
+    fn = make_gpipe_fn(S, device=dev)
+    stage, times = _timer(dev)
+    with torch.no_grad():
+        fn(params, x)
+        out = stage("pipelined_s", lambda: fn(params, x))
+        flat = x.reshape((-1,) + tuple(x.shape[2:]))
+        sequential_forward(params, flat)
+        ref = stage("sequential_s", lambda: sequential_forward(
+            params, flat)).reshape(x.shape)
+    rel, scale, err = _scaled(out, ref)
+    if not torch.isfinite(out).all() or not rel <= GPIPE_TOL:
+        raise AssertionError(f"gpipe: {err} = {rel} x max|ref| {scale}, "
+                             f"tol {GPIPE_TOL}")
+    del params, x, out, ref
+    free_card(dev)
+    return {"stages": S, "layers_per_stage": L, "microbatches": M,
+            "microbatch": [sz.gpipe_batch, sz.gpipe_seq],
+            "d_model": sz.gpipe_d, "d_ff": sz.gpipe_ff, "dtype": "float32",
+            "ticks": gpipe_ticks(M, S), "max_rel_err": rel,
+            "max_abs_err": err, "tol": GPIPE_TOL, **times}
 
 
 def ssd_inputs(dev, B, S, H, P, N, dtype, seed):
@@ -1818,7 +2177,7 @@ CONSISTENCY_TOL = 2e-3
 # (arctic-480b's one f32 layer alone is 56 GB: its parity is held on the
 # CPU)
 CONSISTENCY_ARCHS = ("qwen2-moe-a2.7b", "mamba2-370m", "whisper-medium",
-                     "internvl2-26b")
+                     "internvl2-26b", "qwen1.5-32b", "gemma3-27b")
 
 
 def check_consistency(sz: Sizes, dev, seed: int,
@@ -1837,11 +2196,9 @@ def check_consistency(sz: Sizes, dev, seed: int,
     the frontend stubs; a MoE's capacity factor is raised to
     ``n_experts / top_k``, so that no token is dropped (with drops, S + 1
     tokens may route otherwise than S tokens and one step)."""
-    cfg = model_config(sz, arch, n_layers=sz.consistency_layers,
-                       param_dtype="float32", compute_dtype="float32")
-    if cfg.n_experts:
-        cfg = dataclasses.replace(cfg, capacity_factor=max(
-            cfg.capacity_factor, cfg.n_experts / cfg.top_k))
+    cfg = no_drops(model_config(sz, arch, n_layers=sz.consistency_layers,
+                                param_dtype="float32",
+                                compute_dtype="float32"))
     model = Model(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     params = model.init(gen)
@@ -3480,33 +3837,51 @@ def time_probe(out: dict, launches: int, err: int) -> dict:
             **{k: v for k, v in bound.items() if k != "bound_ms"}, **nb}
 
 
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int = 0) -> int:
+    """(query, key) pairs one head of one sequence attends: all of them,
+    or under the causal mask (Sq == Sk) each query's keys up to its own,
+    the last ``window`` of them where a window is set."""
+    if not causal:
+        return Sq * Sk
+    if not window or window >= Sq:
+        return Sq * (Sq + 1) // 2
+    return window * (window + 1) // 2 + (Sq - window) * window
+
+
 def time_flash(dev, launches: int, err: float, arch: str = "zamba2-7b",
                shape=None, path: str = "model") -> dict:
     """flash_attention at one shape of the main path, bf16: by default an
     arch's causal serve shape (S=512; zamba2-7b: B=4, H=K=32, d=112;
     qwen2-7b: B=4, H=28, K=4, d=128), else ``shape`` = (B, Sq, Sk, H, K,
-    d, causal); ``launches`` are those at that shape.  The bound: q, k, v
-    read once and o written once, or 2 * 2 * d flops per visible (query,
-    key) pair at the bf16 peak, whichever is longer.  The library call is
-    SDPA with the same mask (``is_causal``), and ``enable_gqa=True`` where
-    K < H (k and v are not repeated)."""
+    d, causal[, window]); ``launches`` are those at that shape.  The
+    bound: q, k, v read once and o written once, or 2 * 2 * d flops per
+    visible (query, key) pair at the bf16 peak, whichever is longer.  The
+    library call is SDPA with the same mask (``is_causal``, or the
+    window's boolean mask), and ``enable_gqa=True`` where K < H (k and v
+    are not repeated)."""
     if shape is None:
         B, H, K, d = FLASH_SHAPES[arch]
         shape = (B, 512, 512, H, K, d, True)
-    B, Sq, Sk, H, K, d, causal = shape
+    B, Sq, Sk, H, K, d, causal, *rest = shape
+    window = rest[0] if rest else 0
+    mask = dict(causal=causal, window=window)
     q, k, v = flash_inputs(dev, B, Sq, H, d, torch.bfloat16, 0, K, Sk)
-    ms = cuda_ms(lambda: fa_kernel.flash_attention_kernel(q, k, v,
-                                                          causal=causal))
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v,
-                                                     causal=causal))
+    ms = cuda_ms(lambda: fa_kernel.flash_attention_kernel(q, k, v, **mask))
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **mask))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = {"enable_gqa": True} if K < H else {}
+    if window and window < Sq:
+        pos = torch.arange(Sq, device=dev)
+        rel = pos[:, None] - pos[None, :]
+        sdpa_mask = {"attn_mask": (rel >= 0) & (rel < window)}
+    else:
+        sdpa_mask = {"is_causal": causal}
     library_ms = cuda_ms(lambda: torch.nn.functional
                          .scaled_dot_product_attention(
-                             qt, kt, vt, is_causal=causal, **gqa))
+                             qt, kt, vt, **sdpa_mask, **gqa))
     nbytes = sum(2 * t.numel() * t.element_size() for t in (q, k))
     # causal shapes are self-attention (Sq == Sk)
-    flops = 4 * d * B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+    flops = 4 * d * B * H * visible_pairs(Sq, Sk, causal, window)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -3519,11 +3894,13 @@ def time_flash(dev, launches: int, err: float, arch: str = "zamba2-7b",
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
-            "library": f"scaled_dot_product_attention(is_causal={causal}"
+            "library": "scaled_dot_product_attention(" + (
+                "attn_mask=window" if "attn_mask" in sdpa_mask
+                else f"is_causal={causal}")
                        + (", enable_gqa=True)" if gqa else ")"),
             "bytes": nbytes, "flops": flops,
             "shape": [B, Sq, Sk, H, K, d], "causal": causal,
-            "dtype": "bfloat16"}
+            "window": window, "dtype": "bfloat16"}
 
 
 def flash_bwd_bounds(shape) -> dict:
@@ -3625,7 +4002,8 @@ def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes,
             "ms": ms[n], "plain_ms": plain_ms, **bounds[n],
             "library_ms": library_ms,
             "library": "torch.autograd.grad of scaled_dot_product_attention"
-                       "(is_causal=True, enable_gqa=True): the pair's "
+                       "(is_causal=True" + (", enable_gqa=True" if K < H
+                                            else "") + "): the pair's "
                        "function",
             "pair_ms": ms["pair"], "pair_bound_ms": bounds["pair"]["bound_ms"],
             "shape": [B, Sq, Sk, H, K, d], "causal": causal,
@@ -3982,8 +4360,12 @@ def main(argv=None) -> int:
     bwd_errs = check_flash_bwd(sz, dev)
     ssd_bwd_errs = check_ssd_bwd(sz, dev)
     train_cons = {arch: check_train_consistency(sz, dev, args.seed, arch)
-                  for arch in (TRAIN_ARCH,) + SSM_TRAIN_ARCHS}
+                  for arch in (TRAIN_ARCH,) + SSM_TRAIN_ARCHS
+                  + (MOE_TRAIN_ARCH,)}
+    reduce_check = check_compressed_grads(sz, dev, args.seed)
+    gpipe_check = check_gpipe(sz, dev, args.seed)
     log({"phase": "checks", "ok": True, "flash_attention": fa_errs,
+         "compressed_grads": reduce_check, "gpipe": gpipe_check,
          "flash_attention_bwd": bwd_errs, "ssd_scan_bwd": ssd_bwd_errs,
          **{f"consistency_train_{a}": c for a, c in train_cons.items()},
          "ssd_scan": ssd_errs, "consistency": cons,
@@ -3995,7 +4377,13 @@ def main(argv=None) -> int:
                      for a, c in fam_cons.items() if "capacity_factor" in c]
          + [f"{a} gradient check: n_layers {get_arch(a).n_layers} -> "
             f"{c['n_layers']}, one sequence of {c['S']}"
-            for a, c in train_cons.items()],
+            + (f", capacity_factor {get_arch(a).capacity_factor} -> "
+               f"{c['capacity_factor']} (no token dropped)"
+               if "capacity_factor" in c else "")
+            for a, c in train_cons.items()]
+         + ["gpipe: a demo stack of dense blocks with no published config "
+            "(the reference's own demo): 4 stages of 2 blocks at d_model "
+            "2048, d_ff 8192, 8 microbatches of [2, 512], on one card"],
          "check_s": time.perf_counter() - t0})
 
     # 11. ordered: the map's stream on the ordered map, its reads, and the
@@ -4060,8 +4448,7 @@ def main(argv=None) -> int:
     # the families' shapes: an entry a new main-path shape, with the
     # launches the families phase made at it
     for key, shape in family_flash_shapes(sz).items():
-        arch = {"qwen2_moe": "qwen2-moe-a2.7b", "internvl2": "internvl2-26b",
-                "arctic": "arctic-480b"}.get(key, "whisper-medium")
+        arch = FLASH_SHAPE_ARCHS.get(key, "whisper-medium")
         err = max(v for k, v in fa_errs.items() if k.startswith(key))
         kernels.append(time_flash(
             dev, launches_at(fam[arch]["flash_shapes"], shape), err, arch,
@@ -4093,6 +4480,16 @@ def main(argv=None) -> int:
             "fwd_err"], "zamba2-7b", train_shape(sz, "zamba2-7b"), "train"))
     kernels.extend(time_flash_bwd(dev, z["flash_attention_bwd"], bwd_errs,
                                   sz, fa_rows, "zamba2-7b", "zamba2_train"))
+    # the MoE training shape: the flash forward and the wgmma backward
+    # pair at [1, 4096, 4096, 16, 16, 128], with the train phase's launches
+    moe = train[MOE_TRAIN_ARCH]["launches_at_shape"]
+    kernels.append(time_flash(
+        dev, moe["flash_attention"], bwd_errs["qwen2_moe_train_bfloat16"][
+            "fwd_err"], MOE_TRAIN_ARCH, train_shape(sz, MOE_TRAIN_ARCH),
+        "train"))
+    kernels.extend(time_flash_bwd(dev, moe["flash_attention_bwd"], bwd_errs,
+                                  sz, fa_rows, MOE_TRAIN_ARCH,
+                                  "qwen2_moe_train"))
     kernels.append(time_ssd(
         dev, fam["mamba2-370m"]["launches"]["ssd_scan"],
         max(v for k, v in ssd_errs.items()

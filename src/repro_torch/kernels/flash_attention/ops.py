@@ -23,8 +23,9 @@ from .kernel import flash_attention_bwd_kernel, flash_attention_kernel
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 
-def _shape_key(q, k, causal) -> tuple:
-    return (*q.shape[:2], k.shape[1], q.shape[2], *k.shape[2:], bool(causal))
+def _shape_key(q, k, causal, window) -> tuple:
+    return (*q.shape[:2], k.shape[1], q.shape[2], *k.shape[2:], bool(causal),
+            int(window))
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -55,7 +56,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the forward kernel launches made through this wrapper (a recomputed
     forward under activation checkpointing counts again), and
     ``flash_attention.shapes`` the same launches by
-    ``(B, Sq, Sk, H, K, dh, causal)``."""
+    ``(B, Sq, Sk, H, K, dh, causal, window)``."""
     if q.is_cuda:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
@@ -65,7 +66,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                          window=window)
         if out.numel():
             flash_attention.launches += 1
-            flash_attention.shapes[_shape_key(q, k, causal)] += 1
+            flash_attention.shapes[_shape_key(q, k, causal, window)] += 1
         return out
     if not (q.device.type == k.device.type == v.device.type == "cpu"):
         raise ValueError("q, k and v must be on one device (CUDA for the "
@@ -89,7 +90,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                            causal=causal, window=window)
         if q.numel() and k.numel():
             flash_attention_bwd.launches += 1
-            flash_attention_bwd.shapes[_shape_key(q, k, causal)] += 1
+            flash_attention_bwd.shapes[_shape_key(q, k, causal,
+                                                   window)] += 1
         return grads
     if {t.device.type for t in (q, k, v, o, lse, do)} != {"cpu"}:
         raise ValueError("all inputs must be on one device (CUDA for the "

@@ -10,7 +10,8 @@ layer axis unrolled, so ``blocks/mamba/in_proj[3]`` becomes
 ``encoder.1.mlp.w_up``).  bf16 arrays (numpy's ``bfloat16`` extension
 dtype) arrive as torch bf16, bit for bit.  :func:`grads_from_numpy` and
 :func:`opt_state_from_numpy` carry a gradient and an optimizer state across
-the same way, keyed by the port's parameter names.
+the same way, keyed by the port's parameter names;
+:func:`pipeline_params_from_numpy` the GPipe demo stack's parameters.
 """
 from __future__ import annotations
 
@@ -109,3 +110,14 @@ def opt_state_from_numpy(state: dict, cfg, device) -> dict:
                 out.update(slots(v, prefix + k + "."))
         return out
     return slots(state)
+
+
+def pipeline_params_from_numpy(tree: dict, device) -> dict:
+    """The reference's GPipe parameters (``init_pipeline_params``: ``{"w1",
+    "w2", "w3"}`` shaped ``[S, Lps, ...]``, as numpy arrays) as the port's
+    :mod:`repro_torch.training.pipeline` takes them: the same shapes, on
+    ``device``."""
+    if set(tree) != {"w1", "w2", "w3"}:
+        raise ValueError(f"GPipe parameters are w1, w2, w3, not "
+                         f"{sorted(tree)}")
+    return {k: _tensor(v, device) for k, v in tree.items()}

@@ -4,12 +4,18 @@ backward, or a loop over microbatches with the gradients accumulated in
 
 The reference's step is a jitted function of (params, opt_state, batch,
 step) with a ``lax.scan`` over the microbatches; here it is an eager loop
-over the microbatches, ``torch.autograd.grad`` for each.  The
-reference's ``make_compressed_psum_grads`` (a cross-pod ``pmean`` with
-bf16 compression) has no counterpart on one card.
+over the microbatches, ``torch.autograd.grad`` for each.
+
+:func:`make_compressed_psum_grads` is the reference's bf16-compressed
+gradient mean with f32 error feedback, over a leading replica axis (the
+reference under ``jax.vmap(axis_name=...)``) or over a
+``torch.distributed`` process group.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from .optimizer import Optimizer
@@ -77,3 +83,68 @@ def make_train_step(model, cfg, optimizer: Optimizer):
         return params, opt_state, {"loss": loss}
 
     return train_step
+
+
+# --------------------------------------------------------------------- #
+# gradient compression across replicas                                  #
+# --------------------------------------------------------------------- #
+def _mean_of_sum(s16: torch.Tensor, n: int) -> torch.Tensor:
+    """The reference's ``pmean(g16).astype(f32)`` from the bf16 sum: XLA
+    multiplies by the f32 reciprocal of ``n`` and, its bf16 result cast
+    straight to f32, keeps the f32 product unrounded."""
+    return s16.float().mul_(float(np.float32(1.0 / n)))
+
+
+def make_compressed_psum_grads(axis: Optional[int] = None, *, group=None):
+    """bf16-compressed mean of the gradients over replicas, with f32
+    error feedback (port of the reference's function of that name).
+
+    Returns ``f(grads, err) -> (reduced_f32, new_err)`` over dicts of
+    tensors.  For each leaf, in the reference's order: ``g = g.float() +
+    e``; ``g16 = g.to(bfloat16)``; the residual ``g - g16.float()`` is the
+    new error, kept locally; the mean of ``g16`` over the replicas, in
+    f32, is the reduced gradient.
+
+    * ``axis``: every leaf carries the replicas on this axis (``[R, ...]``
+      for ``axis=0``), as the reference runs under ``jax.vmap(...,
+      axis_name="pod")``; the reduced leaf is broadcast back over it.  The
+      mean is XLA's on the CPU: the bf16 replicas summed in order, each
+      add rounded to bf16, then times the f32 reciprocal of R, unrounded.
+    * ``group``: a ``torch.distributed`` process group; each rank holds
+      its own leaves, summed by an all-reduce of the bf16 tensors (NCCL on
+      the card, gloo on the CPU), then the same f32 scaling.  With two
+      ranks the sum is one rounded add, as the replica form's; with more
+      the all-reduce picks its own order of adds.
+
+    Exactly one of ``axis`` and ``group`` must be given: without either
+    there is nothing to reduce over, and the function raises rather than
+    hand back the local gradient."""
+    if (axis is None) == (group is None):
+        raise ValueError("give a replica axis or a process group (exactly "
+                         "one): there is nothing to reduce over")
+    if group is not None:
+        import torch.distributed as dist
+        n = dist.get_world_size(group)
+
+    def mean16(g16: torch.Tensor) -> torch.Tensor:
+        if group is not None:
+            s16 = g16.clone()
+            dist.all_reduce(s16, op=dist.ReduceOp.SUM, group=group)
+            return _mean_of_sum(s16, n)
+        rep = g16.movedim(axis, 0)
+        s16 = rep[0]
+        for r in range(1, rep.shape[0]):
+            s16 = s16 + rep[r]
+        red = _mean_of_sum(s16, rep.shape[0])
+        return red.unsqueeze(axis).expand(g16.shape).contiguous()
+
+    def f(grads: dict, err: dict):
+        red, new_err = {}, {}
+        for name, g in grads.items():
+            g = g.float() + err[name]
+            g16 = g.to(torch.bfloat16)
+            new_err[name] = g - g16.float()
+            red[name] = mean16(g16)
+        return red, new_err
+
+    return f

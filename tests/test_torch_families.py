@@ -431,10 +431,13 @@ def test_checks_phase_holds_the_family_shapes_on_the_cpu():
     assert all(any(k.startswith(key + "_bf16") for k in errs)
                for key in shapes)
     full = chip_smoke.family_flash_shapes(chip_smoke.FULL)
-    assert full["whisper_encoder"] == (4, 1500, 1500, 16, 16, 64, False)
-    assert full["whisper_cross"] == (4, 512, 1500, 16, 16, 64, False)
-    assert full["internvl2"] == (4, 768, 768, 48, 8, 128, True)
-    assert full["arctic"] == (4, 512, 512, 56, 8, 128, True)
+    assert full["whisper_encoder"] == (4, 1500, 1500, 16, 16, 64, False, 0)
+    assert full["whisper_cross"] == (4, 512, 1500, 16, 16, 64, False, 0)
+    assert full["internvl2"] == (4, 768, 768, 48, 8, 128, True, 0)
+    assert full["arctic"] == (4, 512, 512, 56, 8, 128, True, 0)
+    assert full["qwen1_5"] == (4, 512, 512, 40, 40, 128, True, 0)
+    assert full["gemma3_global"] == (4, 512, 512, 32, 16, 128, True, 0)
+    assert full["gemma3_local"] == (4, 512, 512, 32, 16, 128, True, 1024)
     ssd = chip_smoke.check_ssd(sz, cpu)
     assert any(k.startswith("mamba2_") for k in ssd)
     for name in chip_smoke.CONSISTENCY_ARCHS:

@@ -217,7 +217,8 @@ def test_families_phase_serves_every_family_exactly_once_on_the_cpu():
         assert (a["prefills"], a["dedup_hits"], a["records"]) == (2, 4, 2)
         assert a["launches"] == {"flash_attention": 0, "ssd_scan": 0,
                                  "nvt_probe": 0}
-    # on the card: full width, arctic-480b cut to one layer
+    # on the card: full width, arctic-480b cut to one layer; gemma3-27b's
+    # 62 launches a prefill are 52 local layers (window 1024) and 10 global
     full = {n: chip_smoke.model_config(chip_smoke.FULL, n)
             for n in chip_smoke.FAMILY_ARCHS}
     assert {n: (chip_smoke.attn_launches_per_prefill(c),
@@ -225,7 +226,12 @@ def test_families_phase_serves_every_family_exactly_once_on_the_cpu():
             for n, c in full.items()} == {
         "qwen2-moe-a2.7b": (24, 0), "mamba2-370m": (0, 48),
         "whisper-medium": (72, 0), "internvl2-26b": (48, 0),
-        "arctic-480b": (1, 0)}
+        "arctic-480b": (1, 0), "qwen1.5-32b": (64, 0),
+        "gemma3-27b": (62, 0)}
+    assert chip_smoke.layer_windows(full["gemma3-27b"]) == {1024: 52, 0: 10}
+    assert chip_smoke.layer_windows(full["qwen1.5-32b"]) == {0: 64}
+    tiny_gemma = next(a for a in got["archs"] if a["arch"] == "gemma3-27b")
+    assert tiny_gemma["layers_by_window"] == {16: 4}   # no global layer
     reduced, = chip_smoke.families_reduced(chip_smoke.FULL)
     assert reduced.startswith("arctic-480b: n_layers 35 -> 1")
     assert "14.1 B parameters" in reduced
@@ -278,6 +284,19 @@ def test_train_phase_trains_twice_alike_and_resumes_on_the_cpu():
         assert sorted(a["recipe"]) == ["bfloat16", "float32"]
         assert all(r["resumed_steps"] == 20 for r in a["recipe"].values())
     full = chip_smoke.train_config(chip_smoke.FULL)
+    # the MoE arch: its attention leaves are wq, wk, wv and the QKV
+    # biases (no head norms); every router and expert tensor nonzero too
+    moe = got["qwen2-moe-a2.7b"]
+    assert moe["rerun_losses_equal"] and moe["launches"] == none
+    assert (moe["n_layers"], moe["microbatches"]) == (4, 4)
+    assert (moe["attn_grad_leaves_nonzero"],
+            moe["moe_grad_leaves_nonzero"]) == (4 * 6, 4 * 4)
+    assert sorted(moe["recipe"]) == ["bfloat16", "float32"]
+    assert all(r["resumed_steps"] == 20 for r in moe["recipe"].values())
+    arctic = got["arctic-480b"]
+    assert all(r["resumed_steps"] == 20 for r in arctic["recipe"].values())
+    assert arctic["bf16_optimizer"]["accumulator_bitwise"]
+    assert arctic["bf16_optimizer"]["opt_dtype"] == "bfloat16"
     assert (full.n_layers, full.microbatches, full.remat,
             full.compute_dtype) == (28, 2, "block", "bfloat16")
     assert chip_smoke.train_shape(chip_smoke.FULL) == \
@@ -303,6 +322,18 @@ def test_train_phase_trains_twice_alike_and_resumes_on_the_cpu():
         "ssd_scan_bwd": 96}
     assert any(r.startswith("n_layers 81 -> 24") for r in
                chip_smoke.train_reduced(chip_smoke.FULL, "zamba2-7b"))
+    # qwen2-moe-a2.7b at full width cut 24 -> 4 layers (2.90 B), 4
+    # microbatches of [1, 4096]: 2 x 4 x 4 flash forwards and 4 x 4
+    # backward pairs a step, MHA 16:16 at d = 128
+    fq = chip_smoke.train_config(chip_smoke.FULL, "qwen2-moe-a2.7b")
+    assert (fq.n_layers, fq.microbatches) == (4, 4)
+    assert round(fq.n_params() / 1e7) == 290
+    assert chip_smoke.train_shape(chip_smoke.FULL, "qwen2-moe-a2.7b") == \
+        (1, 4096, 4096, 16, 16, 128, True)
+    assert chip_smoke.train_launches(fq, 1) == {
+        "flash_attention": 32, "flash_attention_bwd": 16}
+    assert any(r.startswith("n_layers 24 -> 4") for r in
+               chip_smoke.train_reduced(chip_smoke.FULL, "qwen2-moe-a2.7b"))
 
 
 @pytest.mark.usefixtures("one_torch_thread")
@@ -337,10 +368,13 @@ def test_train_checks_run_on_the_cpu():
     assert "dinit_vs_plain" in ssd["ragged_init_bfloat16"]
     assert ssd["ragged_init_float32"]["shape"][1] % \
         ssd["ragged_init_float32"]["shape"][5]
-    for arch, layers in (("mamba2-370m", 2), ("zamba2-7b", 6)):
+    for arch, layers in (("mamba2-370m", 2), ("zamba2-7b", 6),
+                         ("qwen2-moe-a2.7b", 2)):
         cons = chip_smoke.check_train_consistency(sz, cpu, 1, arch)
         assert cons["n_layers"] == layers and \
             cons["worst_grad_rel_err"] <= cons["tol"]
+    # the MoE's capacity factor raised so that nothing drops
+    assert cons["capacity_factor"] >= 8 / 2
 
 
 def test_the_card_checks_both_bf16_backward_routes():
@@ -353,10 +387,65 @@ def test_the_card_checks_both_bf16_backward_routes():
     assert {k: chip_smoke.fa_kernel.bwd_route(v[5], torch.bfloat16)
             for k, v in shapes.items()} == {
         "qwen3_train": "wgmma", "zamba2_train": "wgmma",
-        "zamba2_d112": "wgmma",
+        "qwen2_moe_train": "wgmma", "zamba2_d112": "wgmma",
         "whisper_cross": "wgmma", "gemma3_window": "wgmma",
         "no_visible_key": "mma_sync", "d96_wgmma": "wgmma",
         "d100_mma_sync": "mma_sync"}
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_compressed_reduce_and_gpipe_checks_run_on_the_cpu():
+    """The checks phase's two new entries at SMALL: the compressed reduce
+    (the replica form at 4 replicas the CPU's bits, the gloo form at world
+    size 1 equal to the replica form, the 50-step feedback sum) and GPipe
+    against the sequential stack; the full-size shapes they run on the
+    card."""
+    sz, cpu = chip_smoke.SMALL, torch.device("cpu")
+    red = chip_smoke.check_compressed_grads(sz, cpu, 1)
+    assert red["replica_bitwise_vs_cpu"] and red["group_backend"] == "gloo"
+    assert red["group_world_1_equals_replica"]
+    assert red["feedback_rel_err"] <= 1e-3
+    pipe = chip_smoke.check_gpipe(sz, cpu, 1)
+    assert pipe["ticks"] == 8 + 4 - 1 and pipe["max_rel_err"] <= pipe["tol"]
+    full = chip_smoke.FULL
+    assert (full.reduce_replicas, full.reduce_elems) == (4, 2 ** 26)
+    assert (full.gpipe_stages, full.gpipe_layers, full.gpipe_d,
+            full.gpipe_ff, full.gpipe_micro, full.gpipe_batch,
+            full.gpipe_seq) == (4, 2, 2048, 8192, 8, 2, 512)
+
+
+def test_flash_bounds_at_the_new_serve_shapes():
+    """The bounds the issue reckons for the new shapes: qwen1.5-32b's MHA
+    40:40 prefill (83.9 MB, 0.0250 ms at 3.35 TB/s) and gemma3-27b's
+    (50.3 MB, 0.0150 ms; a window of 1024 over 512 tokens sees every
+    causal pair), and a window shorter than the sequence counting each
+    query's last ``window`` keys."""
+    shapes = chip_smoke.family_flash_shapes(chip_smoke.FULL)
+    for key, mb in (("qwen1_5", 83.9), ("gemma3_global", 50.3),
+                    ("gemma3_local", 50.3)):
+        B, Sq, Sk, H, K, d, causal, window = shapes[key]
+        nbytes = 2 * (B * Sq * H * d + B * Sk * K * d) * 2
+        assert round(nbytes / 1e6, 1) == mb
+    assert shapes["gemma3_local"][-1] == 1024
+    assert chip_smoke.visible_pairs(512, 512, True, 1024) == 512 * 513 // 2
+    assert chip_smoke.visible_pairs(8, 8, True, 3) == 6 + 5 * 3
+    assert chip_smoke.visible_pairs(4, 6, False) == 24
+
+
+def test_launches_at_tells_windows_and_cross_shapes_apart():
+    """run_model's rows carry the window: a local layer's launches count
+    at the windowed shape only, with either prompt length, and a cross
+    shape only where Sk differs from Sq."""
+    rows = [[4, 500, 500, 32, 16, 128, True, 0, 10],
+            [4, 500, 500, 32, 16, 128, True, 1024, 52],
+            [4, 512, 512, 32, 16, 128, True, 0, 10],
+            [4, 512, 512, 32, 16, 128, True, 1024, 52],
+            [4, 512, 1500, 32, 16, 128, False, 0, 7]]
+    local = (4, 512, 512, 32, 16, 128, True, 1024)
+    assert chip_smoke.launches_at(rows, local) == 104
+    assert chip_smoke.launches_at(rows, local[:-1] + (0,)) == 20
+    assert chip_smoke.launches_at(rows, (4, 512, 1500, 32, 16, 128, False,
+                                         0)) == 7
 
 
 def test_flash_bounds_at_the_training_shape():

@@ -450,15 +450,18 @@ def _capture():
         TO.Optimizer(lambda p: {}, tupdate)
 
 
-def test_train_step_with_two_microbatches_matches_the_reference():
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2-moe-a2.7b"])
+def test_train_step_with_two_microbatches_matches_the_reference(arch):
     """``microbatches=2``: the gradients the step hands its optimizer (the
     sum over the microbatches in ``opt_dtype``, divided by 2) and its loss
     against the reference's ``lax.scan`` accumulation; then one AdamW step
     of each: the parameters at 2e-5 (AdamW's first step moves an element
     by about ``lr * warm`` whatever its gradient's size, so an element
     whose gradient sits at the f32 noise floor may move by up to
-    ``2 * lr * warm``, 6e-6, between the two)."""
-    jcfg, cfg, jm, jp, model, tp = _env("qwen3-1.7b", microbatches=2)
+    ``2 * lr * warm``, 6e-6, between the two).  The MoE arch's loss
+    carries its aux term, and its gradients run through the dispatch's
+    and the combine's backward."""
+    jcfg, cfg, jm, jp, model, tp = _env(arch, microbatches=2)
     batch = shape_batch_for_accum(_batch(cfg, 3, B=4), 2)
     seen, jcap, tcap = _capture()
     _, _, jmet = jmake_train_step(jm, jcfg, jcap)(
@@ -494,23 +497,42 @@ KW = dict(arch="tiny:qwen3-1.7b", steps=30, ckpt_every=10, global_batch=4,
 
 
 @pytest.fixture(scope="module")
-def uninterrupted(tmp_path_factory):
-    return run_training(ckpt_dir=str(tmp_path_factory.mktemp("ref")), **KW)
+def uninterrupted_runs(tmp_path_factory):
+    """``run(arch)``: the uninterrupted run of KW on ``arch``, once a
+    module."""
+    runs = {}
+
+    def run(arch):
+        if arch not in runs:
+            runs[arch] = run_training(
+                ckpt_dir=str(tmp_path_factory.mktemp("ref")),
+                **dict(KW, arch=arch))
+        return runs[arch]
+    return run
 
 
+@pytest.fixture(scope="module")
+def uninterrupted(uninterrupted_runs):
+    return uninterrupted_runs(KW["arch"])
+
+
+@pytest.mark.parametrize("arch", ["tiny:qwen3-1.7b", "tiny:qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("crash_phase", ["between", "shards", "manifest"])
-def test_crash_restart_equivalence(tmp_path, uninterrupted, crash_phase):
+def test_crash_restart_equivalence(tmp_path, uninterrupted_runs, crash_phase,
+                                   arch):
     """tests/test_train_loop.py's recipe on the port: a crash at step 17
     (or inside step 20's commit), a restart from the newest committed
     manifest, and every loss the resumed run computes equal to the
-    uninterrupted run's, bit for bit."""
-    ref = uninterrupted
+    uninterrupted run's, bit for bit; on the dense arch and on the MoE
+    arch (its routing and aux loss repeated by the resumed run)."""
+    ref = uninterrupted_runs(arch)
+    kw = dict(KW, arch=arch)
     assert ref["final_step"] == 30
     crash_at = 17 if crash_phase == "between" else 20
     first = run_training(ckpt_dir=str(tmp_path), crash_at=crash_at,
-                         crash_phase=crash_phase, **KW)
+                         crash_phase=crash_phase, **kw)
     assert first["crashed_at"] == crash_at
-    second = run_training(ckpt_dir=str(tmp_path), **KW)
+    second = run_training(ckpt_dir=str(tmp_path), **kw)
     assert second["final_step"] == 30
     assert second["log"] == ["resumed from committed step 10"]
     assert min(second["losses"]) == 11
