@@ -5,7 +5,7 @@ every model family, and its training, on the card.
     python3 chip_smoke.py                 # on the card, at full size
     python3 chip_smoke.py --device cpu    # rehearsal on the host, small
 
-Fifteen phases, each of which fails the run when it fails:
+Seventeen phases, each of which fails the run when it fails:
 
 1. ``build``  -- compile the three hand-written kernels from ``src/`` with
    nvcc, all at once, and report each compiled function's registers and
@@ -222,7 +222,21 @@ Fifteen phases, each of which fails the run when it fails:
    ``DurableOrderedMap`` on the card crashed at each of 4 batches of
    2^12 ops, every recovered prefix durably linearizable; and
    ``SkipList.rebuild_index`` over 2^12 keys against ``build_towers``;
-15. ``timing`` -- each kernel's time (CUDA events), its plain version's,
+15. ``examples`` -- the port's five examples and three tools, in this
+   process, on the card: ``torch_quickstart.py`` and
+   ``torch_nvtraverse_demo.py`` (host numpy), ``torch_rebalance_live.py``
+   (its four shards on the card; the live keys must equal a dict),
+   ``torch_serve_batch.py`` (exactly once through a crash, its prefills
+   through ``flash_attention``), ``torch_train_tiny_lm.py --steps 100``
+   (the ~100M qwen3-family config, a checkpoint every 25, resumed after a
+   crash with a drift under 1e-5, and learning; forward and backward
+   through the kernels),
+   ``torch_crash_sweep.py --layers log,migrate --budget 6 --evict
+   none,torn`` (no failure) and ``torch_persist_lint.py --static
+   --trace`` (its scenarios on the card: the report and exit code of the
+   same command on the host); each one's seconds and the
+   ``flash_attention`` launches by shape;
+16. ``timing`` -- each kernel's time (CUDA events), its plain version's,
    one PyTorch library call's where one computes the same function, and
    its bound from the bytes it must move and the operations it must do;
    ``nvt_probe`` also with L2 flushed before each launch, and in turns
@@ -240,7 +254,25 @@ Fifteen phases, each of which fails the run when it fails:
    mamba2-370m's serve shapes, each also timed in f32, and at their
    training shapes the
    forward (writing the chunk states) and the backward
-   (``ssd_scan_bwd``: no library call, the bound of ``ssd_bwd_bound``).
+   (``ssd_scan_bwd``: no library call); every bound is the kernel's own
+   ``work`` formula (``kernels/*/ops.py``, the dry-run's count) at the
+   card's rates;
+   ``flash_attention`` in f32 (the scalar kernel) at the examples'
+   shapes (``path: "examples"``);
+17. ``dryrun`` -- the port's cells (``repro_torch.launch.cells``) on the
+   meta device, traced in ``DRYRUN_WORKERS`` processes once the card's
+   phases are over, so that no host-clock reading shares the host: (a)
+   every cell the card ran in this run (each served arch's 4 x 512
+   prefill and decode step, the train phase's four training steps) with
+   its predicted argument, temp and total bytes beside the peak the phase
+   measured, which must be predicted to fit 80 GB; (b) the depth cuts the
+   card needs (zamba2-7b trained at 81 layers, qwen2-moe-a2.7b trained at
+   24, arctic-480b served at 35), which must be predicted not to; (c)
+   qwen3-1.7b's parameter and AdamW tensors' bytes equal to the train
+   phase's, and the rise of ``torch.cuda.memory_allocated`` across their
+   init within the caching allocator's bounds for them; (d) the
+   roofline's compute term of qwen3-1.7b's train step beside the
+   profiled step's device time.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Without a card (and without
@@ -286,7 +318,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-    flash_attention_lse_plain, flash_attention_plain)
+    flash_attention_lse_plain, flash_attention_plain, visible_pairs)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    work as flash_work)
 from repro_torch.kernels.nvt_probe import kernel as probe_kernel  # noqa: E402
 from repro_torch.kernels.nvt_probe.ops import nvt_probe  # noqa: E402
 from repro_torch.kernels.nvt_probe.ref import (  # noqa: E402
@@ -294,8 +328,13 @@ from repro_torch.kernels.nvt_probe.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import (ssd_scan,  # noqa: E402
                                               ssd_scan_bwd)
+from repro_torch.kernels.ssd_scan.ops import work as ssd_work  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunked, ssd_ref, ssd_scan_bwd_plain)
+from repro_torch.launch.cells import leaves as cell_leaves  # noqa: E402
+from repro_torch.launch.cells import lower_cell, make_cell  # noqa: E402
+from repro_torch.launch.mesh import (HBM_BYTES, PEAK_FLOPS_BF16,  # noqa
+                                     make_card_mesh)
 from repro_torch.launch.train import (CUBLAS_WORKSPACE,  # noqa: E402
                                       deterministic, run_training)
 from repro_torch.models import layers as model_layers  # noqa: E402
@@ -324,6 +363,7 @@ from repro_torch.training.train_loop import (  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 KERNELS = (probe_kernel, fa_kernel, ssd_kernel)
 WRAPPERS = (nvt_probe, flash_attention, flash_attention_bwd, ssd_scan,
             ssd_scan_bwd)
@@ -1184,14 +1224,27 @@ def _train_run(sz: Sizes, dev, seed: int, arch: str = TRAIN_ARCH,
                                           sz.train_batch, "train"),
                          seed=seed, microbatches=cfg.microbatches)
     out = {}
+    on_card = dev.type == "cuda"
+    held = lambda: torch.cuda.memory_allocated(dev) if on_card else 0
     with deterministic(dev):
         t0 = time.perf_counter()
+        held0 = held()
         params = model.init(torch.Generator(device=dev).manual_seed(seed),
                             trainable=True)
+        held1 = held()
         opt_state = opt.init(params)
+        held2 = held()
         _sync(dev)
         out["init_s"] = time.perf_counter() - t0
         out["n_params"] = sum(p.numel() for p in params.parameters())
+        # what the card holds for them (the dryrun phase's check (c))
+        out["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in params.parameters())
+        out["opt_bytes"] = sum(t.numel() * t.element_size()
+                               for t in cell_leaves(opt_state))
+        # and what the card's allocator took for them
+        out["param_alloc_bytes"] = held1 - held0 if on_card else None
+        out["opt_alloc_bytes"] = held2 - held1 if on_card else None
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         reset_launches()
@@ -1321,6 +1374,8 @@ def _train_arch(sz: Sizes, dev, seed: int, arch: str) -> dict:
            "dtype": cfg.compute_dtype, "microbatches": M,
            "global_batch": sz.train_batch, "seq_len": sz.train_seq,
            "n_params": first["n_params"], "init_s": first["init_s"],
+           **{k: first[k] for k in ("param_bytes", "opt_bytes",
+                                    "param_alloc_bytes", "opt_alloc_bytes")},
            "losses": losses, "rerun_losses_equal": True,
            "step_s": step_s, "step_s_rerun": again["step_s"],
            "tokens_per_step": tokens,
@@ -3649,6 +3704,326 @@ def run_paper(sz: Sizes, dev, seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# examples phase: the port's examples and tools, run on the card         #
+# --------------------------------------------------------------------- #
+ROOT = Path(__file__).resolve().parent
+# the training example's steps on the card and in the host rehearsal
+# (None: its default 200).  On the card 100, a checkpoint every 25 (its
+# default cadence): at 60 its learning assert fails, and its 200 take
+# about 98 s, most of them its 16 saves digested on the host; on the
+# host 10, a checkpoint every 3
+EXAMPLE_STEPS = {"cuda": 100, "cpu": 10}
+EXAMPLE_ARCHS = {"torch_serve_batch": "tiny(qwen2-7b)",
+                 "torch_train_tiny_lm": "qwen3-family ~100M"}
+
+
+def load_script(rel: str):
+    """An example or tool of the repo as a module (its ``main`` is not
+    run)."""
+    import importlib.util
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_script(rel: str, argv=None):
+    """``main(argv)`` of a script of the repo, its printing kept:
+    (result, seconds, last printed line, flash launches by shape,
+    backward launches by shape), the counts from 0."""
+    import contextlib
+    import io
+    mod = load_script(rel)
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main() if argv is None else mod.main(list(argv))
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    return (res, seconds, lines[-1] if lines else "",
+            dict(flash_attention.shapes), dict(flash_attention_bwd.shapes))
+
+
+def run_examples(dev) -> dict:
+    """The five examples and three tools on ``dev``, each with its own
+    assertions, in this process; each one's seconds, last line and
+    ``flash_attention`` launches (forward and backward) by shape."""
+    d = str(dev.type)
+    out, shapes = {}, []
+
+    def one(name, rel, argv=None):
+        res, sec, last, fwd, bwd = run_script(rel, argv)
+        out[name] = {"seconds": sec, "last_line": last,
+                     "flash_launches": sum(fwd.values()),
+                     "flash_bwd_launches": sum(bwd.values())}
+        for key, n in fwd.items():
+            shapes.append({"script": name, "key": list(key), "launches": n,
+                           "bwd_launches": bwd.get(key, 0)})
+        return res
+
+    one("torch_quickstart", "examples/torch_quickstart.py")
+    one("torch_nvtraverse_demo", "examples/torch_nvtraverse_demo.py")
+    reb = one("torch_rebalance_live", "examples/torch_rebalance_live.py",
+              ["--device", d])
+    if reb["rebalances"] < 1 or not isinstance(reb["live"], dict):
+        raise AssertionError(f"rebalance example: {reb['rebalances']}")
+    out["torch_rebalance_live"].update(splits=list(reb["splits"]),
+                                       live_keys=len(reb["live"]))
+    served = one("torch_serve_batch", "examples/torch_serve_batch.py",
+                 ["--device", d])
+    if sorted(served["full"]) != list(range(8)):
+        raise AssertionError(f"serve example: {sorted(served['full'])}")
+    steps = EXAMPLE_STEPS[d]
+    trained = one("torch_train_tiny_lm", "examples/torch_train_tiny_lm.py",
+                  ["--device", d] + ([] if steps is None
+                                     else ["--steps", str(steps)]))
+    ref = trained["ref"]
+    out["torch_train_tiny_lm"].update(
+        steps=trained["steps"], ckpt_every=trained["ckpt_every"],
+        drift=trained["drift"],
+        first_loss=ref["losses"][1],
+        final_loss=ref["final_loss"], fences=ref["io"]["fences"])
+    with tempfile.TemporaryDirectory() as tmp:
+        sweep_json = f"{tmp}/sweep.json"
+        rc = one("torch_crash_sweep", "tools/torch_crash_sweep.py",
+                 ["--layers", "log,migrate", "--budget", "6", "--evict",
+                  "none,torn", "--device", d, "--json", sweep_json])
+        rep = json.loads(Path(sweep_json).read_text())
+        out["torch_crash_sweep"].update(rc=rc, layers={
+            k: {"n_sites": v["n_sites"], "runs": v["runs"],
+                "failures": len(v["failures"])}
+            for k, v in rep["layers"].items()})
+        if rc or any(v["failures"] for v in rep["layers"].values()):
+            raise AssertionError(f"crash sweep: {out['torch_crash_sweep']}")
+        reports = {}
+        for where in sorted({d, "cpu"}):
+            path = f"{tmp}/lint_{where}.json"
+            rc = one(f"torch_persist_lint_{where}",
+                     "tools/torch_persist_lint.py",
+                     ["--static", "--trace", "--device", where, "--json",
+                      path])
+            reports[where] = (rc, json.loads(Path(path).read_text()))
+        if len({json.dumps(r, sort_keys=True) for r in reports.values()}) \
+                != 1:
+            raise AssertionError("persist lint: the card's report is not "
+                                 "the host's")
+        rc, rep = reports[d]
+        out["torch_persist_lint"] = {
+            "rc": rc, "ok": rep["ok"],
+            "static_violations": len(rep["static"]["violations"]),
+            "waivers": rep["static"]["n_waived"],
+            "trace_events": {k: v["n_events"]
+                             for k, v in rep["trace"].items()},
+            "same_as_host": True}
+        if rc or not rep["ok"]:
+            raise AssertionError(f"persist lint: {out['torch_persist_lint']}")
+    if dev.type == "cuda" and not (
+            out["torch_serve_batch"]["flash_launches"]
+            and out["torch_train_tiny_lm"]["flash_launches"]
+            and out["torch_train_tiny_lm"]["flash_bwd_launches"]):
+        raise AssertionError("the examples never launched flash_attention "
+                             f"on the card: {out}")
+    return {"scripts": out, "flash_shapes": shapes}
+
+
+# --------------------------------------------------------------------- #
+# dryrun phase: the port's cells on the meta device, against this run    #
+# --------------------------------------------------------------------- #
+SERVED_ARCHS = ("zamba2-7b", "qwen2-7b") + FAMILY_ARCHS
+# processes tracing the cells: the card's host has 8 cores
+DRYRUN_WORKERS = 6
+# the depth cuts the card needs, (arch, kind), each traced at full depth
+DRYRUN_CUTS = (("zamba2-7b", "train"), ("qwen2-moe-a2.7b", "train"),
+               ("arctic-480b", "serve_prefill"))
+
+
+def dryrun_cells(sz: Sizes) -> dict:
+    """{name: (role, cfg, shape)}: every cell this run drives on the card
+    ("ran": each served arch's prefill of ``model_batch`` x the longest
+    prompt and its decode step against a cache of ``max_len``, each
+    trained arch's step) and, at full size, the depth cuts ("cut": each
+    arch at its full depth)."""
+    cells = {}
+    for arch in SERVED_ARCHS:
+        cfg = model_config(sz, arch)
+        S = max(sz.prompt_lens)
+        max_len = S + sz.new_tokens + prefix_tokens(cfg)
+        cells[f"{arch}:serve_prefill"] = ("ran", cfg, ShapeConfig(
+            "serve_prefill", S, sz.model_batch, "prefill"))
+        cells[f"{arch}:serve_decode"] = ("ran", cfg, ShapeConfig(
+            "serve_decode", max_len, sz.model_batch, "decode"))
+    train = ShapeConfig("train_4k", sz.train_seq, sz.train_batch, "train")
+    for arch in (TRAIN_ARCH,) + SSM_TRAIN_ARCHS + (MOE_TRAIN_ARCH,):
+        cells[f"{arch}:train"] = ("ran", train_config(sz, arch), train)
+    if not sz.model_tiny:
+        for arch, kind in DRYRUN_CUTS:
+            n = get_arch(arch).n_layers
+            if kind == "train":
+                cells[f"{arch}:train@{n}"] = (
+                    "cut", train_config(sz, arch, n_layers=n), train)
+            else:
+                role, _, shape = cells[f"{arch}:{kind}"]
+                cells[f"{arch}:{kind}@{n}"] = (
+                    "cut", model_config(sz, arch, n_layers=n), shape)
+    return cells
+
+
+def allocator_bytes(tensors) -> tuple:
+    """The least and the most the card's caching allocator can hold for
+    ``tensors``, a block each: a block's bytes are the tensor's rounded up
+    to 512, plus, for a tensor over 1 MiB, the rest of a free block it
+    does not split, which is at most 1 MiB (it splits one that would
+    leave more)."""
+    least = sum(-(-(t.numel() * t.element_size()) // 512) * 512
+                for t in tensors)
+    large = sum(t.numel() * t.element_size() > 2**20 for t in tensors)
+    return least, least + large * 2**20
+
+
+def predict_cell(item) -> tuple:
+    """One of :func:`dryrun_cells`, ``(name, (role, cfg, shape))``, made
+    from shapes alone and run once on meta tensors (``lower_cell``):
+    ``(name, record)``, the record holding its bytes, whether it fits the
+    card, its flops and bytes moved, and for a train cell the parameters'
+    and the optimizer state's bytes and the allocator's bounds for them
+    (:func:`allocator_bytes`)."""
+    name, (role, cfg, shape) = item
+    mesh = make_card_mesh()
+    cell = make_cell(cfg, shape, mesh)
+    lo = lower_cell(cell, mesh)
+    m, c = lo.memory_analysis(), lo.cost_analysis()
+    total = m.argument_size_in_bytes + m.output_size_in_bytes \
+        - m.alias_size_in_bytes + m.temp_size_in_bytes
+    rec = {"role": role, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "shape": [shape.kind, shape.global_batch, shape.seq_len],
+           "argument_bytes": m.argument_size_in_bytes,
+           "output_bytes": m.output_size_in_bytes,
+           "alias_bytes": m.alias_size_in_bytes,
+           "temp_bytes": m.temp_size_in_bytes, "total_bytes": total,
+           "fits": total <= HBM_BYTES, "flops": c["flops"],
+           "bytes_accessed": c["bytes accessed"], "trace_s": lo.seconds}
+    if shape.kind == "train":
+        for key, tree in (("param", cell.args[0]), ("opt", cell.args[1])):
+            ts = cell_leaves(tree)
+            rec[f"{key}_bytes"] = sum(t.numel() * t.element_size()
+                                      for t in ts)
+            rec[f"{key}_alloc_bytes"] = list(allocator_bytes(ts))
+    return name, rec
+
+
+def predict_cells(sz: Sizes, workers: int = 1) -> dict:
+    """Every cell of :func:`dryrun_cells` through :func:`predict_cell`,
+    in ``workers`` spawned processes (meta tensors: none touches the
+    card), the deepest cells first; in :func:`dryrun_cells`'s order."""
+    cells = dryrun_cells(sz)
+    items = sorted(cells.items(), key=lambda kv: -kv[1][1].n_layers * (
+        3 if kv[1][2].kind == "train" else 1))
+    if workers <= 1:
+        out = dict(map(predict_cell, items))
+    else:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        with ProcessPoolExecutor(
+                min(workers, len(items)),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            out = dict(pool.map(predict_cell, items))
+    return {name: out[name] for name in cells}
+
+
+def run_dryrun(pred: dict, model: dict, dense: dict, families: dict,
+               train: dict, sz: Sizes) -> dict:
+    """Hold the predictions against this run: (a) every cell the card
+    ran fits, its predicted peak beside the phase's measured one; (b)
+    every depth cut is predicted not to fit; (c) qwen3-1.7b's parameter
+    and optimizer tensors have the bytes the train phase's tensors have
+    (their shapes and dtypes), and what the card's allocator took for
+    them (``torch.cuda.memory_allocated`` across their init) lies within
+    the allocator's bounds for those tensors (:func:`allocator_bytes`);
+    (d) the compute term of qwen3-1.7b's step beside its profiled device
+    time."""
+    served = {r["arch"]: r for r in [model, dense] + families["archs"]}
+    trained = {TRAIN_ARCH: train, **{a: train[a] for a in
+                                     SSM_TRAIN_ARCHS + (MOE_TRAIN_ARCH,)}}
+    ran = []
+
+    def row(name, cells, measured):
+        worst = max(cells, key=lambda c: c["total_bytes"])
+        for c in cells:
+            if not c["fits"]:
+                raise AssertionError(f"{name}: the card ran it, but it is "
+                                     f"predicted not to fit: {c}")
+        ran.append({"cell": name, "n_layers": worst["n_layers"],
+                    "predicted_argument_bytes": worst["argument_bytes"],
+                    "predicted_temp_bytes": worst["temp_bytes"],
+                    "predicted_total_bytes": worst["total_bytes"],
+                    "measured_peak_bytes": measured,
+                    "measured_over_predicted":
+                        measured / worst["total_bytes"] if measured else None,
+                    "trace_s": sum(c["trace_s"] for c in cells)})
+    for arch in SERVED_ARCHS:
+        row(f"{arch}:serve", [pred[f"{arch}:serve_prefill"],
+                              pred[f"{arch}:serve_decode"]],
+            served[arch]["peak_bytes"])
+    for arch, res in trained.items():
+        row(f"{arch}:train", [pred[f"{arch}:train"]], res["peak_bytes"])
+    cuts = []
+    for name, c in pred.items():
+        if c["role"] == "cut":
+            if c["fits"]:
+                raise AssertionError(f"{name}: a cut the card needs is "
+                                     f"predicted to fit: {c}")
+            cuts.append({"cell": name, "n_layers": c["n_layers"],
+                         "predicted_argument_bytes": c["argument_bytes"],
+                         "predicted_total_bytes": c["total_bytes"],
+                         "fits": False})
+    q = pred[f"{TRAIN_ARCH}:train"]
+    exact = {k: [q[k], train[k]] for k in ("param_bytes", "opt_bytes")}
+    if any(a != b for a, b in exact.values()):
+        raise AssertionError(f"{TRAIN_ARCH}: predicted and allocated bytes "
+                             f"differ: {exact}")
+    allocated = {}
+    if train.get("param_alloc_bytes") is not None:      # on the card
+        for key in ("param", "opt"):
+            (least, most) = q[f"{key}_alloc_bytes"]
+            got = train[f"{key}_alloc_bytes"]
+            allocated[key] = {"least": least, "most": most, "measured": got,
+                              "over_tensors": got - q[f"{key}_bytes"]}
+            if not least <= got <= most:
+                raise AssertionError(f"{TRAIN_ARCH}: the allocator took "
+                                     f"{got} bytes for the {key} tensors, "
+                                     f"not in [{least}, {most}]")
+    compute_ms = q["flops"] / PEAK_FLOPS_BF16 * 1e3
+    prof = train.get("profile") or {}
+    device_ms = prof.get("device_ms")
+    return {"ran": ran, "cuts": cuts, "exact_bytes": exact,
+            "allocated_bytes": allocated,
+            "train_step": {
+                "arch": TRAIN_ARCH, "flops": q["flops"],
+                "bytes_accessed": q["bytes_accessed"],
+                "compute_term_ms": compute_ms,
+                "memory_term_ms": q["bytes_accessed"] / HBM_BYTES_PER_S
+                * 1e3,
+                "profiled_device_ms": device_ms,
+                "compute_share": compute_ms / device_ms if device_ms
+                else None},
+            "predict_trace_s": sum(c["trace_s"] for c in pred.values())}
+
+
+def dryrun_phase(sz: Sizes, model: dict, dense: dict, families: dict,
+                 train: dict) -> dict:
+    """The dryrun phase's record: :func:`predict_cells` in
+    ``DRYRUN_WORKERS`` processes, held against this run
+    (:func:`run_dryrun`)."""
+    t0 = time.perf_counter()
+    pred = predict_cells(sz, workers=DRYRUN_WORKERS)
+    return {"phase": "dryrun", "ok": True,
+            **run_dryrun(pred, model, dense, families, train, sz),
+            "workers": DRYRUN_WORKERS, "phase_s": time.perf_counter() - t0}
+
+
 def cuda_ms(fn, iters: int = 20) -> float:
     """Mean time of ``fn`` on the card (CUDA events, after warm-up)."""
     for _ in range(3):
@@ -3837,35 +4212,46 @@ def time_probe(out: dict, launches: int, err: int) -> dict:
             **{k: v for k, v in bound.items() if k != "bound_ms"}, **nb}
 
 
-def visible_pairs(Sq: int, Sk: int, causal: bool, window: int = 0) -> int:
-    """(query, key) pairs one head of one sequence attends: all of them,
-    or under the causal mask (Sq == Sk) each query's keys up to its own,
-    the last ``window`` of them where a window is set."""
-    if not causal:
-        return Sq * Sk
-    if not window or window >= Sq:
-        return Sq * (Sq + 1) // 2
-    return window * (window + 1) // 2 + (Sq - window) * window
+def bound_of(work: dict, flop_rate: float = BF16_FLOP_PER_S) -> dict:
+    """The least time of ``work`` (a kernel's ``work`` formula: its
+    flops and bytes): its bytes at the HBM rate or its flops at
+    ``flop_rate``, the longer."""
+    t_b, t_o = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / flop_rate
+    return {"bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "flops": work["flops"], "bytes": work["bytes"]}
 
 
-def time_flash(dev, launches: int, err: float, arch: str = "zamba2-7b",
-               shape=None, path: str = "model") -> dict:
+def time_flash(dev, launches: int, err, arch: str = "zamba2-7b",
+               shape=None, path: str = "model",
+               dtype=torch.bfloat16) -> dict:
     """flash_attention at one shape of the main path, bf16: by default an
     arch's causal serve shape (S=512; zamba2-7b: B=4, H=K=32, d=112;
     qwen2-7b: B=4, H=28, K=4, d=128), else ``shape`` = (B, Sq, Sk, H, K,
     d, causal[, window]); ``launches`` are those at that shape.  The
-    bound: q, k, v read once and o written once, or 2 * 2 * d flops per
-    visible (query, key) pair at the bf16 peak, whichever is longer.  The
+    bound is the kernel's ``work`` (``flash_attention/ops.py``: q, k, v
+    read once and o written once, 2 * 2 * d flops per visible (query,
+    key) pair) at the bf16 peak (:func:`bound_of`).  The
     library call is SDPA with the same mask (``is_causal``, or the
     window's boolean mask), and ``enable_gqa=True`` where K < H (k and v
-    are not repeated)."""
+    are not repeated).  ``dtype`` float32 times the scalar kernel (its
+    bound at the f32 peak outside the tensor cores); an ``err`` of None
+    is measured here against the plain version (2e-5 in f32, 2e-2 in
+    bf16)."""
     if shape is None:
         B, H, K, d = FLASH_SHAPES[arch]
         shape = (B, 512, 512, H, K, d, True)
     B, Sq, Sk, H, K, d, causal, *rest = shape
     window = rest[0] if rest else 0
     mask = dict(causal=causal, window=window)
-    q, k, v = flash_inputs(dev, B, Sq, H, d, torch.bfloat16, 0, K, Sk)
+    q, k, v = flash_inputs(dev, B, Sq, H, d, dtype, 0, K, Sk)
+    f32 = dtype == torch.float32
+    if err is None:
+        err = _check_close(
+            f"flash {arch} {path} {list(shape)}",
+            fa_kernel.flash_attention_kernel(q, k, v, **mask),
+            flash_attention_plain(q.float(), k.float(), v.float(), **mask),
+            2e-5 if f32 else 2e-2)
     ms = cuda_ms(lambda: fa_kernel.flash_attention_kernel(q, k, v, **mask))
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **mask))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -3879,52 +4265,48 @@ def time_flash(dev, launches: int, err: float, arch: str = "zamba2-7b",
     library_ms = cuda_ms(lambda: torch.nn.functional
                          .scaled_dot_product_attention(
                              qt, kt, vt, **sdpa_mask, **gqa))
-    nbytes = sum(2 * t.numel() * t.element_size() for t in (q, k))
     # causal shapes are self-attention (Sq == Sk)
-    flops = 4 * d * B * H * visible_pairs(Sq, Sk, causal, window)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    bound = bound_of(flash_work(B, Sq, Sk, H, K, d, causal=causal,
+                                window=window, itemsize=q.element_size()),
+                     F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-            "design": "mma.sync bf16", "arch": arch, "path": path,
+            "design": "scalar f32" if f32 else "mma.sync bf16",
+            "arch": arch, "path": path,
             "launches": launches,
             "max_abs_err": err, "max_abs_diff": err,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ms": ms, "plain_ms": plain_ms, **bound,
             "library_ms": library_ms,
             "library": "scaled_dot_product_attention(" + (
                 "attn_mask=window" if "attn_mask" in sdpa_mask
                 else f"is_causal={causal}")
                        + (", enable_gqa=True)" if gqa else ")"),
-            "bytes": nbytes, "flops": flops,
             "shape": [B, Sq, Sk, H, K, d], "causal": causal,
-            "window": window, "dtype": "bfloat16"}
+            "window": window, "dtype": str(dtype).split(".")[-1]}
 
 
 def flash_bwd_bounds(shape) -> dict:
     """The least time of each backward kernel's function and of the
-    pair's at ``shape`` = (B, Sq, Sk, H, K, d, causal), bf16: 2 d flops a
-    visible (query, key) pair for each product it needs (dq: S, dP, dQ;
-    dkdv: S, dP, dV, dK; the pair: S, dP, dV, dQ, dK) at the bf16 peak, or
-    its bytes (each input read once, each output written once; dq and
-    dkdv pass the f32 row sums D between them) at the HBM rate, the
-    longer."""
+    pair's at ``shape`` = (B, Sq, Sk, H, K, d, causal), bf16
+    (:func:`bound_of`).  The pair's work is the kernel's ``work``
+    (``flash_attention/ops.py``, ``backward=True``: S, dP, dV, dQ and dK,
+    2 d flops a visible (query, key) pair each); the split counts each
+    kernel's own products (dq: S, dP, dQ; dkdv: S, dP, dV, dK) and bytes
+    (each input read once, each output written once; dq and dkdv pass the
+    f32 row sums D between them)."""
     B, Sq, Sk, H, K, d, causal = shape
-    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+    pairs = B * H * visible_pairs(Sq, Sk, causal)
     e = 2                                      # bf16 bytes
     n_q, n_kv, n_rows = B * Sq * H * d, B * Sk * K * d, B * H * Sq
-    work = {"dq": (3, (4 * n_q + 2 * n_kv) * e + 8 * n_rows),
-            "dkdv": (4, (2 * n_q + 4 * n_kv) * e + 8 * n_rows),
-            "pair": (5, (4 * n_q + 4 * n_kv) * e + 4 * n_rows)}
-    bounds = {}
-    for n, (products, nbytes) in work.items():
-        flops = products * 2 * d * pairs
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-        bounds[n] = {"bound_ms": max(t_b, t_o) * 1e3,
-                     "bound_by": "bytes" if t_b >= t_o else "operations",
-                     "flops": flops, "bytes": nbytes}
+    split = {"dq": (3, (4 * n_q + 2 * n_kv) * e + 8 * n_rows),
+             "dkdv": (4, (2 * n_q + 4 * n_kv) * e + 8 * n_rows)}
+    bounds = {n: bound_of({"flops": products * 2 * d * pairs,
+                           "bytes": nbytes})
+              for n, (products, nbytes) in split.items()}
+    bounds["pair"] = bound_of(flash_work(B, Sq, Sk, H, K, d, causal=causal,
+                                         itemsize=e, backward=True))
     return bounds
 
 
@@ -4011,20 +4393,6 @@ def time_flash_bwd(dev, launches: int, errs: dict, sz: Sizes,
     return out
 
 
-def ssd_flops(B: int, S: int, H: int, P: int, N: int, Q: int) -> int:
-    """The chunk GEMMs the scan needs: C B^T on the lower triangle once
-    per batch row and chunk (B/C are shared by the heads), and per head
-    the lower-triangular scores times x, C times the carried state, and
-    the state update."""
-    total = 0
-    for c0 in range(0, S, Q):
-        q = min(Q, S - c0)
-        tri = q * (q + 1) // 2
-        total += B * 2 * N * tri
-        total += B * H * (2 * P * tri + 2 * q * N * P + 2 * q * P * N)
-    return total
-
-
 def time_ssd(dev, launches: int, err: float, arch: str = "zamba2-7b",
              path: str = "model", sz: Sizes = None) -> dict:
     """ssd_scan at an arch's serve shape (S=512; zamba2-7b: B=4, H=112,
@@ -4033,9 +4401,10 @@ def time_ssd(dev, launches: int, err: float, arch: str = "zamba2-7b",
     its training shape (:func:`ssd_train_shape`) as a training step
     launches it: from zeros, on strided xBC slices, writing each chunk's
     start state for the backward (then ``err`` is measured here, against
-    the plain chunked version in f32, and held to 5e-2).  The bound: the
-    inputs read once, y, the final state (and the chunk states) written
-    once, or :func:`ssd_flops` at the bf16 peak.  ``f32_ms`` times the f32
+    the plain chunked version in f32, and held to 5e-2).  The bound is
+    the kernel's ``work`` (``ssd_scan/ops.py``: the inputs read once, y,
+    the final state (and the chunk states) written once, the chunk
+    products' flops) at the bf16 peak.  ``f32_ms`` times the f32
     kernel on the same values in f32 (the checks' kernel)."""
     if sz is None:
         B, H, P, N, Q = ssd_shape(FULL, arch)
@@ -4060,13 +4429,9 @@ def time_ssd(dev, launches: int, err: float, arch: str = "zamba2-7b",
         y = ssd_kernel.ssd_scan_kernel(xh, dt, A, Bm, Cm, chunk=Q)[0]
         err = _check_close(f"ssd {arch} training shape y", y, ssd_chunked(
             x32, dt, A, b32, c32, Q)[0], 5e-2)
-    n_chunks = -(-S // Q)
-    state = B * H * P * N * 4
-    nbytes = sum(t.numel() * t.element_size() for t in (xh, dt, A, Bm, Cm)) \
-        + xh.numel() * xh.element_size() + state \
-        + (n_chunks * state if train else state)
-    flops = ssd_flops(B, S, H, P, N, Q)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    # serving passes its zero state in; training writes the chunk states
+    bound = bound_of(ssd_work(B, S, H, P, N, Q, itemsize=xh.element_size(),
+                              with_states=train, init_state=not train))
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:34",
@@ -4074,35 +4439,9 @@ def time_ssd(dev, launches: int, err: float, arch: str = "zamba2-7b",
                                          "state" if train else ""),
             "arch": arch, "path": path, "launches": launches,
             "max_abs_err": err, "max_abs_diff": err,
-            "ms": ms, "plain_ms": plain_ms, "f32_ms": f32_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "bytes": nbytes, "flops": flops,
-            "shape": [B, S, H, P, N, Q], "dtype": "bfloat16"}
-
-
-def ssd_bwd_bound(B: int, S: int, H: int, P: int, N: int, Q: int) -> dict:
-    """The least time of the SSD backward's function at [B, S, H, P, N],
-    chunk Q, bf16: the chunk products it needs (C B^T on the lower
-    triangle once per batch row and chunk; per head dy x^T and scores^T dy
-    over P, dG B and dG^T C over N on the triangle, and dy S_prev, B dS^T,
-    x dS and the carry's (dy o exp(cum))^T C in full) at the bf16 peak, or
-    its bytes at the HBM rate (x, dy, B, C in bf16, dt in f32 and the
-    forward's f32 chunk states read once; dx, dB, dC in bf16 and ddt in
-    f32 written once), the longer."""
-    flops = 0
-    for c0 in range(0, S, Q):
-        q = min(Q, S - c0)
-        tri = q * (q + 1) // 2
-        flops += B * 2 * N * tri
-        flops += B * H * (4 * P * tri + 4 * N * tri + 8 * q * P * N)
-    e = 2
-    nbytes = 3 * B * S * H * P * e + 4 * B * S * N * e + 2 * B * S * H * 4 \
-        + 2 * H * 4 + B * -(-S // Q) * H * P * N * 4
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-    return {"bound_ms": max(t_b, t_o) * 1e3,
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            "flops": flops, "bytes": nbytes}
+            "ms": ms, "plain_ms": plain_ms, "f32_ms": f32_ms, **bound,
+            "library_ms": None, "shape": [B, S, H, P, N, Q],
+            "dtype": "bfloat16"}
 
 
 def time_ssd_bwd(dev, launches: int, errs: dict, sz: Sizes, arch: str,
@@ -4112,7 +4451,8 @@ def time_ssd_bwd(dev, launches: int, errs: dict, sz: Sizes, arch: str,
     scan and the reduction over head groups as one call of
     ``ssd_scan_bwd_kernel``, from the chunk states the forward wrote; the
     plain backward (``ssd_scan_bwd_plain``, f32) on the same values; no
-    library call computes it.  The bound is :func:`ssd_bwd_bound`'s; ``build_rows``
+    library call computes it.  The bound is the backward's ``work``
+    (``ssd_scan/ops.py``, ``backward=True``) at the bf16 peak; ``build_rows``
     holds the wgmma passes' registers, spills and HGMMA counts."""
     B, S, H, P, N, Q = ssd_train_shape(sz, arch)
     inp = ssd_bwd_inputs(dev, B, S, H, P, N, torch.bfloat16, 1)
@@ -4152,7 +4492,7 @@ def time_ssd_bwd(dev, launches: int, errs: dict, sz: Sizes, arch: str,
             "max_rel_err": max(v for k, v in errs[tag].items()
                                if k.endswith("_vs_plain")),
             "ms": ms, "plain_ms": plain_ms,
-            **ssd_bwd_bound(B, S, H, P, N, Q),
+            **bound_of(ssd_work(B, S, H, P, N, Q, backward=True)),
             "library_ms": None, "shape": [B, S, H, P, N, Q],
             "dtype": "bfloat16"}
 
@@ -4420,9 +4760,19 @@ def main(argv=None) -> int:
     log({"phase": "paper", "ok": True, **paper, "launches": paper_launches,
          "phase_s": time.perf_counter() - t0})
 
-    # 15. timing
+    # 15. examples: the port's examples and tools on the card, each with
+    # its own assertions, launch counts from 0 (inside run_script)
+    t0 = time.perf_counter()
+    examples = run_examples(dev)
+    log({"phase": "examples", "ok": True, **examples,
+         "phase_s": time.perf_counter() - t0})
+
+    # 16. timing; then 17. dryrun: the cells of this run on the meta
+    # device, held against what the card did, traced once every phase
+    # that reads the host's clock is over
     if not on_card:
         log({"phase": "timing", "skipped": "no card"})
+        log(dryrun_phase(sz, model, dense, families, train))
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
     kern = time_probe(out, launches, checks["max_abs_err"])
@@ -4495,10 +4845,21 @@ def main(argv=None) -> int:
         max(v for k, v in ssd_errs.items()
             if k.startswith("mamba2_bfloat16_S512")
             and "chunked_bf16" not in k), "mamba2-370m", "families"))
+    # the examples' shapes: the f32 scalar kernel, with the launches the
+    # examples phase made at each
+    for ex in examples["flash_shapes"]:
+        B, Sq, Sk, H, K, d, causal, window = ex["key"]
+        entry = time_flash(dev, ex["launches"], None,
+                           EXAMPLE_ARCHS[ex["script"]],
+                           (B, Sq, Sk, H, K, d, causal, window), "examples",
+                           torch.float32)
+        entry.update(script=ex["script"], bwd_launches=ex["bwd_launches"])
+        kernels.append(entry)
     log({"phase": "timing", "ok": True, "warm_s": warm_stages(sz, stream,
                                                              out, dev),
          "walk_step_sync_us": sync_step_us(dev),
          "max_chain": checks["max_chain"], "peak_map_bytes": peak})
+    log(dryrun_phase(sz, model, dense, families, train))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 from .arctic_480b import ARCTIC_480B
-from .base import ArchConfig
+from .base import SHAPES, ArchConfig
 from .gemma3_27b import GEMMA3_27B
 from .internvl2_26b import INTERNVL2_26B
 from .mamba2_370m import MAMBA2_370M
@@ -29,7 +29,22 @@ ARCHS = {c.name: c for c in (
 
 
 def get_arch(name: str) -> ArchConfig:
+    """A registered arch by name, or ``tiny:NAME`` for its reduced form."""
+    if name.startswith("tiny:"):
+        return tiny(ARCHS[name[5:]])
     return ARCHS[name]
+
+
+def cells():
+    """All (arch, shape, skip) dry-run cells, the documented skips
+    included."""
+    out = []
+    for arch in ARCHS.values():
+        for shape in SHAPES.values():
+            skip = shape.name in arch.skip_shapes
+            # every arch has a decoder: only the long_500k rule applies
+            out.append((arch, shape, skip))
+    return out
 
 
 def tiny(arch: ArchConfig, **overrides) -> ArchConfig:

@@ -1,10 +1,67 @@
-"""Bucket-range boundaries for the sharded durable map (the port's own
-copy of ``make_map_splits`` and ``replan_splits`` from
-``repro.launch.mesh``; the device meshes there have no counterpart here,
-where every shard lives on one card)."""
+"""Meshes, bucket-range boundaries for the sharded durable map, and the
+roofline constants of the card (the port's own copy of
+``repro.launch.mesh``).
+
+The meshes are device-free: a :class:`Mesh` has the reference's
+``axis_names`` and a ``shape`` mapping and nothing else, the counterpart
+of what the reference's sharding rules read off a JAX mesh
+(``mesh.shape[a]``, ``mesh.axis_names``).  No 256-card mesh exists here;
+the dry-run reads the production layouts' shard shapes from them.  The
+port's sharded durable map does not use :func:`make_map_mesh`: its shards
+share one card.
+"""
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict, Tuple
+
 import numpy as np
+
+# NVIDIA H100 SXM5 80GB at its 700 W limit: datasheet figures (not
+# measured here), the roofline's denominators.
+PEAK_FLOPS_BF16 = 989e12     # dense bf16 tensor-core flop/s
+HBM_BW = 3.35e12             # HBM3 bytes/s
+HBM_BYTES = 80e9             # device memory, bytes
+NVLINK_BW = 450e9            # NVLink 4 bytes/s, each direction
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A device-free mesh: axis names and their sizes."""
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.axis_sizes, dtype=np.int64))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production layouts: 16 x 16 ("data", "model"), or
+    2 x 16 x 16 with an outer "pod" axis."""
+    if multi_pod:
+        return Mesh(("pod", "data", "model"), (2, 16, 16))
+    return Mesh(("data", "model"), (16, 16))
+
+
+def make_card_mesh() -> Mesh:
+    """One card: the ("data", "model") axes of size 1 (the dry-run's
+    ``h100`` layout)."""
+    return Mesh(("data", "model"), (1, 1))
+
+
+def make_test_mesh(n_data: int = 2, n_model: int = 4) -> Mesh:
+    """A small ("data", "model") mesh for tests."""
+    return Mesh(("data", "model"), (n_data, n_model))
+
+
+def make_map_mesh(n_shards: int) -> Mesh:
+    """The 1-D ("shards",) layout of the reference's sharded durable map."""
+    return Mesh(("shards",), (n_shards,))
 
 
 def make_map_splits(n_buckets: int, n_shards: int, loads=None):

@@ -15,7 +15,7 @@ import tempfile
 import numpy as np
 import torch
 
-from ..configs.registry import get_arch, tiny
+from ..configs.registry import get_arch
 from ..core.batched import resolve_device
 from ..models.model import Model, prefix_tokens
 from ..serving.engine import ServeEngine
@@ -36,8 +36,7 @@ def main(argv=None) -> None:
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
-    cfg = (tiny(get_arch(args.arch[5:])) if args.arch.startswith("tiny:")
-           else get_arch(args.arch))
+    cfg = get_arch(args.arch)
     dev = resolve_device(args.device)
     model = Model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))

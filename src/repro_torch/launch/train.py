@@ -36,7 +36,7 @@ from pathlib import Path
 import torch
 
 from ..configs.base import ShapeConfig
-from ..configs.registry import get_arch, tiny
+from ..configs.registry import get_arch
 from ..core.batched import resolve_device
 from ..data.pipeline import TokenPipeline
 from ..models.model import Model
@@ -50,8 +50,7 @@ CUBLAS_WORKSPACE = ":4096:8"
 def parse_arch(spec: str, dtype: str = None):
     """``name`` or ``tiny:name``; ``dtype`` (e.g. ``bfloat16``) replaces
     the parameter and compute dtypes."""
-    cfg = tiny(get_arch(spec[5:])) if spec.startswith("tiny:") \
-        else get_arch(spec)
+    cfg = get_arch(spec)
     if dtype:
         cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
     return cfg

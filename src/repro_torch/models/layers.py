@@ -207,12 +207,22 @@ def mlp(p, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 # --------------------------------------------------------------------- #
 # initialisers: the reference's scales, from a torch.Generator            #
 # --------------------------------------------------------------------- #
+class ShapesOnly:
+    """Stands for the generator where only shapes and dtypes are wanted
+    (the dry-run's cells): the initialisers make meta tensors, which hold
+    no data (no generator exists on the meta device)."""
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape, dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     """Normal(0, 1) * ``scale`` (default ``fan_in ** -0.5``, fan-in the
     first dim) drawn in f32 on the generator's device, then cast.  The
     scale is applied in place, so the f32 draw is the only temporary (an
-    arctic-480b expert leaf's is 17.8 GB)."""
+    arctic-480b expert leaf's is 17.8 GB).  On the meta device
+    (:class:`ShapesOnly`) an empty tensor of the shape and dtype."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     scale = scale if scale is not None else shape[0] ** -0.5
     x = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32)

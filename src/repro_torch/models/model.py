@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import transformer as T
-from .layers import _zeros, dense_init, rms_norm
+from .layers import ShapesOnly, _zeros, dense_init, rms_norm
 from .mamba2 import mamba_params
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -127,6 +127,11 @@ class Model:
                               for _ in range(L)]
             tree["dec_pos"] = dense_init(gen, (8192, D), dt, scale=0.02)
         return ParamTree(tree, trainable)
+
+    def init_shapes(self, trainable: bool = False) -> ParamTree:
+        """The parameters as meta tensors: :meth:`init`'s names, shapes
+        and dtypes, no data (the dry-run's cells)."""
+        return self.init(ShapesOnly(), trainable)
 
     def _embed(self, params, tokens: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
@@ -286,3 +291,7 @@ class Model:
                                       mode="decode", caches=caches,
                                       cache_pos=pos)
         return self._logits(params, x), caches
+
+
+def build_model(cfg) -> Model:
+    return Model(cfg)

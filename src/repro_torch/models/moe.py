@@ -12,8 +12,8 @@ active work times the capacity factor.  The two MoE variants:
 JAX semantics reproduced: ``lax.top_k`` takes the lower expert index on a
 tie (a stable descending sort here), ``jnp.argsort`` is stable and
 ``searchsorted`` takes the left side.  A slot beyond an expert's capacity
-is dropped: the reference scatters it to row ``E * cap`` and slices that
-row away, here it is masked out.  The combine un-permutes the weighted
+is dropped: as in the reference, it is scattered to a spare row ``E *
+cap`` that is sliced away.  The combine un-permutes the weighted
 expert outputs into ``[T, K, D]`` and sums over K, a fixed order on every
 device (a scatter-add with ``index_add_`` would be an unordered atomic sum
 on CUDA).
@@ -73,9 +73,13 @@ def moe_ffn(p, x: torch.Tensor, cfg):
     cap = _capacity(T, cfg)
     order, tok_of, dest, keep = dispatch(top_e, cap, E)
     flat_w = top_p.reshape(-1).to(x.dtype)
-    buf = torch.zeros((E * cap, D), dtype=x.dtype, device=x.device)
-    buf[dest[keep]] = xf[tok_of[keep]]
-    eb = buf.view(E, cap, D)
+    # a dropped slot writes a spare row past the experts' rows, which is
+    # cut off (the reference's scatter to row E * cap): no compaction by
+    # the mask, whose size the host would have to wait for
+    rows = torch.where(keep, dest, E * cap)
+    buf = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=x.device)
+    buf[rows] = xf[tok_of]
+    eb = buf[:E * cap].view(E, cap, D)
 
     # expert products
     ex = p["experts"]

@@ -206,10 +206,15 @@ class RequestLogScenario:
     RETAIN = 6
     SNAP_EVERY = 2          # snapshot()+truncate after every 2 commits
 
-    def __init__(self, root, plan: CrashPlan, device=None):
+    def __init__(self, root, plan: CrashPlan, device=None,
+                 shards: Optional[int] = None):
+        """``shards`` runs the identical schedule with the dedup index on
+        the bucket-range-sharded durable map (its shards share
+        ``device``); the invariants do not depend on the shard count."""
         self.root = Path(root)
         self.plan = plan
         self.device = device
+        self.shards = shards
         self.issued: Dict[int, list] = {}   # every commit attempted
         self.issued_evict: set = set()
         self.acked: Dict[int, list] = {}    # commit() returned
@@ -218,6 +223,7 @@ class RequestLogScenario:
     def _log(self, **kw):
         from ..serving.engine import RequestLog
         return RequestLog(self.root, capacity=1024, device=self.device,
+                          shards=self.shards,
                           **kw)
 
     def run(self) -> None:
@@ -320,7 +326,7 @@ class ConcurrentLogScenario(RequestLogScenario):
         from ..obs.metrics import MetricsRegistry
         from ..serving.engine import RequestLog
         a = self._log(registry=MetricsRegistry())
-        b = RequestLog(self.root, seed=1, capacity=1024,
+        b = RequestLog(self.root, seed=1, capacity=1024, shards=self.shards,
                        registry=MetricsRegistry(), device=self.device)
         self.plan.attach(a.io, b.io)
         rid = 0

@@ -20,6 +20,8 @@ from repro.kernels.nvt_probe.ops import nvt_probe as jax_probe
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FA  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as SSD  # noqa: E402
 
 
 def test_map_flow_matches_jax_end_to_end():
@@ -426,10 +428,13 @@ def test_flash_bounds_at_the_new_serve_shapes():
         B, Sq, Sk, H, K, d, causal, window = shapes[key]
         nbytes = 2 * (B * Sq * H * d + B * Sk * K * d) * 2
         assert round(nbytes / 1e6, 1) == mb
+        # the timing phase's bound reads the kernel's own work formula
+        assert FA.work(B, Sq, Sk, H, K, d, causal=causal,
+                       window=window)["bytes"] == nbytes
     assert shapes["gemma3_local"][-1] == 1024
-    assert chip_smoke.visible_pairs(512, 512, True, 1024) == 512 * 513 // 2
-    assert chip_smoke.visible_pairs(8, 8, True, 3) == 6 + 5 * 3
-    assert chip_smoke.visible_pairs(4, 6, False) == 24
+    assert FA.visible_pairs(512, 512, True, 1024) == 512 * 513 // 2
+    assert FA.visible_pairs(8, 8, True, 3) == 6 + 5 * 3
+    assert FA.visible_pairs(4, 6, False) == 24
 
 
 def test_launches_at_tells_windows_and_cross_shapes_apart():
@@ -467,12 +472,10 @@ def test_ssd_flop_count_matches_the_chunk_gemms():
     # the state update in full
     B, H, P, N, Q = 1, 1, 4, 2, 8
     tri = Q * (Q + 1) // 2
-    assert chip_smoke.ssd_flops(B, Q, H, P, N, Q) == \
-        2 * N * tri + 2 * P * tri + 4 * Q * N * P
+    flops = lambda S: SSD.work(B, S, H, P, N, Q)["flops"]
+    assert flops(Q) == 2 * N * tri + 2 * P * tri + 4 * Q * N * P
     # a ragged last chunk counts only its own tokens
-    assert chip_smoke.ssd_flops(B, Q + 3, H, P, N, Q) == \
-        chip_smoke.ssd_flops(B, Q, H, P, N, Q) + \
-        chip_smoke.ssd_flops(B, 3, H, P, N, Q)
+    assert flops(Q + 3) == flops(Q) + flops(3)
 
 
 def test_ssd_backward_bound_at_the_training_shapes():
@@ -481,15 +484,17 @@ def test_ssd_backward_bound_at_the_training_shapes():
     take at 3.35 TB/s (its inputs read once, the forward's f32 chunk
     states among them, and its outputs written once): bound by bytes; at
     zamba2-7b's the same (241 MB, 0.072 ms)."""
-    b = chip_smoke.ssd_bwd_bound(2, 4096, 32, 64, 128, 128)
+    bound = lambda *shape: chip_smoke.bound_of(SSD.work(*shape,
+                                                        backward=True))
+    b = bound(2, 4096, 32, 64, 128, 128)
     assert round(b["flops"] / 1e8) == 303 and round(b["bytes"] / 1e6) == 178
     assert b["bound_by"] == "bytes" and abs(b["bound_ms"] - 0.0532) < 1e-3
-    z = chip_smoke.ssd_bwd_bound(1, 4096, 112, 64, 64, 128)
+    z = bound(1, 4096, 112, 64, 64, 128)
     assert z["bound_by"] == "bytes"
     # one chunk by hand: C B^T once, then per head two products over P and
     # two over N on the triangle and four [q, P] x [P, N]-sized ones
     q, tri = 8, 36
-    assert chip_smoke.ssd_bwd_bound(1, q, 2, 4, 2, q)["flops"] == \
+    assert bound(1, q, 2, 4, 2, q)["flops"] == \
         2 * 2 * tri + 2 * (4 * 4 * tri + 4 * 2 * tri + 8 * q * 4 * 2)
 
 
