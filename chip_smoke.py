@@ -11,12 +11,14 @@ Seventeen phases, each of which fails the run when it fails:
    nvcc, all at once, and report each compiled function's registers and
    spills (``ptxas -v``) and tensor-core instructions (``HMMA`` and
    ``HGMMA`` in ``cuobjdump --dump-sass``); ``flash_attention`` and
-   ``ssd_scan`` must have some (their bf16 kernels run on ``mma.sync``),
-   each function of the wgmma backward pair (``flash_bwd_dq_wg`` and
-   ``flash_bwd_dkdv_wg`` at tile widths 64 and 128) and each wgmma pass
-   of the SSD backward (``ssd_bwd_delta_wg`` and ``ssd_bwd_chunk_wg`` at
-   N <= 64 and <= 128) must have ``HGMMA`` and no spill, and no
-   ``nvt_probe`` function may spill;
+   ``ssd_scan`` must have some (their bf16 kernels run on ``wgmma`` and
+   ``mma.sync``), each wgmma function -- the flash forward
+   ``flash_fwd_wg`` and the backward pair ``flash_bwd_dq_wg`` and
+   ``flash_bwd_dkdv_wg`` at tile widths 64 and 128, the SSD forward's
+   ``ssd_fwd_state_wg`` and ``ssd_fwd_chunk_wg`` and the SSD backward's
+   ``ssd_bwd_delta_wg`` and ``ssd_bwd_chunk_wg`` at N <= 64 and <= 128
+   -- must have ``HGMMA`` and no spill, and no ``nvt_probe`` function
+   may spill;
 2. ``map``    -- the main path at card scale: a durable index of 2^22
    keys (2^23-node pool, 2^20 buckets) takes the repo's mixed workload
    (uniform keys in ``[1, 2*prefill)``, updates split between inserts
@@ -54,7 +56,10 @@ Seventeen phases, each of which fails the run when it fails:
    8 requests (4 prompts of 512 tokens, 4 of 500; 16 new tokens, batches
    of 4), crashes after the first batch and is served again by a new
    engine on the same log: exactly-once must hold, and every prefill must
-   launch ``flash_attention`` 13 times and ``ssd_scan`` 81 times.  Its
+   launch ``flash_attention`` 13 times and ``ssd_scan`` 81 times, every
+   launch on the wgmma route (``kernel.py:fwd_route``: ``flash_fwd_wg``,
+   the three SSD passes), counted by route (``check_routes``; the same in
+   the families and train phases).  Its
    prefill and decode-step times, tokens/s and peak memory are printed,
    and one profiled prefill and decode step: device time, busy share,
    the top kernels and the share of each of the port's own kernels.
@@ -239,6 +244,9 @@ Seventeen phases, each of which fails the run when it fails:
 16. ``timing`` -- each kernel's time (CUDA events), its plain version's,
    one PyTorch library call's where one computes the same function, and
    its bound from the bytes it must move and the operations it must do;
+   where the forward's route is wgmma, the mma.sync kernel it replaced
+   (``flash_fwd_tc``, ``ssd_scan_tc``) timed and checked beside it on the
+   same tensors (``tc_ms``);
    ``nvt_probe`` also with L2 flushed before each launch, and in turns
    with the earlier one-warp-a-query kernel where a copy of its source
    lies at ``build/chip_scripts/nvt_probe_warp_a_query.cu``;
@@ -810,8 +818,29 @@ def reset_launches() -> None:
     for w in WRAPPERS:
         w.launches = 0
     for counter in (flash_attention.shapes, flash_attention_bwd.shapes,
-                    ssd_scan.shapes, ssd_scan_bwd.shapes):
+                    ssd_scan.shapes, ssd_scan_bwd.shapes,
+                    fa_kernel.flash_attention_kernel.routes,
+                    ssd_kernel.ssd_scan_kernel.routes):
         counter.clear()
+
+
+def route_launches() -> dict:
+    """The forward kernels' launches since the last reset, by route
+    (``kernel.py``'s ``fwd_route``: "wgmma", "mma_sync" or "scalar")."""
+    return {"flash_attention": dict(fa_kernel.flash_attention_kernel.routes),
+            "ssd_scan": dict(ssd_kernel.ssd_scan_kernel.routes)}
+
+
+def check_routes(what: str, routes: dict, launches: dict) -> None:
+    """Every forward launch of a main-path run went through the wgmma
+    kernels: the bf16 attention of every arch (d = 64, 112 or 128) takes
+    ``flash_fwd_wg`` and every bf16 scan (P = 64, N <= 128, chunk 128)
+    the three wgmma passes, by the routes' own rules."""
+    for name in ("flash_attention", "ssd_scan"):
+        n = launches.get(name, 0)
+        if routes[name] != ({"wgmma": n} if n else {}):
+            raise AssertionError(f"{what}: {name} launched {routes[name]}, "
+                                 f"not {n} on the wgmma route")
 
 
 # full-width archs cut in depth to fit one card: (layers, why)
@@ -916,6 +945,7 @@ def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
         launches = {"flash_attention": flash_attention.launches,
                     "ssd_scan": ssd_scan.launches,
                     "nvt_probe": nvt_probe.launches}
+        routes = route_launches()
         flash_shapes = sorted([*k, n] for k, n in
                               flash_attention.shapes.items())
         dedup_hits = hits.value - hits0
@@ -949,6 +979,8 @@ def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
             * prefills):
         raise AssertionError(f"launches {launches} for {prefills} "
                              f"prefills of {cfg.n_layers} layers")
+    if dev.type == "cuda":
+        check_routes(cfg.name, routes, launches)
     times = {k: first_eng.step_times[k] + again.step_times[k]
              for k in first_eng.step_times}
     profiled = profile_model(model, params, requests, sz, dev) \
@@ -962,8 +994,8 @@ def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
             "prompt_lens": list(sz.prompt_lens),
             "new_tokens": sz.new_tokens, "batch": sz.model_batch,
             "max_len": max_len, "prefills": prefills,
-            "launches": launches, "flash_shapes": flash_shapes,
-            "dedup_hits": dedup_hits,
+            "launches": launches, "routes": routes,
+            "flash_shapes": flash_shapes, "dedup_hits": dedup_hits,
             "records": len(records), "prefill_s": times["prefill_s"],
             "decode_step_s_median": float(np.median(decode)),
             "decode_step_s": decode,
@@ -1259,6 +1291,7 @@ def _train_run(sz: Sizes, dev, seed: int, arch: str = TRAIN_ARCH,
             _sync(dev)
             times.append(time.perf_counter() - t0)
         out["launches"] = {w.__name__: w.launches for w in TRAIN_WRAPPERS}
+        out["routes"] = route_launches()
         key = train_shape(sz, arch) + (0,)     # no window
         out["launches_at_shape"] = {
             "flash_attention": flash_attention.shapes[key],
@@ -1368,6 +1401,8 @@ def _train_arch(sz: Sizes, dev, seed: int, arch: str) -> dict:
         raise AssertionError(f"{arch} train launches {first['launches']} "
                              f"({first['launches_at_shape']} at the "
                              f"training shapes), not {want}")
+    if dev.type == "cuda":
+        check_routes(f"{arch} train", first["routes"], first["launches"])
     tokens = sz.train_batch * sz.train_seq
     step_s = first["step_s"]
     out = {"arch": cfg.name, "n_layers": L, "d_model": cfg.d_model,
@@ -1381,7 +1416,7 @@ def _train_arch(sz: Sizes, dev, seed: int, arch: str) -> dict:
            "tokens_per_step": tokens,
            "tokens_per_s": tokens / float(np.median(step_s)),
            "peak_bytes": first["peak_bytes"],
-           "launches": first["launches"],
+           "launches": first["launches"], "routes": first["routes"],
            "launches_at_shape": first["launches_at_shape"],
            "launches_per_step": {k: v / steps
                                  for k, v in first["launches"].items()},
@@ -1543,7 +1578,7 @@ DISPATCH_KERNELS = {"dispatch_combine": (
 
 
 PORT_KERNELS = ("nvt_probe", "flash_fwd", "flash_bwd", "ssd_scan_tc",
-                "ssd_chunk_scan", "ssd_bwd")
+                "ssd_chunk_scan", "ssd_fwd", "ssd_bwd")
 
 
 def profile_step(fn, dev, top: int = 8, groups: dict = None) -> dict:
@@ -2059,8 +2094,9 @@ def ssd_shape(sz: Sizes, arch: str) -> tuple:
 
 def check_ssd(sz: Sizes, dev) -> dict:
     """ssd_scan's y and final state at the serve shapes of zamba2-7b
-    (P = N = 64) and mamba2-370m (P = 64, N = 128: ``ssd_scan_tc<16>``,
-    and the f32 kernel with its P split over blocks) against the plain
+    (P = N = 64) and mamba2-370m (P = 64, N = 128: the wgmma passes at two
+    64-column boxes of N, and the f32 kernel with its P split over
+    blocks) against the plain
     chunked version computed in f32 on the same values and against the
     sequential ssd_ref (f32 arithmetic, y rounded to the input dtype):
     bf16 at 5e-2, f32 at 1e-4.  The reference's own bf16 chunked form
@@ -4222,6 +4258,21 @@ def bound_of(work: dict, flop_rate: float = BF16_FLOP_PER_S) -> dict:
             "flops": work["flops"], "bytes": work["bytes"]}
 
 
+# every compiled function's build row by name (the build phase's), which
+# the timing entries carry beside their kernels
+BUILD_ROWS = {}
+FWD_DESIGN = {
+    "wgmma": "wgmma fed by a TMA ring, warp-specialised (a producer warp, "
+             "two consumer warpgroups of 64 query rows), no atomics",
+    "mma_sync": "mma.sync bf16", "scalar": "scalar f32"}
+
+
+def build_fields(name: str) -> dict:
+    row = BUILD_ROWS.get(name, {})
+    return {k: row.get(k) for k in ("registers", "spill_bytes",
+                                    "hgmma_instr", "tensor_core_instr")}
+
+
 def time_flash(dev, launches: int, err, arch: str = "zamba2-7b",
                shape=None, path: str = "model",
                dtype=torch.bfloat16) -> dict:
@@ -4237,7 +4288,9 @@ def time_flash(dev, launches: int, err, arch: str = "zamba2-7b",
     are not repeated).  ``dtype`` float32 times the scalar kernel (its
     bound at the f32 peak outside the tensor cores); an ``err`` of None
     is measured here against the plain version (2e-5 in f32, 2e-2 in
-    bf16)."""
+    bf16).  Where the rule's route is the wgmma forward, ``tc_ms`` times
+    the mma.sync kernel (``flash_fwd_tc``) on the same tensors in the same
+    run, ``tc_max_abs_err`` its distance to the plain version."""
     if shape is None:
         B, H, K, d = FLASH_SHAPES[arch]
         shape = (B, 512, 512, H, K, d, True)
@@ -4252,8 +4305,22 @@ def time_flash(dev, launches: int, err, arch: str = "zamba2-7b",
             fa_kernel.flash_attention_kernel(q, k, v, **mask),
             flash_attention_plain(q.float(), k.float(), v.float(), **mask),
             2e-5 if f32 else 2e-2)
+    route = fa_kernel.fwd_route(d, dtype)
     ms = cuda_ms(lambda: fa_kernel.flash_attention_kernel(q, k, v, **mask))
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **mask))
+    tc = {}
+    if route == "wgmma":
+        tc["tc_max_abs_err"] = _check_close(
+            f"flash_fwd_tc {arch} {path} {list(shape)}",
+            fa_kernel.flash_attention_kernel(q, k, v, **mask,
+                                             route="mma_sync"),
+            flash_attention_plain(q.float(), k.float(), v.float(), **mask),
+            2e-2)
+        tc["tc_ms"] = cuda_ms(lambda: fa_kernel.flash_attention_kernel(
+            q, k, v, **mask, route="mma_sync"))
+    kernel_name = {"wgmma": f"flash_fwd_wg<{fa_kernel.wgmma_tile_cols(d)}>",
+                   "mma_sync": f"flash_fwd_tc<{-(-d // 16) * 16}>",
+                   "scalar": "flash_fwd<float>"}[route]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = {"enable_gqa": True} if K < H else {}
     if window and window < Sq:
@@ -4273,11 +4340,12 @@ def time_flash(dev, launches: int, err, arch: str = "zamba2-7b",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-            "design": "scalar f32" if f32 else "mma.sync bf16",
+            "design": FWD_DESIGN[route], "fwd_route": route,
+            "kernel": kernel_name, **build_fields(kernel_name),
             "arch": arch, "path": path,
             "launches": launches,
             "max_abs_err": err, "max_abs_diff": err,
-            "ms": ms, "plain_ms": plain_ms, **bound,
+            "ms": ms, "plain_ms": plain_ms, **tc, **bound,
             "library_ms": library_ms,
             "library": "scaled_dot_product_attention(" + (
                 "attn_mask=window" if "attn_mask" in sdpa_mask
@@ -4405,7 +4473,10 @@ def time_ssd(dev, launches: int, err: float, arch: str = "zamba2-7b",
     the kernel's ``work`` (``ssd_scan/ops.py``: the inputs read once, y,
     the final state (and the chunk states) written once, the chunk
     products' flops) at the bf16 peak.  ``f32_ms`` times the f32
-    kernel on the same values in f32 (the checks' kernel)."""
+    kernel on the same values in f32 (the checks' kernel); where the
+    rule's route is the wgmma passes, ``tc_ms`` times the mma.sync kernel
+    (``ssd_scan_tc``) on the same values in the same run, and the entry
+    carries each wgmma pass's build row."""
     if sz is None:
         B, H, P, N, Q = ssd_shape(FULL, arch)
         S = 512
@@ -4418,8 +4489,19 @@ def time_ssd(dev, launches: int, err: float, arch: str = "zamba2-7b",
         xh, Bm, Cm = split_xbc(inp["xbc"], H, P, N)
         dt, A, init = inp["dt"], inp["A"], None
     train = sz is not None
+    route = ssd_kernel.fwd_route(P, N, Q, xh.dtype)
     ms = cuda_ms(lambda: ssd_kernel.ssd_scan_kernel(
         xh, dt, A, Bm, Cm, chunk=Q, init_state=init, with_states=train))
+    tc = {}
+    if route == "wgmma":
+        tc["tc_ms"] = cuda_ms(lambda: ssd_kernel.ssd_scan_kernel(
+            xh, dt, A, Bm, Cm, chunk=Q, init_state=init, with_states=train,
+            route="mma_sync"))
+        nb = 1 if N <= 64 else 2
+        tc["passes"] = {n: build_fields(f"ssd_{n}<{nb}>") for n in (
+            "fwd_state_wg", "fwd_state_scan", "fwd_chunk_wg")}
+        tc["heads_per_block"] = ssd_kernel.bwd_heads_per_block(
+            B, -(-S // Q), H)
     plain_ms = cuda_ms(lambda: ssd_chunked(xh, dt, A, Bm, Cm, Q,
                                            init_state=init))
     x32, b32, c32 = (t.float() for t in (xh, Bm, Cm))
@@ -4429,17 +4511,30 @@ def time_ssd(dev, launches: int, err: float, arch: str = "zamba2-7b",
         y = ssd_kernel.ssd_scan_kernel(xh, dt, A, Bm, Cm, chunk=Q)[0]
         err = _check_close(f"ssd {arch} training shape y", y, ssd_chunked(
             x32, dt, A, b32, c32, Q)[0], 5e-2)
+    if route == "wgmma":
+        tc["tc_max_abs_err"] = _check_close(
+            f"ssd_scan_tc {arch} {path} y", ssd_kernel.ssd_scan_kernel(
+                xh, dt, A, Bm, Cm, chunk=Q, init_state=init,
+                route="mma_sync")[0],
+            ssd_chunked(x32, dt, A, b32, c32, Q, init_state=init)[0], 5e-2)
     # serving passes its zero state in; training writes the chunk states
     bound = bound_of(ssd_work(B, S, H, P, N, Q, itemsize=xh.element_size(),
                               with_states=train, init_state=not train))
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:34",
-            "design": "mma.sync bf16" + (", writing each chunk's start "
-                                         "state" if train else ""),
+            "design": {"wgmma": "three chunk-parallel passes: each chunk's "
+                                "own state contribution on wgmma, an f32 "
+                                "scan over the chunks parallel over "
+                                "(batch, head, state element), the chunk "
+                                "outputs on wgmma a group of heads a "
+                                "block; no atomics",
+                       "mma_sync": "mma.sync bf16"}[route]
+            + (", writing each chunk's start state" if train else ""),
+            "fwd_route": route,
             "arch": arch, "path": path, "launches": launches,
             "max_abs_err": err, "max_abs_diff": err,
-            "ms": ms, "plain_ms": plain_ms, "f32_ms": f32_ms, **bound,
+            "ms": ms, "plain_ms": plain_ms, "f32_ms": f32_ms, **tc, **bound,
             "library_ms": None, "shape": [B, S, H, P, N, Q],
             "dtype": "bfloat16"}
 
@@ -4524,44 +4619,42 @@ def build_report(so: Path, ptxas: str) -> list:
 
 WGMMA_BWD_FUNCTIONS = tuple(f"flash_bwd_{k}_wg<{d}>" for k in ("dq", "dkdv")
                             for d in fa_kernel.WGMMA_TILE_COLS)
+WGMMA_FWD_FUNCTIONS = tuple(f"flash_fwd_wg<{d}>"
+                            for d in fa_kernel.WGMMA_TILE_COLS)
+SSD_BWD_FUNCTIONS = tuple(f"ssd_bwd_{p}_wg<{n}>" for p in ("delta", "chunk")
+                          for n in (1, 2))
+SSD_FWD_FUNCTIONS = tuple(f"ssd_fwd_{p}_wg<{n}>" for p in ("state", "chunk")
+                          for n in (1, 2))
+
+
+def check_hgmma_build(functions: list, names: tuple, source: str) -> dict:
+    """Each of ``names`` is a function of ``source``'s library with
+    ``HGMMA`` instructions and no spill; their build rows by name."""
+    rows = {f["kernel"]: f for f in functions if f["kernel"] in names}
+    missing = set(names) - set(rows)
+    if missing:
+        raise AssertionError(f"{source} lacks {sorted(missing)}")
+    for name, f in rows.items():
+        if not f["hgmma_instr"]:
+            raise AssertionError(f"{name} has no HGMMA instruction")
+        if f["spill_bytes"] != 0:
+            raise AssertionError(f"{name} spills {f['spill_bytes']} bytes")
+    return rows
 
 
 def check_wgmma_bwd_build(functions: list) -> dict:
     """Each function of the wgmma backward pair (at every head dim it
     takes) is in the library, has ``HGMMA`` instructions and no spill;
     their build rows by name."""
-    rows = {f["kernel"]: f for f in functions
-            if f["kernel"] in WGMMA_BWD_FUNCTIONS}
-    missing = set(WGMMA_BWD_FUNCTIONS) - set(rows)
-    if missing:
-        raise AssertionError(f"flash_attention lacks {sorted(missing)}")
-    for name, f in rows.items():
-        if not f["hgmma_instr"]:
-            raise AssertionError(f"{name} has no HGMMA instruction")
-        if f["spill_bytes"] != 0:
-            raise AssertionError(f"{name} spills {f['spill_bytes']} bytes")
-    return rows
-
-
-SSD_BWD_FUNCTIONS = tuple(f"ssd_bwd_{p}_wg<{n}>" for p in ("delta", "chunk")
-                          for n in (1, 2))
+    return check_hgmma_build(functions, WGMMA_BWD_FUNCTIONS,
+                             "flash_attention")
 
 
 def check_ssd_bwd_build(functions: list) -> dict:
     """Each wgmma pass of the SSD backward (at N <= 64 and <= 128: one or
     two 64-column boxes of N) is in the library, has ``HGMMA``
     instructions and no spill; their build rows by name."""
-    rows = {f["kernel"]: f for f in functions
-            if f["kernel"] in SSD_BWD_FUNCTIONS}
-    missing = set(SSD_BWD_FUNCTIONS) - set(rows)
-    if missing:
-        raise AssertionError(f"ssd_scan lacks {sorted(missing)}")
-    for name, f in rows.items():
-        if not f["hgmma_instr"]:
-            raise AssertionError(f"{name} has no HGMMA instruction")
-        if f["spill_bytes"] != 0:
-            raise AssertionError(f"{name} spills {f['spill_bytes']} bytes")
-    return rows
+    return check_hgmma_build(functions, SSD_BWD_FUNCTIONS, "ssd_scan")
 
 
 def card_name_and_limit() -> str:
@@ -4605,8 +4698,15 @@ def main(argv=None) -> int:
         if spills:
             raise AssertionError(f"nvt_probe functions spill: {spills}")
         check_wgmma_bwd_build(functions["flash_attention"])
-        ssd_bwd = check_ssd_bwd_build(functions["ssd_scan"])
-        fa_rows = {f["kernel"]: f for f in functions["flash_attention"]}
+        check_ssd_bwd_build(functions["ssd_scan"])
+        # the forward kernels on wgmma (flash_fwd_wg, the SSD's state and
+        # chunk passes) likewise
+        check_hgmma_build(functions["flash_attention"], WGMMA_FWD_FUNCTIONS,
+                          "flash_attention")
+        check_hgmma_build(functions["ssd_scan"], SSD_FWD_FUNCTIONS,
+                          "ssd_scan")
+        for src in TENSOR_CORE_SOURCES:
+            BUILD_ROWS.update((f["kernel"], f) for f in functions[src])
         log({"phase": "build", "ok": True,
              "kernels": [k.SOURCE.stem for k in KERNELS],
              "libraries": [so.name for so, _ in built],
@@ -4614,7 +4714,6 @@ def main(argv=None) -> int:
     else:
         log({"phase": "build", "skipped": "no card: --device cpu runs "
              "the plain versions"})
-        ssd_bwd = fa_rows = {}
 
     # 2. map: the map's main path, with every kernel's launch count from 0
     stream = make_stream(sz, args.seed)
@@ -4813,7 +4912,7 @@ def main(argv=None) -> int:
         train_shape(sz), "train"))
     kernels.extend(time_flash_bwd(
         dev, train["launches"]["flash_attention_bwd"], bwd_errs, sz,
-        fa_rows))
+        BUILD_ROWS))
     # the SSM and hybrid training shapes: ssd_scan's forward (each Mamba2
     # layer's and its remat recompute, writing the chunk states) and its
     # backward; zamba2's shared block's flash forward and its wgmma
@@ -4823,13 +4922,14 @@ def main(argv=None) -> int:
         kernels.append(time_ssd(dev, at["ssd_scan"], None, arch, "train",
                                 sz))
         kernels.append(time_ssd_bwd(dev, at["ssd_scan_bwd"], ssd_bwd_errs,
-                                    sz, arch, ssd_bwd))
+                                    sz, arch, BUILD_ROWS))
     z = train["zamba2-7b"]["launches_at_shape"]
     kernels.append(time_flash(
         dev, z["flash_attention"], bwd_errs["zamba2_train_bfloat16"][
             "fwd_err"], "zamba2-7b", train_shape(sz, "zamba2-7b"), "train"))
     kernels.extend(time_flash_bwd(dev, z["flash_attention_bwd"], bwd_errs,
-                                  sz, fa_rows, "zamba2-7b", "zamba2_train"))
+                                  sz, BUILD_ROWS, "zamba2-7b",
+                                  "zamba2_train"))
     # the MoE training shape: the flash forward and the wgmma backward
     # pair at [1, 4096, 4096, 16, 16, 128], with the train phase's launches
     moe = train[MOE_TRAIN_ARCH]["launches_at_shape"]
@@ -4838,7 +4938,7 @@ def main(argv=None) -> int:
             "fwd_err"], MOE_TRAIN_ARCH, train_shape(sz, MOE_TRAIN_ARCH),
         "train"))
     kernels.extend(time_flash_bwd(dev, moe["flash_attention_bwd"], bwd_errs,
-                                  sz, fa_rows, MOE_TRAIN_ARCH,
+                                  sz, BUILD_ROWS, MOE_TRAIN_ARCH,
                                   "qwen2_moe_train"))
     kernels.append(time_ssd(
         dev, fam["mamba2-370m"]["launches"]["ssd_scan"],

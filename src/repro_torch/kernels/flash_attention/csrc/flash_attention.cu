@@ -8,11 +8,16 @@
 // whose last axis runs in order on one core, carrying the running max,
 // sum and accumulator in VMEM scratch from one grid step to the next.
 // Blocks on Hopper run in no order, so here one block owns one
-// (batch*head, 64-row query tile) and runs the KV loop itself.  The dtype
-// alone picks one of two kernels:
+// (batch*head, query tile) and runs the KV loop itself.  The dtype and d
+// pick one of three kernels (`fwd_route`; kernel.py's `fwd_route` holds
+// the same rule and checks it against this library):
 //
-// bf16 -- `flash_fwd_tc`, FlashAttention-2 on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, f32 accumulators):
+// bf16 at d % 8 == 0, 64 <= d <= 128 (every served and trained arch) --
+// `flash_fwd_wg<DP>`, on wgmma fed by a TMA ring (see "Forward: bf16 on
+// wgmma" below);
+//
+// bf16 at any other d -- `flash_fwd_tc`, FlashAttention-2 on the tensor
+// cores (mma.sync m16n8k16, bf16 operands, f32 accumulators):
 //
 //   * 4 warps; each owns 16 query rows.  Its Q fragments (d_pad / 16
 //     k-steps, d_pad = d rounded up to 16) are loaded once with ldmatrix
@@ -49,15 +54,15 @@
 // write o once: at the serve shape (B = 4, S = 512, H = K = 32, d = 112,
 // bf16) that is 58.7 MB, 17.5 us at 3.35 TB/s, while its causal work,
 // 2 * 2 * B * H * d * S (S + 1) / 2 = 7.5 GFLOP, takes 7.6 us at the bf16
-// tensor-core peak.  What keeps the bf16 kernel off that bound: each K/V
-// tile is read from device memory by every query tile of its head (8 at
-// S = 512; the L2 absorbs most of it), mma.sync reaches only part of the
-// wgmma rate, the diagonal tiles compute their masked upper half, and
+// tensor-core peak.  What kept the mma.sync kernel off that bound: each
+// K/V tile is read from device memory by every query tile of its head (8
+// at S = 512; the L2 absorbs most of it), mma.sync reaches only part of
+// the wgmma rate, the diagonal tiles compute their masked upper half, and
 // 1,024 blocks of unequal causal length leave a tail (the grid starts
-// the longest first).  chip_smoke.py measures it at about 0.08 ms on an
+// the longest first).  chip_smoke.py measured it at about 0.08 ms on an
 // H100 SXM at 700 W, some 4.6x the bound and 1.5x PyTorch's
-// scaled_dot_product_attention on the same tensors.  182 registers a
-// thread allow two blocks an SM; wgmma fed by a TMA ring is the next step.
+// scaled_dot_product_attention on the same tensors; at the training
+// shapes (S = 4096) the bound is operations and it ran 3.4-3.9x SDPA.
 //
 // Plain C interface, bound from Python with ctypes.  The caller owns
 // every buffer (allocated with torch.empty) and the stream; the kernels
@@ -1864,8 +1869,264 @@ int launch_bwd_wg(const bf16* q, const bf16* k, const bf16* v,
   return (int)cudaGetLastError();
 }
 
-// The backward's routes; kernel.py's `bwd_route` holds the same rule.
-enum BwdRoute { kRouteScalar = 0, kRouteMmaSync = 1, kRouteWgmma = 2 };
+// ---------------------------------------------------------------------------
+// Forward: bf16 on wgmma
+// ---------------------------------------------------------------------------
+//
+// `flash_fwd_wg<DP>` replaces the same TPU kernel as `flash_fwd_tc`
+// (src/repro/kernels/flash_attention/kernel.py: `_kernel`, launched by
+// `flash_attention_kernel`) for bf16 at d % 8 == 0 from 64 to 128, on
+// tiles DP = 64 columns wide at d = 64 and 128 above it (the TMA fills
+// columns d..DP-1 with zeros, as in the wgmma backward pair; they add
+// nothing to S and are never stored, so at d = 112 the next head's
+// columns of o stay untouched).
+//
+// Bound on this card: operations at the training shapes (qwen3-1.7b's
+// [2, 4096, 4096, 16, 8, 128] causal: 137.5 GFLOP, 0.139 ms at the bf16
+// peak), bytes at most served shapes (S = 512).  What the design does
+// about what held `flash_fwd_tc` at 3.4-3.9x SDPA there:
+//
+//   * the products are wgmma m64nNk16, issued by a warpgroup: S = Q K^T
+//     (m64n64, both operands in shared memory, K-major) and O += P V
+//     (P rounded to bf16 in registers as the A operand -- the S
+//     accumulator's layout is the register-A layout -- and V read
+//     MN-major through the transpose bit, n = DP);
+//   * a block owns 128 query rows of one (batch, head): two consumer
+//     warpgroups of 64 rows (setmaxnreg up to kWgConsumerRegs), whose
+//     exp2 and wgmma overlap on the SM, and a producer warpgroup (down to
+//     kWgProducerRegs) whose first thread loads Q once and keeps a ring
+//     of kFwdStages K/V tiles of 64 keys in flight by TMA, from the kv
+//     head h / (H / K), on full/empty mbarriers; no consumer thread
+//     computes an address or touches a tile;
+//   * the online softmax stays in registers, in base 2 with the scale
+//     folded in, 2^x by the SFU alone; the mask is tested per element
+//     only on tiles that cross the causal edge, the window's edge or
+//     Sk's ragged end (keys past Sk arrive as zeros and score 0, not
+//     -inf: those tiles are masked); a warpgroup skips the tiles none of
+//     its rows can see and the block never loads the ones no row can;
+//   * the grid starts with each head's last query block, the longest
+//     under a causal mask.
+//
+// A row with no visible key ends with l == 0: o = 0, lse = +inf.  o's
+// bits do not depend on whether lse is written.  No atomics: a call
+// repeats its bits.
+
+constexpr int kFwdStages = 4;          // ring depth: K and V tiles
+
+// Dynamic shared memory of the forward (1024 bytes of slack align the
+// base): Q of 128 rows, kFwdStages stages of K and V, 2 kFwdStages + 1
+// barriers.
+size_t wg_fwd_smem_bytes(int DP) {
+  return 1024 + (size_t)(2 + 2 * kFwdStages) * wg_tile_bytes(DP) +
+         8 * (2 * kFwdStages + 1);
+}
+
+template <int DP>   // the tile width: 64 (d = 64) or 128 (64 < d <= 128)
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wg(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Sk, int H, int K, int d,
+             int causal, int window, float scale_log2) {
+  constexpr int TILE = wg_tile_bytes(DP);
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* const smem = align_1024(wg_smem_raw);
+  unsigned char* const sQ = smem;                // [2] tiles: rows 0-63, 64-127
+  unsigned char* const ring = smem + 2 * TILE;   // stage s: K, then V
+  uint64_t* const full =
+      reinterpret_cast<uint64_t*>(ring + 2 * kFwdStages * TILE);
+  uint64_t* const empty = full + kFwdStages;
+  uint64_t* const q_bar = empty + kFwdStages;
+
+  // grid (B*H, query blocks of 128): the last, longest under a causal
+  // mask, first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 2 * kWgRows;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kh = h / (H / K);
+  // the key tiles some row of the block can see
+  const int q_last = min(q0 + 2 * kWgRows, Sq) - 1;
+  int t_end = (Sk + kWgRows - 1) / kWgRows;
+  if (causal) t_end = min(t_end, q_last / kWgRows + 1);
+  int t_begin = 0;
+  if (window > 0 && q0 - window - (kWgRows - 1) >= 0)
+    t_begin = (q0 - window - (kWgRows - 1)) / kWgRows + 1;
+  const int n_t = max(0, t_end - t_begin);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], kWgConsumerThreads / 32);
+    }
+    hop::mbar_init(q_bar, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWgConsumerThreads) {
+    // producer: Q once, then the ring of K and V tiles
+    hop::regs_dealloc<kWgProducerRegs>();
+    if (threadIdx.x == kWgConsumerThreads && n_t > 0) {
+      hop::mbar_arrive_expect_tx(q_bar, 2 * TILE);
+      for (int r = 0; r < 2; ++r)
+        tma_tile<DP>(sQ + r * TILE, &tm_q, q_bar, h, q0 + r * kWgRows, b);
+      for (int i = 0; i < n_t; ++i) {
+        const int s = i % kFwdStages;
+        hop::mbar_wait(&empty[s], ((i / kFwdStages) & 1) ^ 1);
+        hop::mbar_arrive_expect_tx(&full[s], 2 * TILE);
+        const int k0 = (t_begin + i) * kWgRows;
+        unsigned char* dst = ring + 2 * s * TILE;
+        tma_tile<DP>(dst, &tm_k, &full[s], kh, k0, b);
+        tma_tile<DP>(dst + TILE, &tm_v, &full[s], kh, k0, b);
+      }
+    }
+  } else {
+    hop::regs_alloc<kWgConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int w_first = q0 + wg * kWgRows, w_last = w_first + kWgRows - 1;
+    const int r0 = w_first + warp * 16 + (lane >> 2), r1 = r0 + 8;
+    const unsigned char* const myQ = sQ + wg * TILE;
+
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf;  // running max of rows r0, r1 (log2)
+    float l0 = 0.f, l1 = 0.f;          // this thread's part of the row sums
+    if (n_t > 0) hop::mbar_wait(q_bar, 0);
+    for (int i = 0; i < n_t; ++i) {
+      const int s = i % kFwdStages;
+      hop::mbar_wait(&full[s], (i / kFwdStages) & 1);
+      const unsigned char* sk = ring + 2 * s * TILE;
+      const unsigned char* sv = sk + TILE;
+      const int k0 = (t_begin + i) * kWgRows;
+      const bool skip = w_first >= Sq || (causal && k0 > w_last) ||
+                        (window > 0 && k0 + kWgRows - 1 <= w_first - window);
+      if (!skip) {                     // uniform over the warpgroup
+        float sacc[32];
+        hop::wgmma_fence();
+        wg_product_abt<DP>(sacc, myQ, sk);     // S = Q K^T
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(sacc);
+        const bool all = k0 + kWgRows <= Sk &&
+                         (!causal || k0 + kWgRows - 1 <= w_first) &&
+                         (window <= 0 || k0 > w_last - window);
+        float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sacc[4 * j + e] * scale_log2;
+            if (!all) {
+              const int kp = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+              const int qp = e < 2 ? r0 : r1;
+              if (kp >= Sk || (causal && kp > qp) ||
+                  (window > 0 && kp <= qp - window))
+                x = -CUDART_INF_F;
+            }
+            sacc[4 * j + e] = x;
+          }
+          mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float a0 = exp2_sfu(m0 - mn0), a1 = exp2_sfu(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        l0 *= a0;
+        l1 *= a1;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          acc[4 * j] *= a0;
+          acc[4 * j + 1] *= a0;
+          acc[4 * j + 2] *= a1;
+          acc[4 * j + 3] *= a1;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sacc[4 * j] = exp2_sfu(sacc[4 * j] - mn0);
+          sacc[4 * j + 1] = exp2_sfu(sacc[4 * j + 1] - mn0);
+          sacc[4 * j + 2] = exp2_sfu(sacc[4 * j + 2] - mn1);
+          sacc[4 * j + 3] = exp2_sfu(sacc[4 * j + 3] - mn1);
+          l0 += sacc[4 * j] + sacc[4 * j + 1];
+          l1 += sacc[4 * j + 2] + sacc[4 * j + 3];
+        }
+        // O += P V, P rounded to bf16 as the A operand
+        uint32_t pa[4][4];
+        pack_a(pa, sacc);
+        hop::wgmma_fence();
+        wg_product_ab<DP>(acc, pa, sv);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_regs(acc);
+      }
+      __syncwarp();
+      if (lane == 0) hop::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    // the rows' log-sum-exp in natural units (m is in log2 units of the
+    // scaled scores); +inf for a row with no visible key
+    if (lse != nullptr && (lane & 3) == 0) {
+      if (r0 < Sq)
+        lse[(size_t)bh * Sq + r0] =
+            l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : CUDART_INF_F;
+      if (r1 < Sq)
+        lse[(size_t)bh * Sq + r1] =
+            l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : CUDART_INF_F;
+    }
+    const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
+    const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      acc[4 * j] *= inv0;
+      acc[4 * j + 1] *= inv0;
+      acc[4 * j + 2] *= inv1;
+      acc[4 * j + 3] *= inv1;
+    }
+    const size_t q_row = (size_t)H * d;
+    store_rows<DP>(o + (size_t)b * Sq * q_row + (size_t)h * d, q_row, acc,
+                   r0, Sq, d, 1.f, lane);
+  }
+}
+
+template <int DP>
+int launch_fwd_wg(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                  float* lse, int B, int Sq, int Sk, int H, int K, int d,
+                  int causal, int window, float scale, void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv;
+  int err = hop_host::bshd_map(&tq, q, B, Sq, H, d, kWgRows);
+  if (!err && Sk > 0) err = hop_host::bshd_map(&tk, k, B, Sk, K, d, kWgRows);
+  if (!err && Sk > 0) err = hop_host::bshd_map(&tv, v, B, Sk, K, d, kWgRows);
+  if (err) return err;
+  if (Sk == 0) tk = tv = tq;           // no key tile is ever loaded
+  const size_t smem = wg_fwd_smem_bytes(DP);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wg<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_wg<DP><<<dim3(B * H, (Sq + 2 * kWgRows - 1) / (2 * kWgRows)),
+                     kWgThreads, smem, (cudaStream_t)stream>>>(
+      tq, tk, tv, o, lse, Sq, Sk, H, K, d, causal, window, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// The forward's and the backward's routes (the same rule for both);
+// kernel.py's `fwd_route` and `bwd_route` hold it too.
+enum Route { kRouteScalar = 0, kRouteMmaSync = 1, kRouteWgmma = 2 };
 
 int bwd_route(int dtype, int d) {
   if (d < 1 || d > kMaxD) return -1;
@@ -1873,26 +2134,42 @@ int bwd_route(int dtype, int d) {
   return d % 8 == 0 && d >= 64 ? kRouteWgmma : kRouteMmaSync;
 }
 
+int fwd_route(int dtype, int d) { return bwd_route(dtype, d); }
+
 // The wgmma pair's tile width at head dim d: 64 at d = 64, else 128.
 int wg_tile_cols(int d) { return d <= 64 ? 64 : 128; }
 }  // namespace
 
-// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel).
+// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernels).
 // q/o: [B, Sq, H, d]; k/v: [B, Sk, K, d], all contiguous; H % K == 0;
 // 1 <= d <= 128; scale = 1 / sqrt(d).  lse: null, or f32 [B, H, Sq] that
 // receives each row's log-sum-exp of the scaled, masked scores (+inf for a
-// row with no visible key); o's bits do not depend on it.
+// row with no visible key); o's bits do not depend on it.  route: -1 the
+// rule's (`fwd_route`), else that route (2, wgmma: bf16 at d % 8 == 0
+// from 64 to 128, every pointer on 16 bytes; 1, mma.sync: bf16; 0: f32),
+// which a timing or a test of the other bf16 kernel names.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int dtype, int B, int Sq, int Sk,
                                       int H, int K, int d, int causal,
-                                      int window, float scale,
+                                      int window, float scale, int route,
                                       void* stream) {
+  const int rule = fwd_route(dtype, d);
+  if (route < 0) route = rule;
+  if (rule < 0 || (route == kRouteScalar) != (dtype == 0) ||
+      (route == kRouteWgmma && rule != kRouteWgmma))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(q, k, v, o, lse, B, Sq, Sk, H, K, d, causal,
                          window, scale, stream);
   const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v;
   bf16* ob = (bf16*)o;
+  if (route == kRouteWgmma)
+    return wg_tile_cols(d) == 64
+               ? launch_fwd_wg<64>(qb, kb, vb, ob, lse, B, Sq, Sk, H, K, d,
+                                   causal, window, scale, stream)
+               : launch_fwd_wg<128>(qb, kb, vb, ob, lse, B, Sq, Sk, H, K, d,
+                                    causal, window, scale, stream);
   switch ((d + 15) / 16) {
 #define FA_TC_CASE(n)                                                       \
   case n:                                                                   \
@@ -1964,6 +2241,25 @@ extern "C" int flash_attention_bwd_launch(
 // 1..128.
 extern "C" int flash_attention_bwd_route(int dtype, int d) {
   return bwd_route(dtype, d);
+}
+
+// The forward's route for a dtype and head dim (as the backward's), and
+// the dynamic shared memory of its kernel there; 0 bytes for no route.
+extern "C" int flash_attention_fwd_route(int dtype, int d) {
+  return fwd_route(dtype, d);
+}
+
+extern "C" long long flash_attention_fwd_smem_bytes(int dtype, int d) {
+  switch (fwd_route(dtype, d)) {
+    case kRouteScalar:
+      return (long long)smem_bytes(d);
+    case kRouteMmaSync:
+      return (long long)tc_smem_bytes(d);
+    case kRouteWgmma:
+      return (long long)wg_fwd_smem_bytes(wg_tile_cols(d));
+    default:
+      return 0;
+  }
 }
 
 // Dynamic shared memory of the backward's first (kernel 0, dq) or second

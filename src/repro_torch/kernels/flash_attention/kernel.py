@@ -1,13 +1,15 @@
 """ctypes binding of the hand-written Hopper flash-attention kernels
 (``csrc/flash_attention.cu``: bf16 on the tensor cores, f32 scalar; the
 forward, optionally with each row's log-sum-exp, and the backward), built
-at first use by :mod:`repro_torch.kernels._build`.  :func:`bwd_route`
-names the backward pair a dtype and head dim launch; the library holds
-the same rule, and loading it checks that the two agree."""
+at first use by :mod:`repro_torch.kernels._build`.  :func:`fwd_route` and
+:func:`bwd_route` name the forward kernel and the backward pair a dtype
+and head dim launch; the library holds the same rules, and loading it
+checks that the two agree."""
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -18,10 +20,12 @@ SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 128           # kMaxD in the source
 SMEM_LIMIT = 232_448         # dynamic shared memory one block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the backward's routes, by the number the library gives each
-BWD_ROUTES = ("scalar", "mma_sync", "wgmma")
-WGMMA_TILE_COLS = (64, 128)  # tile widths of the wgmma pair's kernels
-WGMMA_STAGES = (3, 2)        # ring depths of its dq and dkdv kernels
+# the forward's and the backward's routes, by the number the library
+# gives each
+ROUTES = ("scalar", "mma_sync", "wgmma")
+WGMMA_TILE_COLS = (64, 128)  # tile widths of the wgmma kernels
+WGMMA_STAGES = (3, 2)        # ring depths of the wgmma pair's dq and dkdv
+WGMMA_FWD_STAGES = 4         # ring depth of the wgmma forward
 
 
 def bwd_route(d: int, dtype: torch.dtype) -> str:
@@ -38,6 +42,33 @@ def bwd_route(d: int, dtype: torch.dtype) -> str:
     if dtype == torch.float32:
         return "scalar"
     return "wgmma" if d % 8 == 0 and d >= 64 else "mma_sync"
+
+
+def fwd_route(d: int, dtype: torch.dtype) -> str:
+    """The forward kernel a head dim and dtype launch, by the backward's
+    rule (:func:`bwd_route`): ``"wgmma"`` (``flash_fwd_wg``: bf16 at
+    d % 8 == 0 and 64 <= d <= 128, wgmma fed by a TMA ring, on tiles
+    :func:`wgmma_tile_cols` wide), ``"mma_sync"`` (``flash_fwd_tc``: bf16
+    at any other d <= 128) or ``"scalar"`` (f32).  The rule is the
+    source's ``fwd_route``; raises on a d or dtype no kernel takes."""
+    return bwd_route(d, dtype)
+
+
+def fwd_smem_bytes(d: int, dtype: torch.dtype, route: str = None) -> int:
+    """Dynamic shared memory of the forward kernel on ``route`` (the
+    rule's by default) at ``(d, dtype)`` (the source's ``smem_bytes``,
+    ``tc_smem_bytes`` and ``wg_fwd_smem_bytes``)."""
+    route = route or fwd_route(d, dtype)
+    if route == "scalar":              # f32 tiles of d + 1 columns
+        return 4 * ((64 + 2 * 64) * (d + 1) + 64 * 65)
+    if route == "mma_sync":            # two stages of K and V, 64 rows
+        dp = -(-d // 16) * 16
+        pitch = dp if dp % 64 == 0 else dp + 8
+        return 2 * 4 * 64 * pitch
+    # 1024 B of alignment slack; Q of 128 rows and the ring's K and V
+    # tiles, [64][tile width] bf16 each; 2 x stages + 1 8-byte mbarriers
+    return 1024 + (2 + 2 * WGMMA_FWD_STAGES) * 64 * wgmma_tile_cols(d) * \
+        2 + 8 * (2 * WGMMA_FWD_STAGES + 1)
 
 
 def wgmma_tile_cols(d: int) -> int:
@@ -76,7 +107,8 @@ def bwd_smem_bytes(d: int, dtype: torch.dtype) -> tuple:
 def _library():
     lib = _build.load(SOURCE)
     lib.flash_attention_launch.argtypes = [ctypes.c_void_p] * 5 + \
-        [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
+                              ctypes.c_void_p]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_bwd_launch.argtypes = [ctypes.c_void_p] * 10 + \
         [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
@@ -87,18 +119,25 @@ def _library():
     lib.flash_attention_bwd_route.restype = ctypes.c_int
     lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.flash_attention_fwd_route.argtypes = [ctypes.c_int] * 2
+    lib.flash_attention_fwd_route.restype = ctypes.c_int
+    lib.flash_attention_fwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_attention_fwd_smem_bytes.restype = ctypes.c_longlong
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
         raise RuntimeError("flash_attention library and MAX_HEAD_DIM "
                            "disagree")
     for dtype, code in _DTYPES.items():
         for d in range(1, MAX_HEAD_DIM + 1):
-            got = (BWD_ROUTES[lib.flash_attention_bwd_route(code, d)],
+            got = (ROUTES[lib.flash_attention_bwd_route(code, d)],
                    tuple(lib.flash_attention_bwd_smem_bytes(code, d, i)
-                         for i in (0, 1)))
-            if got != (bwd_route(d, dtype), bwd_smem_bytes(d, dtype)):
+                         for i in (0, 1)),
+                   ROUTES[lib.flash_attention_fwd_route(code, d)],
+                   lib.flash_attention_fwd_smem_bytes(code, d))
+            if got != (bwd_route(d, dtype), bwd_smem_bytes(d, dtype),
+                       fwd_route(d, dtype), fwd_smem_bytes(d, dtype)):
                 raise RuntimeError(f"flash_attention library and "
-                                   f"bwd_route/bwd_smem_bytes disagree at "
-                                   f"d = {d}, {dtype}: {got}")
+                                   f"fwd/bwd_route or their smem_bytes "
+                                   f"disagree at d = {d}, {dtype}: {got}")
     return lib
 
 
@@ -142,16 +181,28 @@ def _stream(t: torch.Tensor) -> int:
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
-                           window: int = 0, with_lse: bool = False):
-    """Launch the forward kernel on PyTorch's current stream (the
-    tensor-core kernel for bf16, the scalar one for f32): ``o [B,Sq,H,d]``
-    in the q dtype, and with ``with_lse`` also ``lse`` f32 [B, H, Sq], each
-    row's log-sum-exp of its scaled, masked scores (+inf where a row sees
-    no key); ``o`` is the same bits either way.  Layout and semantics as
-    ``ops.flash_attention``."""
+                           window: int = 0, with_lse: bool = False,
+                           route: str = None):
+    """Launch the forward kernel :func:`fwd_route` names on PyTorch's
+    current stream (``route`` names another bf16 kernel that takes the
+    shape: ``"mma_sync"`` times or tests ``flash_fwd_tc`` where the rule
+    takes ``flash_fwd_wg``): ``o [B,Sq,H,d]`` in the q dtype, and with
+    ``with_lse`` also ``lse`` f32 [B, H, Sq], each row's log-sum-exp of
+    its scaled, masked scores (+inf where a row sees no key); ``o`` is the
+    same bits either way.  Layout and semantics as
+    ``ops.flash_attention``.  ``flash_attention_kernel.routes`` counts the
+    launches by route."""
     _check_inputs(q, k, v)
     B, Sq, H, d = q.shape
     Sk, K = k.shape[1], k.shape[2]
+    rule = fwd_route(d, q.dtype)
+    route = route or rule
+    if route not in ROUTES or (route == "scalar") != (rule == "scalar") or \
+            (route == "wgmma" and rule != "wgmma"):
+        raise ValueError(f"no {route} forward for d = {d}, {q.dtype}")
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the wgmma forward reads q, k and v through TMA: "
+                         "each must start on 16 bytes")
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
@@ -162,11 +213,16 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(),
                 _DTYPES[q.dtype], B, Sq, Sk, H, K, d, int(bool(causal)),
-                int(window), 1.0 / (d ** 0.5), _stream(q))
+                int(window), 1.0 / (d ** 0.5), ROUTES.index(route),
+                _stream(q))
         if err != 0:
             raise RuntimeError(f"flash_attention launch failed: "
                                f"cudaError {err}")
+        flash_attention_kernel.routes[route] += 1
     return (out, lse) if with_lse else out
+
+
+flash_attention_kernel.routes = Counter()
 
 
 def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,

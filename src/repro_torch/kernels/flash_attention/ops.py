@@ -1,9 +1,10 @@
 """User-facing flash attention in the model layout (port of
 ``repro.kernels.flash_attention.ops.flash_attention``), and its gradient.
 
-A CUDA tensor launches a hand-written kernel (``kernel.py``), which reads
-the model layout itself: the tensor-core kernel for bf16, the scalar one
-for f32.  Where q, k or v needs a gradient (training), the call goes
+A CUDA tensor launches the hand-written kernel ``kernel.py:fwd_route``
+names, which reads the model layout itself: for bf16 the wgmma kernel
+(d % 8 == 0 from 64 to 128, every arch's head dim) or the mma.sync one,
+for f32 the scalar one.  Where q, k or v needs a gradient (training), the call goes
 through :class:`FlashAttentionFn`: its forward launches the kernel with
 each row's log-sum-exp and saves q, k, v, o and lse; its backward launches
 the backward kernels through :func:`flash_attention_bwd`.  A CPU tensor

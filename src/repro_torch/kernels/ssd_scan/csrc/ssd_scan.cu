@@ -23,10 +23,17 @@
 // group's B and C rows directly, where the TPU wrapper materialised B and
 // C once per head (`jnp.repeat`).  A ragged last chunk is zero-filled on
 // load (dt = 0 there, so it neither decays nor feeds the state), as the
-// reference's padding does.  The dtype alone picks one of two kernels:
+// reference's padding does.  The dtype and shape pick one of three routes
+// (`fwd_route`; kernel.py's `fwd_route` holds the same rule and checks it
+// against this library):
 //
-// bf16 -- `ssd_scan_tc`, the four chunk products on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, f32 accumulators), 4 warps a block:
+// bf16 at P <= 64, N <= 128, chunks of up to 128 (every SSM arch) -- three
+// chunk-parallel passes on wgmma (see "forward: bf16 on wgmma, three
+// chunk-parallel passes" below);
+//
+// any other bf16 shape -- `ssd_scan_tc`, the four chunk products on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulators), 4
+// warps a block:
 //
 //   * the chunk's x and B (bf16) and dt (f32) are double-buffered in
 //     shared memory and loaded with cp.async, the next chunk's while this
@@ -82,9 +89,11 @@
 // double three of the four products, the chunks of a head run one after
 // another with four barriers each, mma.sync reaches only part of the
 // wgmma rate, and 448 blocks make 1.7 waves of 264 slots.  chip_smoke.py
-// measures it at about 0.17 ms on an H100 SXM at 700 W, some 8x the
-// bound; tools/kernel_variants.py times each part of the work (C B^T is
-// under a tenth of it, so the heads do not share it).
+// measured it at about 0.17 ms on an H100 SXM at 700 W, some 8x the
+// bound (and 0.95 ms, 22.5x, at mamba2-370m's training shape, where its
+// 64 blocks each walk 32 chunks); tools/kernel_variants.py times each
+// part of the work (C B^T is under a tenth of it).  The wgmma passes
+// below take those shapes now.
 //
 // The backward (`ssd_scan_bwd_launch`) has no TPU kernel to replace: the
 // reference trains by differentiating its jnp ssd_chunked
@@ -2465,26 +2474,596 @@ int launch_bwd_wg(const void* x, const void* dt, const void* A,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// forward: bf16 on wgmma, three chunk-parallel passes
+// ---------------------------------------------------------------------------
+//
+// Replaces the same TPU kernel as `ssd_scan_tc` (src/repro/kernels/
+// ssd_scan/kernel.py: `_kernel`, launched by `ssd_scan_kernel`) for bf16
+// at P <= 64, N <= 128 and chunks of up to 128 tokens (every SSM arch);
+// `ssd_scan_tc` keeps the other bf16 shapes (`fwd_route`).  Where the TPU
+// kernel and `ssd_scan_tc` carry the state through the chunks one after
+// another inside a block (at mamba2-370m's training shape 64 blocks on
+// 132 SMs, each walking 32 chunks), the forward here is split as
+// Mamba2's own chunked algorithm splits it -- and as the backward's
+// passes above split its reverse recurrence -- so that only an f32
+// elementwise scan is serial over the chunks:
+//
+//   ssd_fwd_state_wg   one warpgroup per (batch, chunk, head): the
+//                      chunk's own end-state contribution, Delta_c =
+//                      (x o w)^T B, w_j = exp(cum_last - cum_j) dt_j, on
+//                      wgmma (m64 over P, n64 over N, k over the 128
+//                      tokens; x^T o w from registers as a bf16 high and
+//                      low part, B from shared memory MN-major), into the
+//                      state slot of chunk c + 1 (the last chunk's into
+//                      the final state), and the chunk's decay
+//                      exp(cum_last);
+//   ssd_fwd_state_scan one thread per (batch, head, column pair of the
+//                      state): S_c+1 = exp(cum_last,c) S_c + Delta_c in
+//                      f32 from init_state (or zeros), writing each
+//                      chunk's start state (the `states` the backward
+//                      reads; in place over the Deltas, and only when
+//                      they are asked for) and its bf16 high and low
+//                      parts as [64][64 NB] boxes for the next pass, and
+//                      the final state;
+//   ssd_fwd_chunk_wg   two warpgroups per (batch, chunk, group of up to 8
+//                      heads, `chunk_wg_group`), each owning 64 of the
+//                      chunk's rows: G = C B^T once a block, kept in the
+//                      owning warpgroup's registers (its lower triangle:
+//                      rows 0-63 one 64 x 64 tile, rows 64-127 two), then
+//                      per head y = exp(cum_i) (C S_c^T) + scores x, the
+//                      first with both operands in shared memory (S_c's
+//                      high and low parts), the second with scores = G o
+//                      exp(cum_i - cum_j) o dt_j (j <= i) built from G's
+//                      registers as the register A operand, high and low
+//                      part, and x MN-major; the next head's x and split
+//                      state in flight in a second stage (TMA boxes and a
+//                      bulk copy on mbarriers where every row start is
+//                      16-byte aligned and a chunk is 128 tokens, else
+//                      cp.async).
+//
+// Roundings: as `ssd_scan_tc`'s, every product's bf16 inputs are exact
+// but the f32 values that go in as a high plus a low bf16 part -- x o w
+// (where `ssd_scan_tc` splits B o w: the same product), the state in
+// C S^T and the scores -- and the state is carried in f32.  No atomics:
+// a call repeats its bits.  Bound on this card: bytes (at mamba2-370m's
+// training shape the function must move 142 MB with the chunk states, 42
+// us at 3.35 TB/s); the split moves more than that: the Deltas and the
+// states go through device memory (67 MB each way at that shape) and the
+// split states once more.
+
+// One (batch, chunk, head)'s start state as the forward's scan writes it
+// for its chunk pass: [S hi | S lo], each a [64][64 NB] bf16 box tile
+// (zero past P and N).
+__host__ __device__ constexpr int fwd_split_bytes(int nb) {
+  return 2 * split_part_bytes(nb);
+}
+
+// Shared memory of the forward's chunk pass (byte offsets from the
+// 1024-aligned base): B and C, two stages of [x | S hi | S lo], four f32
+// rows of 128 and five mbarriers.
+struct FcLayout {
+  size_t b, c, stage, st_bytes, rows, total;
+};
+
+__host__ __device__ inline FcLayout fc_layout(int nb) {
+  FcLayout L;
+  L.b = 0;
+  L.c = (size_t)nb * kBoxQ;
+  L.stage = 2 * (size_t)nb * kBoxQ;
+  L.st_bytes = kBoxQ + (size_t)fwd_split_bytes(nb);
+  L.rows = L.stage + 2 * L.st_bytes;
+  L.total = 1024 + L.rows + sizeof(float) * 4 * kWq + 8 * 5;
+  return L;
+}
+
+size_t fwd_chunk_smem_bytes(int N) { return fc_layout(N <= 64 ? 1 : 2).total; }
+
+// the state pass's shared memory: x, B and four f32 rows (the delta
+// pass's layout)
+size_t fwd_state_smem_bytes(int N) { return delta_wg_smem_bytes(N); }
+
+template <int NB>   // 64-column boxes of N: 1 (N <= 64) or 2 (N <= 128)
+__global__ void __launch_bounds__(kDwThreads)
+ssd_fwd_state_wg(const bf16* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const bf16* __restrict__ Bm,
+                 float* __restrict__ states, float* __restrict__ final_state,
+                 float* __restrict__ decay, int S, int H, int P, int N, int Q,
+                 long long xsb, long long xst, long long bsb, long long bst,
+                 int vec) {
+  extern __shared__ unsigned char ssd_wg_raw[];
+  unsigned char* const smem = align_1024(ssd_wg_raw);
+  unsigned char* const sX = smem;                 // x [128][64]
+  unsigned char* const sB = smem + kBoxQ;         // B [128][64 NB]
+  float* const sdt = reinterpret_cast<float*>(sB + NB * kBoxQ);
+  float* const scum = sdt + kWq;
+  float* const se = scum + kWq;
+  float* const sw = se + kWq;
+  const int n_chunks = (S + Q - 1) / Q;
+  const int h = blockIdx.x % H, bc = blockIdx.x / H;
+  const int c = bc % n_chunks, b = bc / n_chunks;
+  const int t0 = c * Q, rows = min(Q, S - t0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  load_box_tile<kDwThreads>(sX, 1, x + b * xsb + t0 * xst + (size_t)h * P,
+                            xst, rows, P, vec);
+  load_box_tile<kDwThreads>(sB, NB, Bm + b * bsb + t0 * bst, bst, rows, N,
+                            vec);
+  tc::cp_async_commit();
+  if (warp == 0)
+    chunk_rows_warp(dt + ((size_t)b * S + t0) * H + h, H, rows, A[h], sdt,
+                    scum, se, sw, lane);
+  tc::cp_async_wait<0>();
+  hop::fence_proxy_async();
+  __syncthreads();
+  if (tid == 0)
+    decay[((size_t)b * n_chunks + c) * H + h] = expf(scum[kWq - 1]);
+
+  // A = x^T o w: rows p of the warp, k = 16 tokens a step
+  uint32_t ah[8][4], al[8][4];
+#pragma unroll
+  for (int jk = 0; jk < 8; ++jk) {
+    uint32_t ga[4];
+    tc::ldsm_x4_t(ga, sX + box_off(jk * 16 + (lane & 7) + (lane >> 4) * 8,
+                                   warp * 16 + ((lane >> 3) & 1) * 8, kWq));
+    const int jb = jk * 16 + (lane & 3) * 2;
+    const float w0 = sw[jb], w1 = sw[jb + 1], w8 = sw[jb + 8],
+                w9 = sw[jb + 9];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      tc::scale_split_bf16(ga[r], r < 2 ? w0 : w8, r < 2 ? w1 : w9,
+                           ah[jk][r], al[jk][r]);
+  }
+  float acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+  hop::wgmma_fence();
+#pragma unroll
+  for (int jk = 0; jk < 8; ++jk)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const uint64_t bd = desc_mn(sB + nb * kBoxQ + jk * 16 * 128, kBoxQ);
+      hop::wgmma_rs(acc[nb], ah[jk], bd, 1);
+      hop::wgmma_rs(acc[nb], al[jk], bd, 1);
+    }
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) hop::fence_regs(acc[nb]);
+
+  float* out = c + 1 < n_chunks
+                   ? states + chunk_state_off(b, c + 1, h, n_chunks, H, P, N)
+                   : final_state + ((size_t)b * H + h) * P * N;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = warp * 16 + (lane >> 2) + 8 * half;
+        const int n = nb * 64 + j * 8 + (lane & 3) * 2;
+        if (p >= P || n >= N) continue;
+        const float v0 = acc[nb][4 * j + 2 * half],
+                    v1 = acc[nb][4 * j + 2 * half + 1];
+        float* o = out + (size_t)p * N + n;
+        if ((N & 1) == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (n + 1 < N) o[1] = v1;
+        }
+      }
+}
+
+// The scan over the chunks, one thread per column pair (p, n, n + 1) of
+// the padded [64][64 NB] state of one (batch, head), from init_state (or
+// zeros) at the first chunk to the last: S_c+1 = decay_c S_c + Delta_c,
+// Delta_c read from slot c + 1 of `states` (the last chunk's from
+// `final_state`).  Writes each chunk's start state into its slot (when
+// `write_states`; the Delta there is read first), its split tile, and the
+// final state.
+template <int NB>
+__global__ void __launch_bounds__(kThreads)
+ssd_fwd_state_scan(float* __restrict__ states,
+                   const float* __restrict__ init,
+                   float* __restrict__ final_state,
+                   const float* __restrict__ decay,
+                   unsigned char* __restrict__ split, int n_chunks, int H,
+                   int P, int N, int write_states) {
+  constexpr int kPart = split_part_bytes(NB);
+  const int i = blockIdx.x * kThreads + threadIdx.x;   // < 64 * 32 * NB
+  const int p = i / (32 * NB), n = (i - p * (32 * NB)) * 2;
+  const bool in = p < P && n < N, two = in && n + 1 < N;
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const size_t PN = (size_t)P * N, e = in ? (size_t)p * N + n : 0;
+  const int off = box_off(p, n, 64);
+  auto ld2 = [&](const float* m) {
+    float2 v = make_float2(0.f, 0.f);
+    if (two && (N & 1) == 0) {
+      v = *reinterpret_cast<const float2*>(m + e);
+    } else if (in) {
+      v.x = m[e];
+      if (two) v.y = m[e + 1];
+    }
+    return v;
+  };
+  auto st2 = [&](float* m, float2 v) {
+    if (two && (N & 1) == 0) {
+      *reinterpret_cast<float2*>(m + e) = v;
+    } else if (in) {
+      m[e] = v.x;
+      if (two) m[e + 1] = v.y;
+    }
+  };
+  auto delta_of = [&](int c) {
+    return c + 1 < n_chunks
+               ? states + chunk_state_off(b, c + 1, h, n_chunks, H, P, N)
+               : final_state + bh * PN;
+  };
+  const float* const dec = decay + (size_t)b * n_chunks * H + h;
+  float2 s = init ? ld2(init + bh * PN) : make_float2(0.f, 0.f);
+  float2 d = ld2(delta_of(0));
+  float a = dec[0];
+  for (int c = 0; c < n_chunks; ++c) {
+    float2 d_next = make_float2(0.f, 0.f);
+    float a_next = 0.f;
+    if (c + 1 < n_chunks) {          // the next chunk's, loaded ahead
+      d_next = ld2(delta_of(c + 1));
+      a_next = dec[(size_t)(c + 1) * H];
+    }
+    if (write_states)
+      st2(states + chunk_state_off(b, c, h, n_chunks, H, P, N), s);
+    unsigned char* t =
+        split + (((size_t)b * n_chunks + c) * H + h) * fwd_split_bytes(NB) +
+        off;
+    tc::split_bf16(s.x, s.y, *reinterpret_cast<uint32_t*>(t),
+                   *reinterpret_cast<uint32_t*>(t + kPart));
+    s = make_float2(fmaf(a, s.x, d.x), fmaf(a, s.y, d.y));
+    d = d_next;
+    a = a_next;
+  }
+  st2(final_state + bh * PN, s);
+}
+
+// Warpgroup W's rows of one head: y = exp(cum_i) (C S^T) + scores x,
+// scores from G's registers (W = 0: g[0], the tile (0, 0); W = 1: g[0]
+// and g[1], the tiles (1, 0) and (1, 1)), stored to rows i0, i0 + 8 of
+// `yr` (row stride `yrow`) below `rows`, columns below P.
+template <int W, int NB>
+__device__ __forceinline__ void fwd_chunk_head(
+    const float (&g)[2][32], const unsigned char* sC,
+    const unsigned char* sx, const unsigned char* s_hi,
+    const unsigned char* s_lo, const float* sdt, const float* scum,
+    const float* se, bf16* __restrict__ yr, long long yrow, int rows, int P,
+    int warp, int lane) {
+  const int gq = lane >> 2, cq = lane & 3;
+  const int i0 = 64 * W + 16 * warp + gq, i1 = i0 + 8;
+  float Y[32];
+  // ---- C S^T, the state's high part then its low part ----
+  hop::wgmma_fence();
+#pragma unroll
+  for (int part = 0; part < 2; ++part)
+#pragma unroll
+    for (int ks = 0; ks < 4 * NB; ++ks)
+      hop::wgmma_ss_t<0, 0>(
+          Y, desc_k(sC + (ks >> 2) * kBoxQ + W * 8192 + (ks & 3) * 32),
+          desc_k((part ? s_lo : s_hi) + (ks >> 2) * kBoxP + (ks & 3) * 32),
+          part > 0 || ks > 0);
+  hop::wgmma_commit();
+  const float ci0 = scum[i0] * kLog2e, ci1 = scum[i1] * kLog2e;
+  const float e0 = se[i0], e1 = se[i1];
+  hop::wgmma_wait<0>();
+  hop::fence_regs(Y);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    Y[4 * j] *= e0;
+    Y[4 * j + 1] *= e0;
+    Y[4 * j + 2] *= e1;
+    Y[4 * j + 3] *= e1;
+  }
+  // ---- += scores x, two k-steps (32 tokens j) a batch, j < 64 W + 64 ----
+#pragma unroll
+  for (int kb = 0; kb < 2 * (W + 1); ++kb) {
+    if (32 * kb >= rows) break;       // x and dt are zero there
+    const float(&gt)[32] = g[kb >> 1];
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int kt = 2 * (kb & 1) + kk;  // the k-step within G's tile
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {      // pack_a's order
+        const int blk = 2 * kt + (r >> 1), e = 2 * (r & 1);
+        const int j = 32 * kb + 16 * kk + (r >> 1) * 8 + cq * 2;
+        const int i = e ? i1 : i0;
+        const float ci = e ? ci1 : ci0;
+        float v[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          v[q] = j + q <= i ? gt[4 * blk + e + q] *
+                                  exp2_sfu(fmaf(scum[j + q], -kLog2e, ci)) *
+                                  sdt[j + q]
+                            : 0.f;
+        tc::split_bf16(v[0], v[1], ah[kk][r], al[kk][r]);
+      }
+    }
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint64_t bd = desc_mn(sx + (32 * kb + 16 * kk) * 128, kBoxQ);
+      hop::wgmma_rs(Y, ah[kk], bd, 1);
+      hop::wgmma_rs(Y, al[kk], bd, 1);
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(Y);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = half ? i1 : i0;
+    if (i >= rows) continue;
+    bf16* row = yr + (long long)i * yrow;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      const int p = jn * 8 + cq * 2;
+      const float v0 = Y[4 * jn + 2 * half], v1 = Y[4 * jn + 2 * half + 1];
+      if (p + 1 < P && (P & 1) == 0) {
+        *reinterpret_cast<uint32_t*>(row + p) = tc::pack_bf16(v0, v1);
+      } else {
+        if (p < P) row[p] = __float2bfloat16(v0);
+        if (p + 1 < P) row[p + 1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kCwThreads, 1)
+ssd_fwd_chunk_wg(const bf16* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const bf16* __restrict__ Bm,
+                 const bf16* __restrict__ Cm,
+                 const unsigned char* __restrict__ split,
+                 bf16* __restrict__ y, int S, int H, int P, int N, int Q,
+                 int HG, long long xsb, long long xst, long long bsb,
+                 long long bst, long long csb, long long cst, int vec,
+                 int tma, const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_b,
+                 const __grid_constant__ CUtensorMap tm_c) {
+  constexpr int kPart = split_part_bytes(NB);
+  constexpr int kSplit = fwd_split_bytes(NB);
+  const FcLayout L = fc_layout(NB);
+  extern __shared__ unsigned char ssd_wg_raw[];
+  unsigned char* const smem = align_1024(ssd_wg_raw);
+  unsigned char* const sB = smem + L.b;
+  unsigned char* const sC = smem + L.c;
+  float* const rw = reinterpret_cast<float*>(smem + L.rows);
+  float* const sdt = rw;
+  float* const scum = rw + kWq;
+  float* const se = rw + 2 * kWq;
+  float* const sw = rw + 3 * kWq;
+  // the TMA route's mbarriers: B and C; each stage's x, its split state
+  uint64_t* const bar_bc = reinterpret_cast<uint64_t*>(rw + 4 * kWq);
+  uint64_t* const bar_x = bar_bc + 1;
+  uint64_t* const bar_sp = bar_x + 2;
+
+  const int n_chunks = (S + Q - 1) / Q, n_groups = H / HG;
+  const int grp = blockIdx.x % n_groups, bc = blockIdx.x / n_groups;
+  const int c = bc % n_chunks, b = bc / n_chunks;
+  const int t0 = c * Q, rows = min(Q, S - t0);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3,
+            lane = tid & 31;
+  const long long yrow = (long long)H * P;
+  const bf16* const xb = x + b * xsb + t0 * xst;
+  auto stage = [&](int s) { return smem + L.stage + s * L.st_bytes; };
+  auto split_of = [&](int h) {
+    return split + (((size_t)b * n_chunks + c) * H + h) * kSplit;
+  };
+  // A stage is refilled only after a block barrier that follows its last
+  // read (as in the backward's chunk pass).
+  auto issue = [&](int s, int h) {
+    if (!tma) {
+      load_box_tile<kCwThreads>(stage(s), 1, xb + (size_t)h * P, xst, rows,
+                                P, vec);
+      copy_async<kCwThreads>(stage(s) + kBoxQ, split_of(h), kSplit);
+      tc::cp_async_commit();
+    } else if (tid == 0) {
+      hop::mbar_arrive_expect_tx(&bar_x[s], kBoxQ);
+      hop::tma_load_4d(stage(s), &tm_x, &bar_x[s], 0, h, t0, b);
+      hop::mbar_arrive_expect_tx(&bar_sp[s], kSplit);
+      hop::bulk_load(stage(s) + kBoxQ, split_of(h), kSplit, &bar_sp[s]);
+    }
+  };
+
+  if (tma && tid == 0) {
+    for (int i = 0; i < 5; ++i) hop::mbar_init(&bar_bc[i], 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+  if (!tma) {
+    load_box_tile<kCwThreads>(sB, NB, Bm + b * bsb + t0 * bst, bst, rows, N,
+                              vec);
+    load_box_tile<kCwThreads>(sC, NB, Cm + b * csb + t0 * cst, cst, rows, N,
+                              vec);
+    tc::cp_async_commit();
+  } else if (tid == 0) {
+    hop::mbar_arrive_expect_tx(bar_bc, 2 * NB * kBoxQ);
+    for (int nb = 0; nb < NB; ++nb) {
+      hop::tma_load_3d(sB + nb * kBoxQ, &tm_b, bar_bc, 64 * nb, t0, b);
+      hop::tma_load_3d(sC + nb * kBoxQ, &tm_c, bar_bc, 64 * nb, t0, b);
+    }
+  }
+  issue(0, grp * HG);
+  if (tma) {
+    hop::mbar_wait(bar_bc, 0);
+  } else {
+    tc::cp_async_wait<1>();          // B and C (stage 0 may still fly)
+    hop::fence_proxy_async();
+    __syncthreads();
+  }
+  // G = C B^T, lower triangle: warpgroup 0 the tile (0, 0), warpgroup 1
+  // the tiles (1, 0) and (1, 1), in registers for every head
+  float g[2][32];
+  const bool live = 64 * wg < rows;  // warpgroup 1 idles on short chunks
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (k > wg || !live) break;
+    const int ti = wg, tj = wg == 0 ? 0 : k;
+    hop::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4 * NB; ++ks)
+      hop::wgmma_ss_t<0, 0>(
+          g[k], desc_k(sC + (ks >> 2) * kBoxQ + ti * 8192 + (ks & 3) * 32),
+          desc_k(sB + (ks >> 2) * kBoxQ + tj * 8192 + (ks & 3) * 32),
+          ks > 0);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(g[k]);
+  }
+
+  for (int hh = 0; hh < HG; ++hh) {
+    const int h = grp * HG + hh, st = hh & 1;
+    if (hh + 1 < HG) issue(st ^ 1, h + 1);
+    if (tid < 32)
+      chunk_rows_warp(dt + ((size_t)b * S + t0) * H + h, H, rows, A[h], sdt,
+                      scum, se, sw, lane);
+    if (tma) {
+      hop::mbar_wait(&bar_x[st], (hh >> 1) & 1);
+      hop::mbar_wait(&bar_sp[st], (hh >> 1) & 1);
+    } else if (hh + 1 < HG) {
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    hop::fence_proxy_async();
+    __syncthreads();
+    const unsigned char* const sx = stage(st);
+    const unsigned char* const sp = stage(st) + kBoxQ;
+    bf16* const yr = y + ((size_t)b * S + t0) * yrow + (size_t)h * P;
+    if (live) {
+      if (wg == 0)
+        fwd_chunk_head<0, NB>(g, sC, sx, sp, sp + kPart, sdt, scum, se, yr,
+                              yrow, rows, P, warp, lane);
+      else
+        fwd_chunk_head<1, NB>(g, sC, sx, sp, sp + kPart, sdt, scum, se, yr,
+                              yrow, rows, P, warp, lane);
+    }
+    hop::fence_proxy_async();
+    __syncthreads();                 // this stage and the rows are read
+  }
+}
+
+template <int NB>
+int launch_fwd_wg(const void* x, const void* dt, const void* A,
+                  const void* Bm, const void* Cm, const void* init, void* y,
+                  void* final_state, void* states, void* split, void* decay,
+                  int write_states, int B, int S, int H, int P, int N, int Q,
+                  long long xsb, long long xst, long long bsb, long long bst,
+                  long long csb, long long cst, cudaStream_t stream) {
+  if (P > 64 || N > 64 * NB || Q > kWq || !states || !split || !decay ||
+      (uintptr_t)split % 16)
+    return (int)cudaErrorInvalidValue;
+  const size_t s1 = fwd_state_smem_bytes(N), s3 = fwd_chunk_smem_bytes(N);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_fwd_state_wg<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)s1);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(ssd_fwd_chunk_wg<NB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)s3);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = P % 8 == 0 && N % 8 == 0 &&
+                  (xsb | xst | bsb | bst | csb | cst) % 8 == 0 &&
+                  ((uintptr_t)x | (uintptr_t)Bm | (uintptr_t)Cm) % 16 == 0;
+  const int n_chunks = (S + Q - 1) / Q;
+  const int HG = chunk_wg_group(B, n_chunks, H);
+  // the chunk pass's copy route, as the backward's: TMA where every row
+  // start is 16-byte aligned and a chunk fills its 128-row tiles
+  const int tma = vec && Q == kWq;
+  CUtensorMap tm_x{}, tm_b{}, tm_c{};
+  if (tma) {
+    const cuuint32_t box4[4] = {64, 1, (cuuint32_t)kWq, 1};
+    const cuuint32_t box3[3] = {64, (cuuint32_t)kWq, 1};
+    const cuuint64_t dx4[4] = {(cuuint64_t)P, (cuuint64_t)H, (cuuint64_t)S,
+                               (cuuint64_t)B};
+    const cuuint64_t sx[3] = {2ull * P, 2ull * xst, 2ull * xsb};
+    const cuuint64_t dn3[3] = {(cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t sb[2] = {2ull * bst, 2ull * bsb};
+    const cuuint64_t sc[2] = {2ull * cst, 2ull * csb};
+    int e = hop_host::strided_map(&tm_x, x, 4, dx4, sx, box4);
+    if (!e) e = hop_host::strided_map(&tm_b, Bm, 3, dn3, sb, box3);
+    if (!e) e = hop_host::strided_map(&tm_c, Cm, 3, dn3, sc, box3);
+    if (e) return e;
+  }
+  ssd_fwd_state_wg<NB><<<B * n_chunks * H, kDwThreads, s1, stream>>>(
+      (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)Bm,
+      (float*)states, (float*)final_state, (float*)decay, S, H, P, N, Q, xsb,
+      xst, bsb, bst, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ssd_fwd_state_scan<NB><<<dim3(8 * NB, B * H), kThreads, 0, stream>>>(
+      (float*)states, (const float*)init, (float*)final_state,
+      (const float*)decay, (unsigned char*)split, n_chunks, H, P, N,
+      write_states);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ssd_fwd_chunk_wg<NB><<<B * n_chunks * (H / HG), kCwThreads, s3, stream>>>(
+      (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)Bm,
+      (const bf16*)Cm, (const unsigned char*)split, (bf16*)y, S, H, P, N, Q,
+      HG, xsb, xst, bsb, bst, csb, cst, vec, tma, tm_x, tm_b, tm_c);
+  return (int)cudaGetLastError();
+}
+
+// The forward's routes; kernel.py's `fwd_route` holds the same rule.
+enum FwdRoute { kFwdScalar = 0, kFwdMmaSync = 1, kFwdWgmma = 2 };
+
+int fwd_route(int dtype, int P, int N, int Q) {
+  if (dtype == 0) return kFwdScalar;
+  return P <= 64 && N <= 128 && Q <= kWq ? kFwdWgmma : kFwdMmaSync;
+}
+
 }  // namespace
 
-// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel,
-// N <= 128) for x, B, C and y; dt, A, init_state and final_state are f32.
-// x [B, S, H, P] with batch stride xsb and token stride xst (elements; the
-// head and P strides are P and 1); B and C [B, S, N] with strides
-// (bsb, bst, 1) and (csb, cst, 1); dt [B, S, H], A [H], y [B, S, H, P],
-// init_state (or null for zeros) and final_state [B, H, P, N] contiguous.
-// states, unless null, receives the state each chunk starts from,
-// [B, C, H, P, N] in f32 (C = ceil(S / Q)), for the backward.
+// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core
+// kernels, N <= 128) for x, B, C and y; dt, A, init_state and final_state
+// are f32.  x [B, S, H, P] with batch stride xsb and token stride xst
+// (elements; the head and P strides are P and 1); B and C [B, S, N] with
+// strides (bsb, bst, 1) and (csb, cst, 1); dt [B, S, H], A [H],
+// y [B, S, H, P], init_state (or null for zeros) and final_state
+// [B, H, P, N] contiguous.  route: -1 the rule's (`fwd_route`), else that
+// route (1, mma.sync, for any bf16 shape the rule gives wgmma, which a
+// timing or a test names).  On the mma.sync and scalar routes `states`,
+// unless null, receives the state each chunk starts from,
+// [B, C, H, P, N] in f32 (C = ceil(S / Q)), for the backward.  The wgmma
+// route (bf16, P <= 64, N <= 128, Q <= 128) needs `states` always (its
+// scan's scratch; the chunk start states are written there only when
+// `with_states`), `split` [B, C, H, ssd_scan_fwd_split_bytes(N)] bytes
+// and `decay` [B, C, H] f32.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* Bm, const void* Cm,
                                const void* init, void* y, void* final_state,
-                               void* states, int dtype, int B, int S, int H,
-                               int P, int N, int Q, long long xsb,
-                               long long xst, long long bsb, long long bst,
-                               long long csb, long long cst, void* stream) {
+                               void* states, void* split, void* decay,
+                               int dtype, int route, int with_states, int B,
+                               int S, int H, int P, int N, int Q,
+                               long long xsb, long long xst, long long bsb,
+                               long long bst, long long csb, long long cst,
+                               void* stream) {
+  const int rule = fwd_route(dtype, P, N, Q);
+  if (route < 0) route = rule;
+  if ((route == kFwdScalar) != (dtype == 0) ||
+      (route == kFwdWgmma && rule != kFwdWgmma))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_f32(x, dt, A, Bm, Cm, init, y, final_state, states, B, S,
                       H, P, N, Q, xsb, xst, bsb, bst, csb, cst, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (route == kFwdWgmma)
+    return N <= 64
+               ? launch_fwd_wg<1>(x, dt, A, Bm, Cm, init, y, final_state,
+                                  states, split, decay, with_states, B, S, H,
+                                  P, N, Q, xsb, xst, bsb, bst, csb, cst, st)
+               : launch_fwd_wg<2>(x, dt, A, Bm, Cm, init, y, final_state,
+                                  states, split, decay, with_states, B, S, H,
+                                  P, N, Q, xsb, xst, bsb, bst, csb, cst, st);
   if (N <= 64)
     return launch_tc<8>(x, dt, A, Bm, Cm, init, y, final_state, states, B,
                         S, H, P, N, Q, xsb, xst, bsb, bst, csb, cst, stream);
@@ -2493,6 +3072,25 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                          S, H, P, N, Q, xsb, xst, bsb, bst, csb, cst,
                          stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The forward's route for a dtype and shape: 0 the scalar kernel, 1
+// `ssd_scan_tc` (mma.sync), 2 the three wgmma passes.
+extern "C" int ssd_scan_fwd_route(int dtype, int P, int N, int Q) {
+  return fwd_route(dtype, P, N, Q);
+}
+
+// Dynamic shared memory of the wgmma forward's state pass (pass 0) and
+// chunk pass (pass 1) at state size N; its scan uses none.
+extern "C" long long ssd_scan_fwd_wg_smem_bytes(int N, int pass) {
+  return (long long)(pass == 0 ? fwd_state_smem_bytes(N)
+                               : fwd_chunk_smem_bytes(N));
+}
+
+// Bytes of one (batch, chunk, head)'s split start state, which the wgmma
+// forward's scan writes for its chunk pass.
+extern "C" int ssd_scan_fwd_split_bytes(int N) {
+  return fwd_split_bytes(N <= 64 ? 1 : 2);
 }
 
 // Dynamic shared memory of one block: dtype 0 = the f32 kernel (a slice

@@ -1,11 +1,14 @@
 """ctypes binding of the hand-written Hopper SSD chunk-scan kernels
 (``csrc/ssd_scan.cu``: the forward, bf16 on the tensor cores and f32
 scalar, optionally with each chunk's start state; and its backward),
-built at first use by :mod:`repro_torch.kernels._build`."""
+built at first use by :mod:`repro_torch.kernels._build`.
+:func:`fwd_route` names the forward kernels a dtype and shape launch; the
+library holds the same rule, and loading it checks that the two agree."""
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -22,6 +25,58 @@ TC_BWD_MAX_Q = 128           # chunk rows the bf16 backward's tiles hold
 BWD_MAX_GROUP = 8            # heads a bf16 chunk-pass block sums over
 BWD_WAVE = 132               # blocks of one wave on an H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the forward's routes, by the number the library gives each
+FWD_ROUTES = ("scalar", "mma_sync", "wgmma")
+
+
+def fwd_route(P: int, N: int, chunk: int, dtype) -> str:
+    """The forward kernels a shape and dtype launch: ``"wgmma"`` (bf16 at
+    P <= 64, N <= 128 and chunks of up to 128 tokens, every SSM arch: the
+    three chunk-parallel passes ``ssd_fwd_state_wg``,
+    ``ssd_fwd_state_scan`` and ``ssd_fwd_chunk_wg``), ``"mma_sync"``
+    (``ssd_scan_tc``: any other bf16 shape) or ``"scalar"`` (f32).  The
+    rule is the source's ``fwd_route``."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"no forward kernel for {dtype}")
+    if dtype == torch.float32:
+        return "scalar"
+    return "wgmma" if P <= TC_BWD_MAX_P and N <= TC_MAX_STATE and \
+        chunk <= TC_BWD_MAX_Q else "mma_sync"
+
+
+def fwd_wg_smem_bytes(N: int) -> tuple:
+    """Dynamic shared memory of the wgmma forward's state pass and chunk
+    pass (the scan between them uses none): the state pass as the
+    backward's delta pass (x and B as [128][64] bf16 boxes, four f32
+    rows); the chunk pass 1024 bytes of alignment slack, B and C as
+    [128][64] boxes (one or two each), two stages of a head's x and its
+    split start state (:func:`fwd_split_state_bytes`), four f32 rows of
+    128 and five 8-byte mbarriers."""
+    nb = 1 if N <= 64 else 2
+    return (delta_wg_smem_bytes(N),
+            1024 + 2 * nb * 128 * 128 + 2 * (128 * 128 +
+                                             fwd_split_state_bytes(N)) +
+            4 * 4 * 128 + 8 * 5)
+
+
+def fwd_split_state_bytes(N: int) -> int:
+    """Bytes of one (batch, chunk, head)'s start state as the wgmma
+    forward's scan writes it for its chunk pass
+    (``ssd_scan_fwd_split_bytes`` in the source): a high and a low bf16
+    part, [64][64] boxes, one or two of them a part."""
+    return 2 * (1 if N <= 64 else 2) * 64 * 128
+
+
+def fwd_smem_bytes(Q: int, P: int, N: int, dtype, route: str = None
+                   ) -> int:
+    """The largest dynamic shared memory a block of the forward uses on
+    ``route`` (the rule's by default)."""
+    route = route or fwd_route(P, N, Q, dtype)
+    if route == "scalar":
+        return f32_smem_bytes(Q, P, N)
+    if route == "mma_sync":
+        return tc_smem_bytes(Q, P, N)
+    return max(fwd_wg_smem_bytes(N))
 
 
 def smem_bytes(Q: int, P: int, N: int) -> int:
@@ -156,9 +211,15 @@ def bwd_smem_bytes(Q: int, P: int, N: int, dtype=torch.float32) -> tuple:
 @functools.cache
 def _library():
     lib = _build.load(SOURCE)
-    lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 9 + \
-        [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+    lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 11 + \
+        [ctypes.c_int] * 9 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     lib.ssd_scan_launch.restype = ctypes.c_int
+    lib.ssd_scan_fwd_route.argtypes = [ctypes.c_int] * 4
+    lib.ssd_scan_fwd_route.restype = ctypes.c_int
+    lib.ssd_scan_fwd_wg_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.ssd_scan_fwd_wg_smem_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_fwd_split_bytes.argtypes = [ctypes.c_int]
+    lib.ssd_scan_fwd_split_bytes.restype = ctypes.c_int
     lib.ssd_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 22 + \
         [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     lib.ssd_scan_bwd_launch.restype = ctypes.c_int
@@ -193,9 +254,19 @@ def _library():
             raise RuntimeError("ssd_scan library and bwd_heads_per_block "
                                "disagree")
     for N in (8, 64, 65, 128):
-        if lib.ssd_scan_bwd_split_bytes(N) != split_state_bytes(N):
-            raise RuntimeError("ssd_scan library and split_state_bytes "
-                               "disagree")
+        if (lib.ssd_scan_bwd_split_bytes(N), lib.ssd_scan_fwd_split_bytes(N),
+                *(lib.ssd_scan_fwd_wg_smem_bytes(N, k) for k in (0, 1))) != (
+                split_state_bytes(N), fwd_split_state_bytes(N),
+                *fwd_wg_smem_bytes(N)):
+            raise RuntimeError("ssd_scan library and split_state_bytes / "
+                               "fwd_wg_smem_bytes disagree")
+    for dtype, code in _DTYPES.items():
+        for P, N, Q in ((64, 128, 128), (64, 64, 128), (65, 64, 128),
+                        (64, 129, 128), (64, 64, 129), (16, 8, 16)):
+            if FWD_ROUTES[lib.ssd_scan_fwd_route(code, P, N, Q)] != \
+                    fwd_route(P, N, Q, dtype):
+                raise RuntimeError("ssd_scan library and fwd_route "
+                                   "disagree")
     return lib
 
 
@@ -234,15 +305,19 @@ def token_strides(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor
 def ssd_scan_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int,
                     init_state: Optional[torch.Tensor] = None,
-                    with_states: bool = False) -> tuple:
-    """Launch the kernel on PyTorch's current stream: the tensor-core
-    kernel for bf16, the scalar one for f32.  xh [B,S,H,P] and Bm/Cm
-    [B,S,N] in f32 or bf16 (one dtype), read through their batch and token
-    strides (:func:`token_strides`); dt [B,S,H], A [H] and init_state
-    [B,H,P,N] (None for zeros) in f32 and contiguous; all on one device.
-    Returns (y [B,S,H,P] in the xh dtype, final state [B,H,P,N] in
-    f32), and with ``with_states`` the state each chunk starts from,
-    [B, ceil(S / chunk), H, P, N] in f32, which the backward reads."""
+                    with_states: bool = False, route: str = None) -> tuple:
+    """Launch the forward on PyTorch's current stream, on the route
+    :func:`fwd_route` names (``route="mma_sync"`` names ``ssd_scan_tc``
+    for a bf16 shape the rule gives the wgmma passes, to time or test
+    it): for bf16 the three wgmma passes or the mma.sync kernel, for f32
+    the scalar one.  xh [B,S,H,P] and Bm/Cm [B,S,N] in f32 or bf16 (one
+    dtype), read through their batch and token strides
+    (:func:`token_strides`); dt [B,S,H], A [H] and init_state [B,H,P,N]
+    (None for zeros) in f32 and contiguous; all on one device.  Returns
+    (y [B,S,H,P] in the xh dtype, final state [B,H,P,N] in f32), and with
+    ``with_states`` the state each chunk starts from, [B, ceil(S / chunk),
+    H, P, N] in f32, which the backward reads.
+    ``ssd_scan_kernel.routes`` counts the launches by route."""
     if not isinstance(xh, torch.Tensor) or xh.dim() != 4:
         raise ValueError("xh must be a [B, S, H, P] tensor")
     B, S, H, P = xh.shape
@@ -266,31 +341,52 @@ def ssd_scan_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if tc and N > TC_MAX_STATE:
         raise ValueError(f"state size N={N} above {TC_MAX_STATE}, which "
                          f"the bf16 kernel holds in registers")
-    need = (tc_smem_bytes if tc else f32_smem_bytes)(chunk, P, N)
+    rule = fwd_route(P, N, chunk, xh.dtype)
+    route = route or rule
+    if route not in FWD_ROUTES or (route == "scalar") != (not tc) or \
+            (route == "wgmma" and rule != "wgmma"):
+        raise ValueError(f"no {route} forward for P={P}, N={N}, chunk "
+                         f"{chunk}, {xh.dtype}")
+    need = fwd_smem_bytes(chunk, P, N, xh.dtype, route)
     if need > SMEM_LIMIT:
         raise ValueError(f"chunk {chunk} with P={P}, N={N} needs {need} "
                          f"bytes of shared memory, more than {SMEM_LIMIT}")
     if B * H * P >= 2**31 or B * S * H * P >= 2**62:
         raise ValueError("shape too large for the kernel's grid")
-    y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
-    final = torch.empty((B, H, P, N), dtype=torch.float32, device=xh.device)
-    states = torch.empty((B, -(-S // chunk), H, P, N), dtype=torch.float32,
-                         device=xh.device) if with_states else None
+    dev, f32 = xh.device, torch.float32
+    n_chunks = -(-S // chunk)
+    y = torch.empty((B, S, H, P), dtype=xh.dtype, device=dev)
+    final = torch.empty((B, H, P, N), dtype=f32, device=dev)
+    # the wgmma passes' scan runs in place over its chunk-state tensor, a
+    # scratch one where the states are not asked for
+    wg = route == "wgmma"
+    states = torch.empty((B, n_chunks, H, P, N), dtype=f32, device=dev) \
+        if with_states or wg else None
     out = (y, final, states) if with_states else (y, final)
     if B * H == 0:
         return out
+    split = torch.empty((B, n_chunks, H, fwd_split_state_bytes(N)),
+                        dtype=torch.uint8, device=dev) if wg else None
+    decay = torch.empty((B, n_chunks, H), dtype=f32, device=dev) \
+        if wg else None
     lib = _library()
-    with torch.cuda.device(xh.device):
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
         err = lib.ssd_scan_launch(
-            xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), None if init_state is None else
-            init_state.data_ptr(), y.data_ptr(), final.data_ptr(),
-            None if states is None else states.data_ptr(),
-            _DTYPES[xh.dtype], B, S, H, P, N, chunk, *strides,
-            torch.cuda.current_stream(xh.device).cuda_stream)
+            *map(ptr, (xh, dt, A, Bm, Cm, init_state, y, final, states,
+                       split, decay)),
+            _DTYPES[xh.dtype], FWD_ROUTES.index(route), int(with_states),
+            B, S, H, P, N, chunk, *strides,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
+    ssd_scan_kernel.routes[route] += 1
     return out
+
+
+ssd_scan_kernel.routes = Counter()
 
 
 def ssd_scan_bwd_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -1,8 +1,9 @@
 """User-facing SSD chunk scan in the model layout (port of
 ``repro.kernels.ssd_scan.ops.ssd_scan``), and its gradient.
 
-A CUDA tensor launches a hand-written kernel (``kernel.py``): the
-tensor-core kernel for bf16, the scalar one for f32.  Where an input needs
+A CUDA tensor launches the hand-written kernels ``kernel.py:fwd_route``
+names: for bf16 the three chunk-parallel wgmma passes (every SSM arch's
+shape) or the mma.sync kernel, for f32 the scalar one.  Where an input needs
 a gradient (training), the call goes through :class:`SsdScanFn`: its
 forward launches the kernel with each chunk's start state, its backward
 launches the backward kernels through :func:`ssd_scan_bwd`.  A CPU tensor

@@ -11,6 +11,10 @@
       s_t = exp(dA_t) * s_{t-1} + dt_t * B_t (x) x_t
       y_t = C_t . s_t
 
+* :func:`ssd_scan_passes_plain` -- the forward as the bf16 kernels split
+  it into three passes: every chunk's own end-state contribution at
+  once, then the scan over the chunks, then each chunk's output from the
+  state it starts from.
 * :func:`ssd_scan_bwd_plain` -- the gradient of :func:`ssd_chunked`,
   chunk by chunk, the plain version of the backward kernels (the
   reference has none: it differentiates its jnp ``ssd_chunked``).
@@ -139,6 +143,57 @@ def _chunks(t: torch.Tensor, pad: int, Q: int, wd) -> torch.Tensor:
     [B, C, Q, ...] in ``wd``."""
     t = F.pad(t.to(wd), (0, 0) * (t.dim() - 2) + (0, pad))
     return t.reshape((t.shape[0], -1, Q) + t.shape[2:])
+
+
+def ssd_scan_passes_plain(xh: torch.Tensor, dt: torch.Tensor,
+                          A: torch.Tensor, Bm: torch.Tensor,
+                          Cm: torch.Tensor, chunk: int,
+                          init_state: Optional[torch.Tensor] = None):
+    """The chunked SSD computed as the bf16 forward kernels split it, in
+    f32 (f64 for f64 inputs), same layout as :func:`ssd_chunked`.  With
+    cum the inclusive cumsum of dt * A in each chunk and w_j =
+    exp(cum_last - cum_j) dt_j:
+
+      1. every chunk's own end-state contribution and decay, all chunks
+         at once:  Delta_c = (x o w)^T B  [B, C, H, P, N],
+         decay_c = exp(cum_last,c);
+      2. the scan over the chunks: S_0 = init_state (zeros when None),
+         S_c+1 = decay_c S_c + Delta_c;
+      3. each chunk's output from the state it starts from:
+         y_i = sum_j<=i (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
+               + exp(cum_i) C_i S_c^T.
+
+    Returns ``(y [B,S,H,P], final [B,H,P,N], states [B,C,H,P,N])``, the
+    last each chunk's start state (what ``ssd_scan_kernel(...,
+    with_states=True)`` writes)."""
+    B, S, H, P = xh.shape
+    Q = chunk
+    pad = (-S) % Q
+    wd = torch.promote_types(torch.float32, xh.dtype)
+    x = _chunks(xh, pad, Q, wd).permute(0, 1, 3, 2, 4)     # [B,C,H,Q,P]
+    d = _chunks(dt, pad, Q, wd).permute(0, 1, 3, 2)        # [B,C,H,Q]
+    Bc, Cc = _chunks(Bm, pad, Q, wd), _chunks(Cm, pad, Q, wd)  # [B,C,Q,N]
+    cum = torch.cumsum(d * A.to(wd)[:, None], dim=-1)
+    w = torch.exp(cum[..., -1:] - cum) * d
+    # 1. the chunks' own contributions and decays
+    delta = torch.einsum("bchqp,bcqn->bchpn", x * w[..., None], Bc)
+    decay = torch.exp(cum[..., -1])                        # [B,C,H]
+    # 2. the scan
+    s = torch.zeros(delta.shape[:1] + delta.shape[2:], dtype=wd,
+                    device=xh.device) if init_state is None \
+        else init_state.to(wd)
+    before = []
+    for c in range(delta.shape[1]):
+        before.append(s)
+        s = decay[:, c, :, None, None] * s + delta[:, c]
+    states = torch.stack(before, dim=1)                    # [B,C,H,P,N]
+    # 3. each chunk's output
+    scores = (Cc @ Bc.transpose(-1, -2))[:, :, None] * _segsum_exp(cum) \
+        * d[..., None, :]                                  # [B,C,H,Q,Q]
+    y = scores @ x + torch.exp(cum)[..., None] * torch.einsum(
+        "bcqn,bchpn->bchqp", Cc, states)
+    y = y.permute(0, 1, 3, 2, 4).reshape(B, -1, H, P)[:, :S]
+    return y, s, states
 
 
 def ssd_scan_bwd_plain(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

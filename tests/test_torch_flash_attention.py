@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as tkernel
 from repro_torch.kernels.flash_attention.ops import (
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_lse_plain, flash_attention_plain)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
@@ -204,6 +204,53 @@ def test_bwd_route_and_shared_memory_at_every_head_dim():
         sorted(padded[p] for p in padded)
 
 
+def test_fwd_route_for_every_arch_head_dim():
+    """The forward takes the backward's rule: bf16 at every arch's head
+    dim (d = 128, zamba2-7b's 112, whisper-medium's 64) runs the wgmma
+    forward, f32 the scalar kernel, and the wgmma forward takes exactly
+    the d that are multiples of 8 from 64 to 128 (the mma.sync kernel
+    every other bf16 d); a d or dtype no kernel takes raises."""
+    dims = _attention_head_dims()
+    assert {a: tkernel.fwd_route(d, torch.bfloat16)
+            for a, d in dims.items()} == {a: "wgmma" for a in dims}
+    assert {tkernel.fwd_route(d, torch.float32) for d in dims.values()} == \
+        {"scalar"}
+    for d in range(1, tkernel.MAX_HEAD_DIM + 1):
+        for dtype in (torch.bfloat16, torch.float32):
+            assert tkernel.fwd_route(d, dtype) == tkernel.bwd_route(d, dtype)
+    assert [d for d in range(1, tkernel.MAX_HEAD_DIM + 1)
+            if tkernel.fwd_route(d, torch.bfloat16) == "wgmma"] == \
+        list(range(64, 129, 8))
+    for d, dtype in ((0, torch.bfloat16), (129, torch.float32),
+                     (64, torch.float16)):
+        with pytest.raises(ValueError):
+            tkernel.fwd_route(d, dtype)
+
+
+def test_fwd_kernels_fit_shared_memory_at_every_head_dim():
+    """At every d from 1 to 128 the forward's block fits the card's
+    232,448 bytes on the rule's route and, for bf16, on the mma.sync
+    route a test or a timing may name: the wgmma forward holds Q of 128
+    rows and a ring of four stages of K and V, 164,936 bytes at d = 128
+    and at zamba2-7b's d = 112 (128-column tiles), 83,016 at d = 64, one
+    block an SM; the mma.sync kernel's two stages take 61,440 bytes at
+    d = 112 (rows padded by 8) and 65,536 at d = 128."""
+    for d in range(1, tkernel.MAX_HEAD_DIM + 1):
+        for dtype in (torch.bfloat16, torch.float32):
+            assert 0 < tkernel.fwd_smem_bytes(d, dtype) <= \
+                tkernel.SMEM_LIMIT, (d, dtype)
+        assert tkernel.fwd_smem_bytes(d, torch.bfloat16, "mma_sync") <= \
+            tkernel.SMEM_LIMIT
+    wg = {d: tkernel.fwd_smem_bytes(d, torch.bfloat16) for d in (64, 112,
+                                                                 128)}
+    assert wg == {64: 83_016, 112: 164_936, 128: 164_936}
+    assert tkernel.wgmma_tile_cols(112) == 128
+    assert (tkernel.fwd_smem_bytes(112, torch.bfloat16, "mma_sync"),
+            tkernel.fwd_smem_bytes(128, torch.bfloat16, "mma_sync")) == \
+        (61_440, 65_536)
+    assert tkernel.fwd_smem_bytes(128, torch.float32) == 115_712
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -213,10 +260,28 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _forward(q, k, v, route, **mask):
+    """The forward through the wrapper (route None: the rule's, counted
+    as a launch), or through the binding on a named bf16 route."""
+    if route is None or q.dtype == torch.float32:
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, **mask)
+        assert flash_attention.launches == before + 1
+        return out
+    return tkernel.flash_attention_kernel(q, k, v, route=route, **mask)
+
+
+# the bf16 forward's two kernels: the rule's (flash_fwd_wg at d % 8 == 0
+# from 64 to 128, flash_fwd_tc elsewhere) and flash_fwd_tc by name
+FWD_ROUTES = [None, "mma_sync"]
+
+
 @pytest.mark.gpu
-def test_kernel_matches_plain_version_on_card(cuda_device):
-    """The Hopper kernel against attention_ref on the card: the sweep in
-    f32 (2e-5), ragged lengths and windows, and bf16 (2e-2)."""
+@pytest.mark.parametrize("route", FWD_ROUTES, ids=["rule", "mma_sync"])
+def test_kernel_matches_plain_version_on_card(cuda_device, route):
+    """The Hopper kernels against attention_ref on the card: the sweep in
+    f32 (2e-5), ragged lengths and windows, and bf16 (2e-2) on each bf16
+    route."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     cases = [(1, 128, 128, 2, 2, 64, True, 0), (2, 256, 256, 4, 2, 64,
                                                 False, 0),
@@ -232,10 +297,8 @@ def test_kernel_matches_plain_version_on_card(cuda_device):
             k = torch.randn((B, Sk, K, dh), generator=g, device=cuda_device)
             v = torch.randn((B, Sk, K, dh), generator=g, device=cuda_device)
             q, k, v = (t.to(dtype) for t in (q, k, v))
-            before = flash_attention.launches
-            out = flash_attention(q, k, v, causal=causal, window=window)
+            out = _forward(q, k, v, route, causal=causal, window=window)
             torch.cuda.synchronize()
-            assert flash_attention.launches == before + 1
             ref = flash_attention_plain(q.float(), k.float(), v.float(),
                                         causal=causal, window=window)
             torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
@@ -243,18 +306,58 @@ def test_kernel_matches_plain_version_on_card(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("S", [512, 500])
-def test_bf16_tensor_core_kernel_at_the_serve_shape(cuda_device, S):
-    """The bf16 tensor-core kernel at the zamba2-7b prefill shape (B = 4,
-    H = K = 32, d = 112, causal), ragged at S = 500, against the plain
-    version in f32 on the same values: 2e-2 abs + rel."""
+@pytest.mark.parametrize("route", FWD_ROUTES, ids=["rule", "mma_sync"])
+def test_bf16_tensor_core_kernel_at_the_serve_shape(cuda_device, S, route):
+    """Each bf16 kernel at the zamba2-7b prefill shape (B = 4, H = K =
+    32, d = 112, causal), ragged at S = 500, against the plain version in
+    f32 on the same values: 2e-2 abs + rel."""
     g = torch.Generator(device=cuda_device).manual_seed(S)
     q, k, v = (torch.randn((4, S, 32, 112), generator=g, device=cuda_device)
                .to(torch.bfloat16) for _ in range(3))
-    out = flash_attention(q, k, v, causal=True)
+    out = _forward(q, k, v, route, causal=True)
     torch.cuda.synchronize()
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     ref = flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,K,dh,causal,window", [
+    (1, 200, 200, 4, 4, 112, True, 0),      # d = 112: columns 112-127
+    (2, 100, 77, 4, 2, 112, True, 0),       # ragged Sk, causal
+    (2, 300, 1500, 4, 4, 64, False, 0),     # whisper's cross: Sk ragged
+    (1, 48, 16, 2, 2, 64, False, 8),        # rows with no visible key
+    (2, 6, 6, 28, 4, 128, True, 0),         # the load engine point
+    (1, 2048, 2048, 8, 4, 128, True, 1024)])  # gemma3's window
+def test_wgmma_forward_edge_cases_on_card(cuda_device, B, Sq, Sk, H, K,
+                                          dh, causal, window):
+    """The wgmma forward (the rule's route at these head dims) where its
+    tiles meet an edge: its o within 2e-2 of the plain version, its lse
+    within 1e-4 of the plain log-sum-exp and +inf exactly where a row
+    sees no key (whose o is 0), o's bits the same with and without lse
+    and from call to call, and the next head's columns of o untouched at
+    d = 112."""
+    assert tkernel.fwd_route(dh, torch.bfloat16) == "wgmma"
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + Sk)
+    q = torch.randn((B, Sq, H, dh), generator=g, device=cuda_device)
+    k = torch.randn((B, Sk, K, dh), generator=g, device=cuda_device)
+    v = torch.randn((B, Sk, K, dh), generator=g, device=cuda_device)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    mask = dict(causal=causal, window=window)
+    before = tkernel.flash_attention_kernel.routes["wgmma"]
+    o, lse = tkernel.flash_attention_kernel(q, k, v, with_lse=True, **mask)
+    o2 = tkernel.flash_attention_kernel(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert tkernel.flash_attention_kernel.routes["wgmma"] == before + 2
+    assert torch.equal(o, o2)
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), **mask)
+    torch.testing.assert_close(o.float(), ref, atol=2e-2, rtol=2e-2)
+    want = flash_attention_lse_plain(q.float(), k.float(), **mask)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert bool((lse[~fin] == float("inf")).all())
+    assert bool((o.float().transpose(1, 2)[~fin] == 0).all())
+    torch.testing.assert_close(lse[fin], want[fin], atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu

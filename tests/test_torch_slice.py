@@ -706,3 +706,72 @@ def test_the_build_phase_holds_the_ssd_backward_to_hgmma_and_no_spill():
         chip_smoke.check_ssd_bwd_build(rows(hgmma_instr=0))
     with pytest.raises(AssertionError, match="spills"):
         chip_smoke.check_ssd_bwd_build(rows(spill_bytes=116))
+
+
+def test_the_build_phase_holds_the_wgmma_forwards_to_hgmma_and_no_spill():
+    """The forward kernels on wgmma -- ``flash_fwd_wg`` at both tile
+    widths, the SSD forward's state and chunk passes at one and two
+    64-column boxes of N -- are held as the backward's are: present, with
+    HGMMA, without a spill, whatever the other functions do."""
+    names = {"flash_attention": ["flash_fwd_wg<64>", "flash_fwd_wg<128>"],
+             "ssd_scan": ["ssd_fwd_state_wg<1>", "ssd_fwd_state_wg<2>",
+                          "ssd_fwd_chunk_wg<1>", "ssd_fwd_chunk_wg<2>"]}
+    assert sorted(chip_smoke.WGMMA_FWD_FUNCTIONS) == \
+        sorted(names["flash_attention"])
+    assert sorted(chip_smoke.SSD_FWD_FUNCTIONS) == sorted(names["ssd_scan"])
+    for source, want in names.items():
+        def rows(**bad):
+            return [{"kernel": n, "registers": 168, "spill_bytes": 0,
+                     "tensor_core_instr": 12, "hgmma_instr": 12,
+                     **(bad if n == want[-1] else {})}
+                    for n in want] + [{"kernel": "ssd_fwd_state_scan<2>",
+                                       "registers": 22, "spill_bytes": 8,
+                                       "tensor_core_instr": 0,
+                                       "hgmma_instr": 0}]
+        got = chip_smoke.check_hgmma_build(rows(), tuple(want), source)
+        assert set(got) == set(want)
+        with pytest.raises(AssertionError, match=f"{source} lacks"):
+            chip_smoke.check_hgmma_build(rows()[1:], tuple(want), source)
+        with pytest.raises(AssertionError, match="no HGMMA"):
+            chip_smoke.check_hgmma_build(rows(hgmma_instr=0), tuple(want),
+                                         source)
+        with pytest.raises(AssertionError, match="spills"):
+            chip_smoke.check_hgmma_build(rows(spill_bytes=4), tuple(want),
+                                         source)
+
+
+def test_every_main_path_forward_shape_takes_the_wgmma_route():
+    """At full size every bf16 attention shape the model, families, load
+    and train phases launch (d = 64, 112, 128) takes ``flash_fwd_wg`` and
+    every bf16 scan shape (P = 64, N = 64 or 128, chunk 128) the three
+    wgmma passes, which is what the card run's route counts must show;
+    ``check_routes`` fails a run where a launch took another route."""
+    full = chip_smoke.FULL
+    flash = [(B, S, S, H, K, d) for B, H, K, d in
+             chip_smoke.FLASH_SHAPES.values() for S in full.check_lens]
+    flash += list(chip_smoke.family_flash_shapes(full).values())
+    B, S, H, K, d = chip_smoke.engine_flash_shape(full)
+    flash.append((B, S, S, H, K, d))
+    flash += [chip_smoke.train_shape(full, a) for a in (
+        chip_smoke.TRAIN_ARCH, "zamba2-7b", chip_smoke.MOE_TRAIN_ARCH)]
+    assert {chip_smoke.fa_kernel.fwd_route(s[5], torch.bfloat16)
+            for s in flash} == {"wgmma"}
+    assert {s[5] for s in flash} == {64, 112, 128}
+    ssd = [chip_smoke.ssd_shape(full, a) for a in chip_smoke.SSD_ARCHS]
+    ssd += [chip_smoke.ssd_train_shape(full, a)[2:]
+            for a in chip_smoke.SSM_TRAIN_ARCHS]
+    for shape in ssd:
+        *_, P, N, Q = shape
+        assert chip_smoke.ssd_kernel.fwd_route(P, N, Q, torch.bfloat16) == \
+            "wgmma", shape
+    chip_smoke.check_routes("run", {"flash_attention": {"wgmma": 3},
+                                    "ssd_scan": {}},
+                            {"flash_attention": 3, "ssd_scan": 0})
+    for routes in ({"wgmma": 2, "mma_sync": 1}, {"wgmma": 2}, {}):
+        with pytest.raises(AssertionError, match="wgmma route"):
+            chip_smoke.check_routes("run", {"flash_attention": routes,
+                                            "ssd_scan": {}},
+                                    {"flash_attention": 3})
+    chip_smoke.reset_launches()
+    assert chip_smoke.route_launches() == {"flash_attention": {},
+                                           "ssd_scan": {}}

@@ -21,7 +21,8 @@ from repro_torch.kernels.ssd_scan import kernel as tkernel
 from repro_torch.kernels.ssd_scan.ops import SsdScanFn, ssd_scan, ssd_scan_bwd
 from repro_torch.kernels.ssd_scan.ref import (ssd_bwd_states_plain,
                                               ssd_chunked, ssd_ref,
-                                              ssd_scan_bwd_plain)
+                                              ssd_scan_bwd_plain,
+                                              ssd_scan_passes_plain)
 
 
 @pytest.fixture(scope="module")
@@ -159,6 +160,87 @@ def test_bf16_plain_version_matches_jax(jx):
                                rtol=5e-2)
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk,with_init", [
+    (1, 64, 2, 16, 8, 16, False),
+    (2, 80, 3, 16, 16, 32, True),       # a ragged last chunk
+    (1, 72, 2, 64, 128, 32, True),      # mamba2-370m's P and N
+])
+def test_three_pass_plain_matches_jax_and_the_chunked_form(
+        jx, B, S, H, P, N, chunk, with_init):
+    """The forward as the bf16 kernels split it (each chunk's own state
+    contribution, the scan, each chunk's output) against the reference's
+    ``ssd_chunked`` and its Pallas kernel in interpret mode (1e-4, f32);
+    its chunk start states are the final states of ``ssd_chunked`` run
+    on each prefix of whole chunks (the first the init_state), and its
+    final state the whole run's."""
+    xh, dt, A, Bm, Cm = ins = _inputs(12 + S, B, S, H, P, N)
+    init = np.random.default_rng(S).standard_normal(
+        (B, H, P, N)).astype(np.float32) * 0.5 if with_init else None
+    j = [jx.jnp.asarray(a) for a in ins]
+    jy, jfinal = jx.chunked(*j, chunk, init_state=None if init is None
+                            else jx.jnp.asarray(init))
+    tinit = None if init is None else torch.as_tensor(init)
+    y, final, states = ssd_scan_passes_plain(*_t(*ins), chunk,
+                                             init_state=tinit)
+    n_chunks = -(-S // chunk)
+    assert y.shape == (B, S, H, P) and final.shape == (B, H, P, N)
+    assert states.shape == (B, n_chunks, H, P, N)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(final.numpy(), np.asarray(jfinal),
+                               atol=1e-4, rtol=1e-4)
+    if init is None:
+        pallas = np.asarray(jx.scan(*j, chunk=chunk, impl="pallas",
+                                    interpret=True))
+        np.testing.assert_allclose(y.numpy(), pallas, atol=1e-4, rtol=1e-4)
+    t = _t(*ins)
+    for c in range(n_chunks):
+        want = torch.zeros((B, H, P, N)) if init is None else tinit
+        if c:
+            want = ssd_chunked(t[0][:, :c * chunk], t[1][:, :c * chunk],
+                               t[2], t[3][:, :c * chunk],
+                               t[4][:, :c * chunk], chunk,
+                               init_state=tinit)[1]
+        torch.testing.assert_close(states[:, c], want.float(), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_forward_route_and_shared_memory_at_every_ssm_shape():
+    """bf16 at every SSM arch's scan (zamba2-7b: P = N = 64; mamba2-370m:
+    P = 64, N = 128; chunk 128) takes the three wgmma passes, whose
+    blocks fit the card: the state pass 52,224 / 35,840 bytes (N = 128 /
+    64: the backward's delta pass's layout), the chunk pass 166,952 /
+    101,416 (B and C, two stages of a head's x and split start state),
+    the split state 32,768 / 16,384 bytes a (batch, chunk, head).  P
+    above 64 or chunks above 128 take ``ssd_scan_tc`` (the mma.sync
+    route), f32 the scalar kernel; each route's block fits at these
+    shapes."""
+    from repro_torch.configs.registry import ARCHS
+    for c in ARCHS.values():
+        if c.ssm_state:
+            assert tkernel.fwd_route(c.ssm_head_dim, c.ssm_state,
+                                     c.ssm_chunk, torch.bfloat16) == "wgmma"
+    assert tkernel.fwd_wg_smem_bytes(128) == (52_224, 166_952)
+    assert tkernel.fwd_wg_smem_bytes(64) == (35_840, 101_416)
+    assert tkernel.fwd_wg_smem_bytes(8) == tkernel.fwd_wg_smem_bytes(64)
+    assert (tkernel.fwd_split_state_bytes(128),
+            tkernel.fwd_split_state_bytes(64)) == (32_768, 16_384)
+    assert tkernel.fwd_wg_smem_bytes(128)[0] == \
+        tkernel.delta_wg_smem_bytes(128)
+    for P, N, Q, route in ((64, 128, 128, "wgmma"), (7, 20, 40, "wgmma"),
+                           (80, 16, 32, "mma_sync"),
+                           (64, 64, 256, "mma_sync"),
+                           (65, 128, 128, "mma_sync")):
+        assert tkernel.fwd_route(P, N, Q, torch.bfloat16) == route
+        assert tkernel.fwd_route(P, N, Q, torch.float32) == "scalar"
+        assert tkernel.fwd_smem_bytes(Q, P, N, torch.bfloat16) <= \
+            tkernel.SMEM_LIMIT
+        assert tkernel.fwd_smem_bytes(Q, P, N, torch.bfloat16, "mma_sync") \
+            == tkernel.tc_smem_bytes(Q, P, N)
+    with pytest.raises(ValueError):
+        tkernel.fwd_route(64, 64, 128, torch.float16)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     """Input checks run before the library is built or loaded."""
     xh, dt, A, Bm, Cm = _t(*_inputs(4, 1, 16, 2, 8, 4))
@@ -182,11 +264,28 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _scan(xh, dt, A, Bm, Cm, route, **kw):
+    """The forward through the wrapper (route None: the rule's, counted
+    as a launch), or through the binding on a named bf16 route."""
+    if route is None or xh.dtype == torch.float32:
+        before = ssd_scan.launches
+        out = ssd_scan(xh, dt, A, Bm, Cm, **kw)
+        assert ssd_scan.launches == before + 1
+        return out
+    return tkernel.ssd_scan_kernel(xh, dt, A, Bm, Cm, route=route, **kw)
+
+
+# the bf16 forward's two routes: the rule's (the wgmma passes at P <= 64,
+# N <= 128, chunk <= 128; ssd_scan_tc elsewhere) and ssd_scan_tc by name
+FWD_ROUTES = [None, "mma_sync"]
+
+
 @pytest.mark.gpu
-def test_kernel_matches_plain_versions_on_card(cuda_device):
-    """y and the final state of the Hopper kernel against ssd_chunked on
-    the card: f32 at 1e-4, bf16 at 5e-2, with ragged last chunks and a
-    carried-in state."""
+@pytest.mark.parametrize("route", FWD_ROUTES, ids=["rule", "mma_sync"])
+def test_kernel_matches_plain_versions_on_card(cuda_device, route):
+    """y and the final state of the Hopper kernels against ssd_chunked on
+    the card: f32 at 1e-4, bf16 at 5e-2 on each bf16 route, with ragged
+    last chunks and a carried-in state."""
     for (B, S, H, P, N, chunk) in [(1, 64, 2, 16, 8, 16),
                                    (2, 80, 2, 16, 16, 32),
                                    (2, 300, 4, 64, 64, 128),
@@ -197,11 +296,9 @@ def test_kernel_matches_plain_versions_on_card(cuda_device):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
             xh, dt, A, Bm, Cm = ins
             xh, Bm, Cm = (t.to(dtype) for t in (xh, Bm, Cm))
-            before = ssd_scan.launches
-            y, final = ssd_scan(xh, dt, A, Bm, Cm, chunk=chunk,
-                                init_state=init)
+            y, final = _scan(xh, dt, A, Bm, Cm, route, chunk=chunk,
+                             init_state=init)
             torch.cuda.synchronize()
-            assert ssd_scan.launches == before + 1
             assert y.dtype == dtype and final.dtype == torch.float32
             # the plain version in f32 on the same values: its bf16 form
             # rounds scores and state to bf16 where the kernel keeps f32
@@ -209,6 +306,48 @@ def test_kernel_matches_plain_versions_on_card(cuda_device):
                                  chunk, init_state=init)
             torch.testing.assert_close(y.float(), ry, atol=tol, rtol=tol)
             torch.testing.assert_close(final, rf, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk,strided,with_init", [
+    (2, 4096 // 8, 8, 64, 128, 128, True, False),   # mamba2's P, N; TMA
+    (1, 500, 7, 64, 64, 128, True, True),           # zamba2's; ragged S
+    (2, 200, 4, 64, 128, 64, True, True),           # cp.async: chunk 64
+    (2, 100, 3, 32, 24, 40, False, True),           # chunk 40, N 24
+    (1, 64, 2, 16, 8, 16, False, False)])           # chunk 16
+def test_wgmma_forward_writes_the_chunk_states_on_card(
+        cuda_device, B, S, H, P, N, chunk, strided, with_init):
+    """The three wgmma passes (the rule's route at these shapes) against
+    the three-pass plain version in f32 on the same values: y within
+    5e-2, each chunk's start state (``with_states``) and the final state
+    within 1e-3 of their magnitude's scale; y and the final state the
+    same bits with and without the chunk states and from call to call;
+    strided xBC slices read in place."""
+    assert tkernel.fwd_route(P, N, chunk, torch.bfloat16) == "wgmma"
+    xh, dt, A, Bm, Cm = (torch.as_tensor(a, device=cuda_device)
+                         for a in _inputs(S + N, B, S, H, P, N))
+    xh, Bm, Cm = (t.to(torch.bfloat16) for t in (xh, Bm, Cm))
+    if strided:
+        xbc = torch.cat([xh.reshape(B, S, H * P), Bm, Cm], -1)
+        xh = xbc[..., :H * P].reshape(B, S, H, P)
+        Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    init = torch.randn((B, H, P, N), device=cuda_device) * 0.5 \
+        if with_init else None
+    before = tkernel.ssd_scan_kernel.routes["wgmma"]
+    y, final, states = tkernel.ssd_scan_kernel(
+        xh, dt, A, Bm, Cm, chunk=chunk, init_state=init, with_states=True)
+    y2, final2 = tkernel.ssd_scan_kernel(xh, dt, A, Bm, Cm, chunk=chunk,
+                                         init_state=init)
+    torch.cuda.synchronize()
+    assert tkernel.ssd_scan_kernel.routes["wgmma"] == before + 2
+    assert torch.equal(y, y2) and torch.equal(final, final2)
+    ry, rf, rs = ssd_scan_passes_plain(xh.float(), dt, A, Bm.float(),
+                                       Cm.float(), chunk, init_state=init)
+    torch.testing.assert_close(y.float(), ry, atol=5e-2, rtol=5e-2)
+    for got, want in ((final, rf), (states, rs)):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= \
+            1e-3 * max(float(want.abs().max()), 1)
 
 
 def test_strided_inputs_give_their_contiguous_result():

@@ -2,22 +2,28 @@
 against the f32 plain versions at the tolerances the card's checks use.
 
 The bf16 paths of ``flash_attention`` and ``ssd_scan`` multiply bf16
-operands with f32 accumulation (``mma.sync`` m16n8k16).  Besides the bf16
+operands with f32 accumulation (``wgmma`` m64nNk16 on the routes every
+arch takes, ``mma.sync`` m16n8k16 on the others).  Besides the bf16
 inputs and output, each rounds its intermediates at fixed points:
 
 * attention: the probabilities P of each 64-key tile, rounded to bf16
-  before ``P V`` (the running max, sum and accumulator stay f32);
+  before ``P V`` (the running max, sum and accumulator stay f32), on both
+  forward routes (``flash_fwd_wg``: 128 query rows a block, two
+  warpgroups of 64; ``flash_fwd_tc``: 64 rows; the same 64-key tiles);
 * the attention backward (the wgmma pair at d = 64 and 128): P and dS
   from f32 scores, the f32 ``lse`` and ``D``, each rounded to bf16 as
   the A operand of dV += P^T dO, dK += dS^T Q (128-key by 64-query tiles)
   and dQ += dS K (64-key tiles), the sums in f32 in the kernels' tile
   order;
-* SSD: the chunk's ``scores``, the state-update operand ``B o w`` and
-  the carried state as the operand of ``C S^T``, each split into a bf16
-  high part plus a bf16 low part (two products); the state itself is
-  carried in f32.  One bf16 each is not enough: at the serve shape
-  (B = 4, H = 112) the card measured 0.283 on y where the intra- and
-  inter-chunk terms cancel, beyond 5e-2 abs + rel;
+* SSD: the chunk's ``scores``, the state-update operand (``x o w`` in
+  the wgmma passes' state pass, ``B o w`` in ``ssd_scan_tc``: the same
+  product x^T diag(w) B) and the carried state as the operand of
+  ``C S^T``, each split into a bf16 high part plus a bf16 low part (two
+  products); the state itself is carried in f32 (the wgmma passes scan
+  S_c+1 = exp(cum_last) S_c + Delta_c in f32 between their products).
+  One bf16 each is not enough: at the serve shape (B = 4, H = 112) the
+  card measured 0.283 on y where the intra- and inter-chunk terms
+  cancel, beyond 5e-2 abs + rel;
 * the SSD backward (its wgmma passes): dy o exp(cum) in each chunk's
   own state gradient, S_prev and dS as the state scan writes them for
   the chunk pass, scores^T, and dG summed over a block's group of heads
@@ -86,13 +92,15 @@ def attention_tc_model(q, k, v, *, causal=True, tile=64):
 
 
 def ssd_tc_model(xh, dt, A, Bm, Cm, chunk, init_state=None,
-                 rnd=_split):
-    """The bf16 kernel's arithmetic: xh [B,S,H,P] and Bm/Cm [B,S,N] bf16,
+                 rnd=_split, route="wgmma"):
+    """The bf16 kernels' arithmetic: xh [B,S,H,P] and Bm/Cm [B,S,N] bf16,
     dt [B,S,H] and A [H] f32.  Per chunk: G = C B^T in f32; scores =
     G o exp(cum_i - cum_j) o dt_j (j <= i) through ``rnd``; y = scores x
-    + exp(cum_i) (C rnd(S)^T); S <- exp(cum_last) S + x^T rnd(B o w).
-    ``rnd`` is the kernel's hi/lo split; ``_bf16`` models one rounding.
-    Returns (y in bf16, final state in f32)."""
+    + exp(cum_i) (C rnd(S)^T); S <- exp(cum_last) S + Delta, Delta =
+    rnd(x o w)^T B (``route="wgmma"``: the state pass) or x^T rnd(B o w)
+    (``"mma_sync"``: ``ssd_scan_tc``).  ``rnd`` is the kernels' hi/lo
+    split; ``_bf16`` models one rounding.  Returns (y in bf16, final
+    state in f32)."""
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
     x, b, c = xh.float(), Bm.float(), Cm.float()
@@ -114,9 +122,13 @@ def ssd_tc_model(xh, dt, A, Bm, Cm, chunk, init_state=None,
         y = y + torch.exp(cum)[..., None] * torch.einsum(
             "bin,bhpn->bhip", cc, rnd(st))
         w = torch.exp(cum[..., -1:] - cum) * dtc               # [B,H,Q]
-        bw = rnd(bc[:, None] * w[..., None])                   # [B,H,Q,N]
-        st = torch.exp(cum[..., -1])[..., None, None] * st + \
-            torch.einsum("bhjp,bhjn->bhpn", xc, bw)
+        if route == "wgmma":
+            delta = torch.einsum("bhjp,bjn->bhpn", rnd(xc * w[..., None]),
+                                 bc)
+        else:
+            delta = torch.einsum("bhjp,bhjn->bhpn", xc,
+                                 rnd(bc[:, None] * w[..., None]))
+        st = torch.exp(cum[..., -1])[..., None, None] * st + delta
         ys.append(y.transpose(1, 2))
     return torch.cat(ys, dim=1).to(BF16), st
 
@@ -280,6 +292,26 @@ def test_ssd_bf16_roundings_fit_the_tolerance(S):
                       / (tol + tol * want.abs())).max())
     assert 3 * used(y, cy) < used(y1, cy)
     assert 100 * used(final, cfin) < used(final1, cfin)
+
+
+@pytest.mark.parametrize("S", [512, 500])
+def test_ssd_mma_sync_bf16_roundings_fit_the_tolerance(S):
+    """``ssd_scan_tc``'s split (B o w where the wgmma passes split x o w)
+    at the serve SSD shape, B = 1, H = 4, with a carried-in f32 state: y
+    and the final state within 5e-2 abs + rel of ``ssd_chunked`` in f32,
+    and within a small part of the tolerance of the wgmma passes' model
+    (the two splits round the same product)."""
+    B, H, P, N, Q = 1, 4, 64, 64, 128
+    xh, dt, A, Bm, Cm, init = _ssd_inputs(S + 7, B, S, H, P, N)
+    y, final = ssd_tc_model(xh, dt, A, Bm, Cm, Q, init_state=init,
+                            route="mma_sync")
+    cy, cfin = ssd_chunked(xh.float(), dt, A, Bm.float(), Cm.float(), Q,
+                           init_state=init)
+    _close(y, cy, 5e-2)
+    _close(final, cfin, 5e-2)
+    wy, wfin = ssd_tc_model(xh, dt, A, Bm, Cm, Q, init_state=init)
+    _close(final, wfin, 1e-4)
+    _close(y, wy, 1e-2)
 
 
 def ssd_bwd_tc_model(xh, dt, A, Bm, Cm, dy, chunk, group, rnd=_split):

@@ -8,7 +8,9 @@ on one card, at zamba2-7b's scan shape and at mamba2-370m's.
     python3 tools/ssd_f32_turns.py build/chip_scripts/ssd_scan_base.cu
 
 Both sources are built by ``kernels/_build.py`` and called through their
-C entry point ``ssd_scan_launch`` (the same signature in both) on the
+C entry point ``ssd_scan_launch`` (with the arguments of the source's
+own signature: 8 pointers before the chunk-state output, 9 with it, 11
+and two more ints with the forward's route and scratch) on the
 same buffers: B = 4, S = 512, chunk 128, a zero f32 initial state, as a
 prefill into a cache passes it.  Base and this checkout's kernel are
 timed in turns (base, this, this, base) with CUDA events.  Where the base
@@ -43,26 +45,37 @@ B, S, Q = 4, 512, 128
 
 
 def library(source: Path) -> ctypes.CDLL:
+    """``source``'s library, with the number of pointers and leading ints
+    its ``ssd_scan_launch`` takes (``lib.signature``): the forward's
+    route and scratch (``ssd_scan_fwd_route`` exported) 11 and 3, the
+    chunk-state output (a backward exported) 9 and 1, else 8 and 1."""
     (so, _), = _build.build_all([source])
     lib = ctypes.CDLL(str(so))
-    lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 8 + \
-        [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+    lib.signature = (11, 3) if hasattr(lib, "ssd_scan_fwd_route") else \
+        (9, 1) if hasattr(lib, "ssd_scan_bwd_launch") else (8, 1)
+    ptrs, ints = lib.signature
+    lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * ptrs + \
+        [ctypes.c_int] * (ints + 6) + [ctypes.c_longlong] * 6 + \
+        [ctypes.c_void_p]
     lib.ssd_scan_launch.restype = ctypes.c_int
     return lib
 
 
 def launcher(lib, xh, dt, A, Bm, Cm, init, y, final):
-    """A call of ``lib``'s f32 kernel on these buffers; returns its CUDA
-    error code (0 when it launched)."""
+    """A call of ``lib``'s f32 kernel on these buffers (no chunk states:
+    null pointers; dtype 0, the rule's route, no states); returns its
+    CUDA error code (0 when it launched)."""
     H, P = xh.shape[2], xh.shape[3]
     N = Bm.shape[-1]
     strides = ssd_kernel.token_strides(xh, Bm, Cm)
+    ptrs, ints = lib.signature
+    lead = (0, -1, 0)[:ints]
 
     def call() -> int:
         return lib.ssd_scan_launch(
             xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), init.data_ptr(), y.data_ptr(), final.data_ptr(),
-            0, B, S, H, P, N, Q, *strides,
+            *(None,) * (ptrs - 8), *lead, B, S, H, P, N, Q, *strides,
             torch.cuda.current_stream().cuda_stream)
     return call
 
