@@ -7,10 +7,14 @@ into ``build/repro_torch_kernels/`` at the root of the checkout, and loaded
 with ctypes.  The library's name carries a hash of the source, the shared
 headers and the flags, so an edited source or header is rebuilt and an
 unchanged one is loaded as it is.  Nothing is compiled or loaded when this
-module is imported.
+module is imported.  Each build counts in ``kernel_builds_total{source}``
+and each load in ``kernel_loads_total{source}`` on the process-wide
+registry, and the builds that one call waits for are a ``kernel_build``
+span (meta ``sources``) on the process-wide tracer.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,6 +24,9 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
+from ..obs.metrics import get_registry
+from ..obs.spans import get_tracer
+
 ROOT = Path(__file__).resolve().parents[3]          # the checkout
 BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
 INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"   # shared headers
@@ -27,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
+_NOTHING = contextlib.nullcontext()
 
 
 def _nvcc() -> str:
@@ -70,19 +78,24 @@ def build_all(sources: Sequence[Path]) -> List[Tuple[Path, str]]:
              str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((so, report, tmp, proc, src))
+    built = [Path(src).name for *_, proc, src in jobs if proc is not None]
     failed = []
-    for so, report, tmp, proc, src in jobs:
-        if proc is None:
-            continue
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc {src} failed with code {proc.returncode}:"
-                          f"\n{out}")
-            continue
-        tmp_report = report.with_name(f".{report.name}.{os.getpid()}")
-        tmp_report.write_text(out)
-        os.replace(tmp, so)
-        os.replace(tmp_report, report)
+    with get_tracer().span("kernel_build", sources=built) if built \
+            else _NOTHING:
+        for so, report, tmp, proc, src in jobs:
+            if proc is None:
+                continue
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc {src} failed with code "
+                              f"{proc.returncode}:\n{out}")
+                continue
+            tmp_report = report.with_name(f".{report.name}.{os.getpid()}")
+            tmp_report.write_text(out)
+            os.replace(tmp, so)
+            os.replace(tmp_report, report)
+            get_registry().counter("kernel_builds_total",
+                                   source=Path(src).name).inc()
     if failed:
         raise RuntimeError("\n".join(failed))
     return [(so, report.read_text()) for so, report, *_ in jobs]
@@ -97,6 +110,8 @@ def load(source: Path) -> ctypes.CDLL:
     if lib is None:
         (so, _), = build_all([source])
         lib = _LOADED[source] = ctypes.CDLL(str(so))
+        get_registry().counter("kernel_loads_total",
+                               source=source.name).inc()
     return lib
 
 

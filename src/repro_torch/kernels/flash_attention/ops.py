@@ -15,7 +15,10 @@ shapes and adds the kernel's :func:`work` to the recording tallies
 (:mod:`repro_torch.kernels.work`).  There is no fallback from one to the
 other.  The TPU version's ``impl``, ``interpret``, ``block_q``
 and ``block_k`` have no counterpart: the Hopper kernel's tiles are fixed
-and it masks ragged sequence ends itself.
+and it masks ragged sequence ends itself.  On the CUDA path each call's
+host work is a profiler range while a profiler runs
+(``nvt.flash_attention``, ``nvt.FlashAttentionFn.forward``/``.backward``,
+``nvt.flash_attention_bwd``; :func:`repro_torch.obs.spans.profiled`).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from collections import Counter
 
 import torch
 
+from ...obs.spans import profiled
 from .. import work as _work
 from .kernel import flash_attention_bwd_kernel, flash_attention_kernel
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
@@ -92,18 +96,21 @@ class FlashAttentionFn(torch.autograd.Function):
         if q.device.type == "meta":
             o, lse = _meta_forward(q, k, v, causal, window, with_lse=True)
         else:
-            o, lse = flash_attention_kernel(q, k, v, causal=causal,
-                                            window=window, with_lse=True)
+            with profiled("FlashAttentionFn.forward"):
+                o, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                                window=window, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         causal=ctx.causal,
-                                         window=ctx.window)
+        with profiled("FlashAttentionFn.backward"):
+            q, k, v, o, lse = ctx.saved_tensors
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse,
+                                             do.contiguous(),
+                                             causal=ctx.causal,
+                                             window=ctx.window)
         return dq, dk, dv, None, None
 
 
@@ -122,16 +129,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             return FlashAttentionFn.apply(q, k, v, causal, window)
         return _meta_forward(q, k, v, causal, window, with_lse=False)[0]
     if q.is_cuda:
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
-            out = FlashAttentionFn.apply(q, k, v, causal, window)
-        else:
-            out = flash_attention_kernel(q, k, v, causal=causal,
-                                         window=window)
-        if out.numel():
-            flash_attention.launches += 1
-            flash_attention.shapes[_shape_key(q, k, causal, window)] += 1
-        return out
+        with profiled("flash_attention"):
+            if torch.is_grad_enabled() and (
+                    q.requires_grad or k.requires_grad or v.requires_grad):
+                out = FlashAttentionFn.apply(q, k, v, causal, window)
+            else:
+                out = flash_attention_kernel(q, k, v, causal=causal,
+                                             window=window)
+            if out.numel():
+                flash_attention.launches += 1
+                flash_attention.shapes[_shape_key(q, k, causal,
+                                                  window)] += 1
+            return out
     if not (q.device.type == k.device.type == v.device.type == "cpu"):
         raise ValueError("q, k and v must be on one device (CUDA for the "
                          "kernel, CPU for the plain version)")
@@ -157,8 +166,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (torch.empty_like(q), torch.empty_like(k),
                 torch.empty_like(v))
     if q.is_cuda:
-        grads = flash_attention_bwd_kernel(q, k, v, o, lse, do,
-                                           causal=causal, window=window)
+        with profiled("flash_attention_bwd"):
+            grads = flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                               causal=causal, window=window)
         if q.numel() and k.numel():
             flash_attention_bwd.launches += 1
             flash_attention_bwd.shapes[_shape_key(q, k, causal,

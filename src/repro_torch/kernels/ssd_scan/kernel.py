@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...obs.spans import profiled
 from .. import _build
 
 SOURCE = Path(__file__).parent / "csrc" / "ssd_scan.cu"
@@ -318,6 +319,47 @@ def ssd_scan_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``with_states`` the state each chunk starts from, [B, ceil(S / chunk),
     H, P, N] in f32, which the backward reads.
     ``ssd_scan_kernel.routes`` counts the launches by route."""
+    with profiled("ssd_scan.checks"):
+        B, S, H, P, N, strides, route = _fwd_checks(
+            xh, dt, A, Bm, Cm, chunk, init_state, route)
+    dev, f32 = xh.device, torch.float32
+    n_chunks = -(-S // chunk)
+    # the wgmma passes' scan runs in place over its chunk-state tensor, a
+    # scratch one where the states are not asked for
+    wg = route == "wgmma"
+    with profiled("ssd_scan.alloc"):
+        y = torch.empty((B, S, H, P), dtype=xh.dtype, device=dev)
+        final = torch.empty((B, H, P, N), dtype=f32, device=dev)
+        states = torch.empty((B, n_chunks, H, P, N), dtype=f32,
+                             device=dev) if with_states or wg else None
+        out = (y, final, states) if with_states else (y, final)
+        if B * H == 0:
+            return out
+        split = torch.empty((B, n_chunks, H, fwd_split_state_bytes(N)),
+                            dtype=torch.uint8, device=dev) if wg else None
+        decay = torch.empty((B, n_chunks, H), dtype=f32, device=dev) \
+            if wg else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with profiled("ssd_scan.launch"), torch.cuda.device(dev):
+        err = _library().ssd_scan_launch(
+            *map(ptr, (xh, dt, A, Bm, Cm, init_state, y, final, states,
+                       split, decay)),
+            _DTYPES[xh.dtype], FWD_ROUTES.index(route), int(with_states),
+            B, S, H, P, N, chunk, *strides,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
+    ssd_scan_kernel.routes[route] += 1
+    return out
+
+
+ssd_scan_kernel.routes = Counter()
+
+
+def _fwd_checks(xh, dt, A, Bm, Cm, chunk, init_state, route):
+    """The forward's arguments checked: (B, S, H, P, N, strides, route)."""
     if not isinstance(xh, torch.Tensor) or xh.dim() != 4:
         raise ValueError("xh must be a [B, S, H, P] tensor")
     B, S, H, P = xh.shape
@@ -353,40 +395,7 @@ def ssd_scan_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"bytes of shared memory, more than {SMEM_LIMIT}")
     if B * H * P >= 2**31 or B * S * H * P >= 2**62:
         raise ValueError("shape too large for the kernel's grid")
-    dev, f32 = xh.device, torch.float32
-    n_chunks = -(-S // chunk)
-    y = torch.empty((B, S, H, P), dtype=xh.dtype, device=dev)
-    final = torch.empty((B, H, P, N), dtype=f32, device=dev)
-    # the wgmma passes' scan runs in place over its chunk-state tensor, a
-    # scratch one where the states are not asked for
-    wg = route == "wgmma"
-    states = torch.empty((B, n_chunks, H, P, N), dtype=f32, device=dev) \
-        if with_states or wg else None
-    out = (y, final, states) if with_states else (y, final)
-    if B * H == 0:
-        return out
-    split = torch.empty((B, n_chunks, H, fwd_split_state_bytes(N)),
-                        dtype=torch.uint8, device=dev) if wg else None
-    decay = torch.empty((B, n_chunks, H), dtype=f32, device=dev) \
-        if wg else None
-    lib = _library()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        err = lib.ssd_scan_launch(
-            *map(ptr, (xh, dt, A, Bm, Cm, init_state, y, final, states,
-                       split, decay)),
-            _DTYPES[xh.dtype], FWD_ROUTES.index(route), int(with_states),
-            B, S, H, P, N, chunk, *strides,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed: cudaError {err}")
-    ssd_scan_kernel.routes[route] += 1
-    return out
-
-
-ssd_scan_kernel.routes = Counter()
+    return B, S, H, P, N, strides, route
 
 
 def ssd_scan_bwd_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -404,6 +413,62 @@ def ssd_scan_bwd_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     in f32 (None for zeros), both contiguous.  Returns ``(dx, ddt, dA, dB,
     dC, dinit)``: dx, dB and dC in the xh dtype, the rest f32; dinit is
     None unless ``want_dinit``."""
+    with profiled("ssd_scan_bwd.checks"):
+        B, S, H, P, N, n_chunks, strides, bf16 = _bwd_checks(
+            xh, dt, A, Bm, Cm, dy, states, chunk, dfinal)
+    dev, f32 = xh.device, torch.float32
+    with profiled("ssd_scan_bwd.alloc"):
+        dx = torch.empty((B, S, H, P), dtype=xh.dtype, device=dev)
+        ddt = torch.empty((B, S, H), dtype=f32, device=dev)
+        dA = torch.zeros((H,), dtype=f32, device=dev)
+        dB = torch.zeros((B, S, N), dtype=xh.dtype, device=dev)
+        dC = torch.zeros((B, S, N), dtype=xh.dtype, device=dev)
+        dinit = torch.empty((B, H, P, N), dtype=f32, device=dev) \
+            if want_dinit else None
+        if B * H * S == 0:
+            if dinit is not None:
+                dinit.copy_(torch.zeros_like(dinit) if dfinal is None
+                            else dfinal)
+            return dx, ddt, dA, dB, dC, dinit
+        # scratch: each chunk's state gradient (bf16: first each chunk's
+        # own part, Delta), the parts of dB and dC (f32: one a head; bf16:
+        # one a group of heads), the (batch, chunk) parts of dA; for bf16
+        # also each chunk's decay exp(cum_last), S_prev and dS split into
+        # bf16 high and low parts, the state scan's parts of sum(S_prev o
+        # dS), and the chunk pass's d cum of every row
+        groups = H // bwd_heads_per_block(B, n_chunks, H) if bf16 else H
+        dS_all = torch.empty_like(states)
+        dB_g = torch.empty((B, S, groups, N), dtype=f32, device=dev)
+        dC_g = torch.empty((B, S, groups, N), dtype=f32, device=dev)
+        dA_part = torch.empty((B, n_chunks, H), dtype=f32, device=dev)
+        decay = split = sdot = dcum = None
+        if bf16:
+            nb = 1 if N <= 64 else 2
+            decay = torch.empty((B, n_chunks, H), dtype=f32, device=dev)
+            split = torch.empty((B, n_chunks, H, split_state_bytes(N)),
+                                dtype=torch.uint8, device=dev)
+            sdot = torch.empty((B, n_chunks, H, 8 * nb), dtype=f32,
+                               device=dev)
+            dcum = torch.empty((B, S, H), dtype=f32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with profiled("ssd_scan_bwd.launch"), torch.cuda.device(dev):
+        err = _library().ssd_scan_bwd_launch(
+            *map(ptr, (xh, dt, A, Bm, Cm, dy, dfinal, states, dS_all, dB_g,
+                       dC_g, dA_part, decay, split, sdot, dcum, dx, ddt,
+                       dA, dB, dC, dinit)),
+            _DTYPES[xh.dtype], B, S, H, P, N, chunk, *strides,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward launch failed: cudaError "
+                           f"{err}")
+    return dx, ddt, dA, dB, dC, dinit
+
+
+def _bwd_checks(xh, dt, A, Bm, Cm, dy, states, chunk, dfinal):
+    """The backward's arguments checked: (B, S, H, P, N, n_chunks,
+    strides, bf16)."""
     if not isinstance(xh, torch.Tensor) or xh.dim() != 4:
         raise ValueError("xh must be a [B, S, H, P] tensor")
     B, S, H, P = xh.shape
@@ -439,50 +504,4 @@ def ssd_scan_bwd_kernel(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"than {SMEM_LIMIT}")
     if B * H * P >= 2**31 or B * S * H * max(P, N) >= 2**62:
         raise ValueError("shape too large for the kernel's grid")
-    dev, f32 = xh.device, torch.float32
-    dx = torch.empty((B, S, H, P), dtype=xh.dtype, device=dev)
-    ddt = torch.empty((B, S, H), dtype=f32, device=dev)
-    dA = torch.zeros((H,), dtype=f32, device=dev)
-    dB = torch.zeros((B, S, N), dtype=xh.dtype, device=dev)
-    dC = torch.zeros((B, S, N), dtype=xh.dtype, device=dev)
-    dinit = torch.empty((B, H, P, N), dtype=f32, device=dev) \
-        if want_dinit else None
-    if B * H * S == 0:
-        if dinit is not None:
-            dinit.copy_(torch.zeros_like(dinit) if dfinal is None
-                        else dfinal)
-        return dx, ddt, dA, dB, dC, dinit
-    # scratch: each chunk's state gradient (bf16: first each chunk's own
-    # part, Delta), the parts of dB and dC (f32: one a head; bf16: one a
-    # group of heads), the (batch, chunk) parts of dA; for bf16 also each
-    # chunk's decay exp(cum_last), S_prev and dS split into bf16 high and
-    # low parts, the state scan's parts of sum(S_prev o dS), and the
-    # chunk pass's d cum of every row
-    groups = H // bwd_heads_per_block(B, n_chunks, H) if bf16 else H
-    dS_all = torch.empty_like(states)
-    dB_g = torch.empty((B, S, groups, N), dtype=f32, device=dev)
-    dC_g = torch.empty((B, S, groups, N), dtype=f32, device=dev)
-    dA_part = torch.empty((B, n_chunks, H), dtype=f32, device=dev)
-    decay = split = sdot = dcum = None
-    if bf16:
-        nb = 1 if N <= 64 else 2
-        decay = torch.empty((B, n_chunks, H), dtype=f32, device=dev)
-        split = torch.empty((B, n_chunks, H, split_state_bytes(N)),
-                            dtype=torch.uint8, device=dev)
-        sdot = torch.empty((B, n_chunks, H, 8 * nb), dtype=f32, device=dev)
-        dcum = torch.empty((B, S, H), dtype=f32, device=dev)
-    lib = _library()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    with torch.cuda.device(dev):
-        err = lib.ssd_scan_bwd_launch(
-            *map(ptr, (xh, dt, A, Bm, Cm, dy, dfinal, states, dS_all, dB_g,
-                       dC_g, dA_part, decay, split, sdot, dcum, dx, ddt,
-                       dA, dB, dC, dinit)),
-            _DTYPES[xh.dtype], B, S, H, P, N, chunk, *strides,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan backward launch failed: cudaError "
-                           f"{err}")
-    return dx, ddt, dA, dB, dC, dinit
+    return B, S, H, P, N, n_chunks, strides, bf16

@@ -15,7 +15,12 @@ and adds the kernel's :func:`work` to the recording tallies
 other.  Unlike the TPU wrapper, which returned y only, both return the
 final carried state as well, which prefill with a cache needs; and the
 kernel reads x and the one group's B/C rows in place, through their
-strides, instead of a copy per head.
+strides, instead of a copy per head.  On the CUDA path each call's host
+work is a profiler range while a profiler runs (``nvt.ssd_scan``,
+``nvt.SsdScanFn.forward``/``.backward``, ``nvt.ssd_scan_bwd``, and inside
+them the casts (``.args``) and the kernels' ``.checks``, ``.alloc`` and
+``.launch``;
+:func:`repro_torch.obs.spans.profiled`).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...obs.spans import profiled
 from .. import work as _work
 from .kernel import ssd_scan_bwd_kernel, ssd_scan_kernel
 from .ref import ssd_chunked, ssd_scan_bwd_plain
@@ -101,9 +107,10 @@ class SsdScanFn(torch.autograd.Function):
             y, final, states = _meta_forward(xh, dt, A, Bm, Cm, chunk,
                                              init_state, True)
         elif xh.is_cuda:
-            y, final, states = ssd_scan_kernel(
-                xh, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
-                with_states=True)
+            with profiled("SsdScanFn.forward"):
+                y, final, states = ssd_scan_kernel(
+                    xh, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
+                    with_states=True)
         else:
             (y, final), states = ssd_chunked(
                 xh, dt, A, Bm, Cm, chunk, init_state=init_state), None
@@ -113,19 +120,23 @@ class SsdScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dfinal):
-        xh, dt, A, Bm, Cm, init_state, states = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros_like(xh)
-        if dfinal is not None and xh.device.type != "cpu":
-            dfinal = dfinal.to(torch.float32)
-        dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd(
-            xh, dt, A, Bm, Cm, dy.to(xh.dtype).contiguous(),
-            chunk=ctx.chunk, init_state=init_state,
-            dfinal=None if dfinal is None else dfinal.contiguous(),
-            states=states)
-        return (dx.to(xh.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
-                dB.to(Bm.dtype), dC.to(Cm.dtype),
-                None if dinit is None else dinit.to(init_state.dtype), None)
+        with profiled("SsdScanFn.backward"):
+            xh, dt, A, Bm, Cm, init_state, states = ctx.saved_tensors
+            with profiled("SsdScanFn.backward.args"):
+                if dy is None:
+                    dy = torch.zeros_like(xh)
+                if dfinal is not None and xh.device.type != "cpu":
+                    dfinal = dfinal.to(torch.float32)
+                dy = dy.to(xh.dtype).contiguous()
+                if dfinal is not None:
+                    dfinal = dfinal.contiguous()
+            dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd(
+                xh, dt, A, Bm, Cm, dy, chunk=ctx.chunk,
+                init_state=init_state, dfinal=dfinal, states=states)
+            return (dx.to(xh.dtype), ddt.to(dt.dtype), dA.to(A.dtype),
+                    dB.to(Bm.dtype), dC.to(Cm.dtype),
+                    None if dinit is None else dinit.to(init_state.dtype),
+                    None)
 
 
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -150,20 +161,22 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             return SsdScanFn.apply(*args, chunk)
         return _meta_forward(*args[:5], chunk, args[5], False)[:2]
     if xh.is_cuda:
-        f32 = torch.float32
-        args = (xh, dt.to(f32).contiguous(), A.to(f32).contiguous(), Bm, Cm,
-                None if init_state is None
-                else init_state.to(f32).contiguous())
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in args):
-            y, final = SsdScanFn.apply(*args, chunk)
-        else:
-            y, final = ssd_scan_kernel(*args[:5], chunk=chunk,
-                                       init_state=args[5])
-        if xh.shape[0] * xh.shape[2]:
-            ssd_scan.launches += 1
-            ssd_scan.shapes[_shape_key(xh, Bm, chunk)] += 1
-        return y, final
+        with profiled("ssd_scan"):
+            f32 = torch.float32
+            with profiled("ssd_scan.args"):
+                args = (xh, dt.to(f32).contiguous(), A.to(f32).contiguous(),
+                        Bm, Cm, None if init_state is None
+                        else init_state.to(f32).contiguous())
+            if torch.is_grad_enabled() and any(
+                    t is not None and t.requires_grad for t in args):
+                y, final = SsdScanFn.apply(*args, chunk)
+            else:
+                y, final = ssd_scan_kernel(*args[:5], chunk=chunk,
+                                           init_state=args[5])
+            if xh.shape[0] * xh.shape[2]:
+                ssd_scan.launches += 1
+                ssd_scan.shapes[_shape_key(xh, Bm, chunk)] += 1
+            return y, final
     devices = {t.device.type for t in (xh, dt, A, Bm, Cm)}
     if init_state is not None:
         devices.add(init_state.device.type)
@@ -207,9 +220,10 @@ def ssd_scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if states is None:
             raise ValueError("the backward kernels read the forward's chunk "
                              "start states (with_states=True)")
-        grads = ssd_scan_bwd_kernel(xh, dt, A, Bm, Cm, dy, states,
-                                    chunk=chunk, dfinal=dfinal,
-                                    want_dinit=init_state is not None)
+        with profiled("ssd_scan_bwd"):
+            grads = ssd_scan_bwd_kernel(xh, dt, A, Bm, Cm, dy, states,
+                                        chunk=chunk, dfinal=dfinal,
+                                        want_dinit=init_state is not None)
         if xh.shape[0] * xh.shape[1] * xh.shape[2]:
             ssd_scan_bwd.launches += 1
             ssd_scan_bwd.shapes[_shape_key(xh, Bm, chunk)] += 1

@@ -9,7 +9,9 @@ measurable *over time under load*:
 * :mod:`repro_torch.obs.metrics` — counters / gauges / log-bucket histograms
   in a mergeable, snapshottable registry.
 * :mod:`repro_torch.obs.spans` — nested phase spans whose per-span
-  flush/fence/publish counts ride the existing ``faults`` hook surface.
+  flush/fence/publish counts ride the existing ``faults`` hook surface,
+  each also a ``torch.profiler`` range ``nvt.<phase>`` while a profiler
+  runs; garbage collections as counters and spans.
 * :mod:`repro_torch.obs.compile` — first-call stall tracking with
   trigger attribution (the capacity ladder of the dedup map).
 * :mod:`repro_torch.obs.windows` — fixed-epoch windowed histograms/counters:
@@ -25,13 +27,15 @@ from .compile import CompileEvent, CompileTracker, get_tracker
 from .loadgen import LoadHarness, LoadSpec, Schedule, make_schedule
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       get_registry)
-from .spans import FaultsTee, PersistListener, Span, Tracer
+from .spans import (FaultsTee, PersistListener, Span, Tracer,
+                    get_tracer, profiled)
 from .timeline import EventTimeline, FlightRecorder, attribute_excursions
 from .windows import WindowedCounter, WindowedHistogram
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_registry",
-    "Span", "Tracer", "PersistListener", "FaultsTee",
+    "Span", "Tracer", "PersistListener", "FaultsTee", "get_tracer",
+    "profiled",
     "CompileEvent", "CompileTracker", "get_tracker",
     "WindowedHistogram", "WindowedCounter",
     "EventTimeline", "FlightRecorder", "attribute_excursions",

@@ -19,12 +19,28 @@ the paper's asymmetry, live.
 (e.g. a ``PersistTrace`` *and* a ``PersistListener`` on the same run),
 which is how span-level counts are cross-validated against the trace
 checker's event totals.
+
+While a ``torch.profiler`` session runs, every span also opens a profiler
+range named ``nvt.<phase>`` (a ``user_annotation`` event in the
+profiler's Chrome-trace export, on the profiler's own clock), so the
+device trace says which program phase the host was in; with no profiler
+running a span pays one flag check for it.  :func:`profiled` is the same
+range without a span, for sites called hundreds of times a step, and
+:meth:`Tracer.watch_gc` turns Python's garbage collections into counters,
+histograms and (full collections) ``gc`` spans.
 """
 from __future__ import annotations
 
+import gc
 import json
 import time
+import weakref
 from collections import deque
+
+from torch.autograd import profiler as _profiler
+from torch.autograd.profiler import record_function
+
+RANGE_PREFIX = "nvt."
 
 
 class Span:
@@ -33,9 +49,9 @@ class Span:
     on the serving hot path)."""
 
     __slots__ = ("phase", "depth", "t0_ns", "dur_us", "counts", "meta",
-                 "_tracer")
+                 "_tracer", "_range")
 
-    def __init__(self, tracer, phase, depth, t0_ns, meta):
+    def __init__(self, tracer, phase, depth, t0_ns, meta, rng=None):
         self._tracer = tracer
         self.phase = phase
         self.depth = depth
@@ -43,6 +59,7 @@ class Span:
         self.dur_us = None
         self.counts = {}
         self.meta = meta
+        self._range = rng       # the open profiler range, if any
 
     def __enter__(self) -> "Span":
         return self
@@ -51,20 +68,10 @@ class Span:
         tr = self._tracer
         tr._stack.pop()
         self.dur_us = (time.perf_counter_ns() - self.t0_ns) / 1e3
-        tr._ring.append(self)        # record dicts are built lazily
-        if tr.on_span is not None:   # flight-recorder feed (rare)
-            tr.on_span(self.to_record(tr.epoch_ns))
-        cached = tr._hists.get(self.phase)
-        if cached is None or cached[0] != tr.registry.gen:
-            cached = (tr.registry.gen, tr.registry.histogram(
-                "span_us", lo=0.1, hi=1e8, growth=1.25,
-                phase=self.phase))
-            tr._hists[self.phase] = cached
-        cached[1].record(self.dur_us)
-        if self.counts:
-            sc = tr.span_counts
-            for k, n in self.counts.items():
-                sc[k] = sc.get(k, 0) + n
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        tr._finish(self)
         return False
 
     def to_record(self, epoch_ns) -> dict:
@@ -89,6 +96,23 @@ class _DisabledSpan:
 _DISABLED = _DisabledSpan()
 
 
+def _open_range(name: str):
+    rng = record_function(RANGE_PREFIX + name)
+    rng.__enter__()
+    return rng
+
+
+def profiled(name: str):
+    """A profiler range ``nvt.<name>`` around a ``with`` block while a
+    ``torch.profiler`` session runs, and nothing otherwise (one flag
+    check).  It never enters a tracer's ring or histograms: it is for
+    sites called hundreds of times a step, such as the kernel wrappers'
+    host work or the serving engine's decode step."""
+    if not _profiler._is_profiler_enabled:
+        return _DISABLED
+    return record_function(RANGE_PREFIX + name)
+
+
 class Tracer:
     """Nested phase spans + ring-buffer trace sink.
 
@@ -102,6 +126,8 @@ class Tracer:
     * per-span wall time is also recorded into the registry histogram
       ``span_us{phase=...}`` so p50/p99 per phase fall out of the
       ordinary metrics path.
+    * while a ``torch.profiler`` session runs, each span is also the
+      profiler range ``nvt.<phase>``, on the device trace's clock.
     """
 
     def __init__(self, registry=None, ring: int = 2048,
@@ -117,6 +143,8 @@ class Tracer:
         self._hists = {}        # phase -> (registry gen, histogram):
                                 # skips the registry label lookup per
                                 # span exit, invalidated by reset()
+        self._gc_metrics = {}   # generation -> (registry gen, counter,
+                                # histogram), the same for watch_gc
         self.totals = {}
         self.span_counts = {}   # per-kind sums over *finished* spans
         self.on_span = None     # optional callback(record) on span
@@ -135,10 +163,55 @@ class Tracer:
         recorded — when the ``with`` block exits."""
         if not self.enabled:
             return _DISABLED
-        s = Span(self, phase, len(self._stack),
-                 time.perf_counter_ns(), meta)
+        s = Span(self, phase, len(self._stack), time.perf_counter_ns(),
+                 meta, _open_range(phase) if _profiler._is_profiler_enabled
+                 else None)
         self._stack.append(s)
         return s
+
+    def _finish(self, s: Span) -> None:
+        """Record a finished span: the ring, the flight recorder's feed,
+        its phase's histogram and the per-kind sums."""
+        self._ring.append(s)         # record dicts are built lazily
+        if self.on_span is not None:  # flight-recorder feed (rare)
+            self.on_span(s.to_record(self.epoch_ns))
+        cached = self._hists.get(s.phase)
+        if cached is None or cached[0] != self.registry.gen:
+            cached = (self.registry.gen, self.registry.histogram(
+                "span_us", lo=0.1, hi=1e8, growth=1.25, phase=s.phase))
+            self._hists[s.phase] = cached
+        cached[1].record(s.dur_us)
+        if s.counts:
+            sc = self.span_counts
+            for k, n in s.counts.items():
+                sc[k] = sc.get(k, 0) + n
+
+    # -- garbage collections ------------------------------------------
+    def watch_gc(self) -> "Tracer":
+        """Record Python's garbage collections: every collection adds to
+        ``gc_collections_total{generation}`` and
+        ``gc_pause_us{generation}`` on the tracer's registry, and a full
+        (generation 2) one is also a finished ``gc`` span (meta
+        ``generation``) charged where it fell, one level below the spans
+        then open.  While a profiler runs each collection is also a
+        range: ``nvt.gc`` for a full one, ``nvt.gc0`` and ``nvt.gc1`` for
+        the younger generations.  One ``gc.callbacks`` hook serves every
+        watching tracer, counting once per registry.  Each call is one
+        watch, undone by one :meth:`unwatch_gc`, so owners that share a
+        tracer keep it watched until the last lets go; a tracer watched
+        several times records each collection once."""
+        if self.enabled:
+            _GC_WATCHERS[self] = _GC_WATCHERS.get(self, 0) + 1
+            if _on_gc not in gc.callbacks:
+                gc.callbacks.append(_on_gc)
+        return self
+
+    def unwatch_gc(self) -> None:
+        n = _GC_WATCHERS.pop(self, 0) - 1
+        if n > 0:
+            _GC_WATCHERS[self] = n
+        elif not _GC_WATCHERS and _on_gc in gc.callbacks:
+            gc.callbacks.remove(_on_gc)
 
     # -- event accounting (called by PersistListener) -----------------
     def count_event(self, kind: str, n: int = 1) -> None:
@@ -155,6 +228,59 @@ class Tracer:
         with open(path, "w") as f:
             for s in self._ring:
                 f.write(json.dumps(s.to_record(self.epoch_ns)) + "\n")
+
+
+_GC_WATCHERS: "weakref.WeakKeyDictionary[Tracer, int]" = \
+    weakref.WeakKeyDictionary()     # tracer -> its watches
+_GC_OPEN: list = []     # the running collection's (t0, range)
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """The one ``gc.callbacks`` hook of :meth:`Tracer.watch_gc`."""
+    gen = info["generation"]
+    if phase == "start":
+        # while a profiler runs, every collection is a range (a young one
+        # scanning many fresh objects stalls the host too)
+        _GC_OPEN.append((time.perf_counter_ns(), _open_range(
+            "gc" if gen == 2 else f"gc{gen}")
+            if _profiler._is_profiler_enabled else None))
+        return
+    if not _GC_OPEN:            # the hook went in mid-collection
+        return
+    t0, rng = _GC_OPEN.pop()
+    dur_us = (time.perf_counter_ns() - t0) / 1e3
+    if rng is not None:
+        rng.__exit__(None, None, None)
+    seen = set()
+    for tr in list(_GC_WATCHERS):
+        if gen == 2:
+            s = Span(tr, "gc", len(tr._stack), t0, {"generation": 2})
+            s.dur_us = dur_us
+            tr._finish(s)
+        reg = tr.registry
+        if id(reg) in seen:
+            continue
+        seen.add(id(reg))
+        cached = tr._gc_metrics.get(gen)
+        if cached is None or cached[0] != reg.gen:
+            cached = tr._gc_metrics[gen] = (
+                reg.gen, reg.counter("gc_collections_total", generation=gen),
+                reg.histogram("gc_pause_us", lo=1.0, hi=1e8, growth=1.25,
+                              generation=gen))
+        cached[1].inc()
+        cached[2].record(dur_us)
+
+
+_TRACER = None
+
+
+def get_tracer() -> Tracer:
+    """The process-wide tracer, on the process-wide registry: what the
+    train step and the kernel builds record to unless handed another."""
+    global _TRACER
+    if _TRACER is None:
+        _TRACER = Tracer()
+    return _TRACER
 
 
 class PersistListener:

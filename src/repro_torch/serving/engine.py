@@ -23,6 +23,7 @@ import json
 import os
 import random
 import time
+import weakref
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -32,7 +33,7 @@ import torch
 from ..core.batched import resolve_device
 from ..models.model import prefix_tokens
 from ..obs.metrics import get_registry
-from ..obs.spans import PersistListener, Tracer
+from ..obs.spans import PersistListener, Tracer, profiled
 from ..persistence.index import MembershipIndex, OrderedMembershipIndex
 from ..persistence.manifest import StagedIO
 
@@ -622,11 +623,6 @@ def stub_inputs(cfg, batch: int, device) -> dict:
     return {}
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 class ServeEngine:
     def __init__(self, model, params, *, max_len: int, log_dir,
                  batch_size: int = 4, retain: Optional[int] = None,
@@ -651,10 +647,22 @@ class ServeEngine:
         live traffic.  ``registry``/``timeline``/``obs`` select the
         NVTrace metrics registry, the event timeline for
         snapshot/truncate/growth annotations, and toggle span/listener
-        instrumentation (see :class:`RequestLog`); per-request serve
-        latency lands in the ``serve_request_us`` histogram either way.
+        instrumentation (see :class:`RequestLog`); with ``obs`` the
+        tracer also spans each batch's ``prefill`` and ``decode`` inside
+        ``plan`` and watches the garbage collector.  Under a profiler
+        each decode step is the range ``nvt.decode_step``.
+
+        Each request's arrival is :meth:`serve`'s entry.  Per request,
+        the ``serve_request_us`` histogram gets its latency either way:
+        arrival to its batch's commit fenced, or for a dedup hit to the
+        route's end.  :attr:`request_times` keeps, per fresh request, its
+        ``wait_s`` (arrival to its batch's prefill start) and
+        ``latency_s`` (arrival to the commit fenced).
         :attr:`step_times` keeps each batch's prefill and decode-step
-        seconds, each ended by a device sync."""
+        seconds: on the card each step's span on the device's timeline, a
+        pair of CUDA events on the current stream read once the batch's
+        tokens are copied back (no device sync of its own); on the CPU
+        the host clock."""
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -676,34 +684,61 @@ class ServeEngine:
         self.timeline = self.log.timeline
         self.step_times: Dict[str, List[float]] = {"prefill_s": [],
                                                    "decode_step_s": []}
+        self.request_times: Dict[str, List[float]] = {"wait_s": [],
+                                                      "latency_s": []}
+        self._pending: list = []     # (key, start event, end event)
+        if obs:
+            # the collector is watched while this engine lives
+            weakref.finalize(self, self.tracer.watch_gc().unwatch_gc)
 
     def _timed(self, key: str, fn):
-        """Run ``fn`` and record its seconds, the device synced at both
-        ends."""
-        _sync(self.device)
-        t0 = time.perf_counter()
+        """Run ``fn`` and time it into ``step_times[key]``: on the card
+        by CUDA events around it on the current stream, read by
+        :meth:`_read_times` once the device is past them; on the CPU by
+        the host clock."""
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            out = fn()
+            self.step_times[key].append(time.perf_counter() - t0)
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         out = fn()
-        _sync(self.device)
-        self.step_times[key].append(time.perf_counter() - t0)
+        end.record()
+        self._pending.append((key, start, end))
         return out
+
+    def _read_times(self) -> None:
+        """The timed steps' seconds, in order; called after the host has
+        waited for the device past them."""
+        for key, start, end in self._pending:
+            self.step_times[key].append(start.elapsed_time(end) / 1e3)
+        self._pending.clear()
 
     @torch.no_grad()
     def _greedy_batch(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
         B, S = prompts.shape
         batch = {"tokens": torch.as_tensor(prompts, device=self.device),
                  **stub_inputs(self.model.cfg, B, self.device)}
-        logits, caches = self._timed("prefill_s", lambda: self.model.prefill(
-            self.params, batch, self.max_len))
+        with self.tracer.span("prefill", batch=B, prompt_len=S):
+            logits, caches = self._timed(
+                "prefill_s", lambda: self.model.prefill(
+                    self.params, batch, self.max_len))
         out = []
         tok = torch.argmax(logits[:, -1], dim=-1)
         prefix = prefix_tokens(self.model.cfg)
-        for i in range(n_new):
-            out.append(tok)
-            logits, caches = self._timed(
-                "decode_step_s", lambda: self.model.decode_step(
-                    self.params, tok, caches, S + prefix + i))
-            tok = torch.argmax(logits[:, 0], dim=-1)
-        return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+        with self.tracer.span("decode", steps=n_new):
+            for i in range(n_new):
+                out.append(tok)
+                with profiled("decode_step"):
+                    logits, caches = self._timed(
+                        "decode_step_s", lambda: self.model.decode_step(
+                            self.params, tok, caches, S + prefix + i))
+                    tok = torch.argmax(logits[:, 0], dim=-1)
+            gen = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+        self._read_times()
+        return gen
 
     def serve(self, requests: Dict[int, np.ndarray], n_new: int = 8,
               *, crash_after_batches: Optional[int] = None) -> Dict[int, list]:
@@ -714,6 +749,7 @@ class ServeEngine:
         model's generation for a prompt is then independent of which
         other requests share its batch.  Already-committed rids are
         skipped (exactly-once) and answered from the log."""
+        arrival = time.perf_counter_ns()
         with self.tracer.span("route", n_requests=len(requests)):
             self.log.refresh()  # pick up other engine instances' commits
             rids = sorted(requests)
@@ -722,20 +758,25 @@ class ServeEngine:
             groups: Dict[int, List[int]] = {}
             for rid in todo:
                 groups.setdefault(int(requests[rid].shape[0]), []).append(rid)
+        routed = time.perf_counter_ns()
         self.metrics.counter("serving_requests_total").inc(len(rids))
         self.metrics.counter("serving_dedup_hits_total").inc(
             len(rids) - len(todo))
         lat_hist = self.metrics.histogram("serve_request_us",
                                           lo=1.0, hi=1e8, growth=1.25)
+        for _ in range(len(rids) - len(todo)):     # answered by the log
+            lat_hist.record((routed - arrival) / 1e3)
+        wait_s, latency_s = self.request_times["wait_s"], \
+            self.request_times["latency_s"]
         batches = 0
         for length in sorted(groups):
             for i in range(0, len(groups[length]), self.batch):
-                t_batch = time.perf_counter_ns()
                 batch_rids = groups[length][i:i + self.batch]
                 with self.tracer.span("plan", n=len(batch_rids),
                                       prompt_len=length):
                     prompts = _stack_batch(
                         [requests[r] for r in batch_rids])
+                    started = time.perf_counter_ns()
                     gen = self._greedy_batch(prompts, n_new)  # traversal
                 # never evict a rid this call is serving: its result was
                 # just paid for and belongs in this call's return value
@@ -746,11 +787,13 @@ class ServeEngine:
                                  for j, r in enumerate(batch_rids)},
                                 evict=expired)
                 self._commits_since_snap += 1
-                # every request in a (synchronous) batch experiences the
-                # batch's wall time: that is its serve latency
-                dur_us = (time.perf_counter_ns() - t_batch) / 1e3
+                # each request of the batch waited from its arrival to the
+                # batch's start, and is answered once the commit is fenced
+                done = time.perf_counter_ns()
                 for _ in batch_rids:
-                    lat_hist.record(dur_us)
+                    wait_s.append((started - arrival) / 1e9)
+                    latency_s.append((done - arrival) / 1e9)
+                    lat_hist.record((done - arrival) / 1e3)
                 self.metrics.counter("serving_batches_total").inc()
                 if self.snapshot_every is not None and \
                         self._commits_since_snap >= self.snapshot_every:

@@ -13,11 +13,13 @@ reference under ``jax.vmap(axis_name=...)``) or over a
 """
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..obs.spans import Tracer, get_tracer
 from .optimizer import Optimizer
 
 
@@ -37,7 +39,8 @@ def _on(device, batch: dict) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def make_train_step(model, cfg, optimizer: Optimizer):
+def make_train_step(model, cfg, optimizer: Optimizer,
+                    tracer: Optional[Tracer] = None):
     """Returns ``train_step(params, opt_state, batch, step) -> (params,
     opt_state, {"loss": f32 scalar tensor})``; ``params`` (a trainable
     :class:`~repro_torch.models.model.ParamTree`) and ``opt_state`` are
@@ -47,41 +50,65 @@ def make_train_step(model, cfg, optimizer: Optimizer):
     [M, B/M, ...] (:func:`shape_batch_for_accum`, or the pipeline's own
     microbatches): the loss and gradients of each microbatch in turn,
     the gradients summed in ``cfg.opt_dtype``, then ``g / M`` cast to f32
-    and the loss ``sum / M``, as the reference's scan does."""
+    and the loss ``sum / M``, as the reference's scan does.
+
+    ``tracer`` (default: the process-wide one,
+    :func:`~repro_torch.obs.spans.get_tracer`; ``train_step.tracer``)
+    records a ``train.step`` span a call, inside it ``train.h2d`` (the
+    batch to the device), per microbatch ``train.forward``,
+    ``train.backward`` and (M > 1) ``train.accumulate``, then
+    ``train.optimizer``; it also watches the garbage collector
+    (:meth:`~repro_torch.obs.spans.Tracer.watch_gc`) while the step
+    lives.  ``Tracer(enabled=False)`` records nothing.  Tracing changes
+    no number the step computes."""
     M = max(1, cfg.microbatches)
     acc_dt = getattr(torch, cfg.opt_dtype)
+    if tracer is None:
+        tracer = get_tracer()
+    span = tracer.span
 
     def train_step(params, opt_state, batch: dict, step: int):
-        named = dict(params.named_parameters())
-        leaves = list(named.values())
-        dev = leaves[0].device
-        batch = _on(dev, batch)
-        if M == 1:
-            loss = model.loss(params, batch)
-            gs = torch.autograd.grad(loss, leaves)
-            grads = dict(zip(named, gs))
-            loss = loss.detach()
-        else:
-            gsum = {n: torch.zeros(p.shape, dtype=acc_dt, device=dev)
-                    for n, p in named.items()}
-            lsum = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(M):
-                mb = {k: v[i] for k, v in batch.items()}
-                loss = model.loss(params, mb)
-                gs = torch.autograd.grad(loss, leaves)
+        with span("train.step"):
+            named = dict(params.named_parameters())
+            leaves = list(named.values())
+            dev = leaves[0].device
+            with span("train.h2d"):
+                batch = _on(dev, batch)
+            if M == 1:
+                with span("train.forward", microbatch=0):
+                    loss = model.loss(params, batch)
+                with span("train.backward", microbatch=0):
+                    gs = torch.autograd.grad(loss, leaves)
+                grads = dict(zip(named, gs))
+                loss = loss.detach()
+            else:
+                gsum = {n: torch.zeros(p.shape, dtype=acc_dt, device=dev)
+                        for n, p in named.items()}
+                lsum = torch.zeros((), dtype=torch.float32, device=dev)
+                for i in range(M):
+                    mb = {k: v[i] for k, v in batch.items()}
+                    with span("train.forward", microbatch=i):
+                        loss = model.loss(params, mb)
+                    with span("train.backward", microbatch=i):
+                        gs = torch.autograd.grad(loss, leaves)
+                    with span("train.accumulate", microbatch=i), \
+                            torch.no_grad():
+                        for n, g in zip(named, gs):
+                            gsum[n].add_(g.to(acc_dt))
+                        lsum = lsum + loss.detach()
+                    del gs, loss
                 with torch.no_grad():
-                    for n, g in zip(named, gs):
-                        gsum[n].add_(g.to(acc_dt))
-                    lsum = lsum + loss.detach()
-                del gs, loss
-            with torch.no_grad():
-                # g / M in the accumulator dtype, then f32; in place where
-                # the accumulator is already f32
-                grads = {n: g.div_(M).float() for n, g in gsum.items()}
-            loss = lsum / M
-        params, opt_state = optimizer.update(grads, opt_state, params, step)
+                    # g / M in the accumulator dtype, then f32; in place
+                    # where the accumulator is already f32
+                    grads = {n: g.div_(M).float() for n, g in gsum.items()}
+                loss = lsum / M
+            with span("train.optimizer"):
+                params, opt_state = optimizer.update(grads, opt_state,
+                                                     params, step)
         return params, opt_state, {"loss": loss}
 
+    train_step.tracer = tracer
+    weakref.finalize(train_step, tracer.watch_gc().unwatch_gc)
     return train_step
 
 
