@@ -323,6 +323,10 @@ from repro_torch.core.rebalance import (  # noqa: E402
 from repro_torch.core.sharded import ShardedDurableMap  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    kernel as da_kernel)
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention, decode_attention_plain, work as decode_work)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
@@ -372,9 +376,9 @@ from repro_torch.training.train_loop import (  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
-KERNELS = (probe_kernel, fa_kernel, ssd_kernel)
+KERNELS = (probe_kernel, fa_kernel, ssd_kernel, da_kernel)
 WRAPPERS = (nvt_probe, flash_attention, flash_attention_bwd, ssd_scan,
-            ssd_scan_bwd)
+            ssd_scan_bwd, decode_attention)
 # the wrappers a training step may launch through
 TRAIN_WRAPPERS = (flash_attention, flash_attention_bwd, ssd_scan,
                   ssd_scan_bwd)
@@ -819,6 +823,7 @@ def reset_launches() -> None:
         w.launches = 0
     for counter in (flash_attention.shapes, flash_attention_bwd.shapes,
                     ssd_scan.shapes, ssd_scan_bwd.shapes,
+                    decode_attention.shapes,
                     fa_kernel.flash_attention_kernel.routes,
                     ssd_kernel.ssd_scan_kernel.routes):
         counter.clear()
@@ -874,6 +879,16 @@ def attn_launches_per_prefill(cfg) -> int:
     return cfg.n_layers
 
 
+def decode_launches_per_step(cfg) -> int:
+    """decode_attention launches of one decode step: one a self-attention
+    layer (a decoder layer of an encoder-decoder; its cross-attention
+    reads the encoder's k/v in plain PyTorch), one a shared-block call of
+    a hybrid, none in an SSM."""
+    if cfg.family == "encdec":
+        return cfg.n_layers
+    return attn_launches_per_prefill(cfg)
+
+
 def ssd_launches_per_prefill(cfg) -> int:
     """ssd_scan launches of one prefill: one a Mamba2 layer."""
     return cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
@@ -912,7 +927,9 @@ def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
     serves 8 requests, crashes after its first batch, and a new engine on
     the same log serves all 8 again.  Checks exactly-once, the dedup hits
     and the kernels' launch counts per prefill; returns the phase's
-    numbers, ``flash_shapes`` the flash_attention launches by shape."""
+    numbers, ``flash_shapes`` the flash_attention launches by shape and
+    ``decode_shapes`` the decode_attention launches by ``(B, H, K, d,
+    S_max, window)``."""
     cfg = model_config(sz, arch)
     model = Model(cfg)
     if dev.type == "cuda":
@@ -944,10 +961,13 @@ def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
         out = again.serve(requests, n_new=sz.new_tokens)
         launches = {"flash_attention": flash_attention.launches,
                     "ssd_scan": ssd_scan.launches,
-                    "nvt_probe": nvt_probe.launches}
+                    "nvt_probe": nvt_probe.launches,
+                    "decode_attention": decode_attention.launches}
         routes = route_launches()
         flash_shapes = sorted([*k, n] for k, n in
                               flash_attention.shapes.items())
+        decode_shapes = sorted([*k, n] for k, n in
+                               decode_attention.shapes.items())
         dedup_hits = hits.value - hits0
         records = sorted(n for n in os.listdir(d) if n.startswith("log_"))
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
@@ -972,13 +992,20 @@ def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
                              f"dedup hits, not {len(first)}")
     prefills = len(first_eng.step_times["prefill_s"]) + \
         len(again.step_times["prefill_s"])
+    steps = len(first_eng.step_times["decode_step_s"]) + \
+        len(again.step_times["decode_step_s"])
     if dev.type == "cuda" and (
             launches["flash_attention"]
             != attn_launches_per_prefill(cfg) * prefills
             or launches["ssd_scan"] != ssd_launches_per_prefill(cfg)
-            * prefills):
+            * prefills
+            or launches["decode_attention"]
+            != decode_launches_per_step(cfg) * steps
+            or sum(k[-1] for k in decode_shapes)
+            != launches["decode_attention"]):
         raise AssertionError(f"launches {launches} for {prefills} "
-                             f"prefills of {cfg.n_layers} layers")
+                             f"prefills and {steps} decode steps of "
+                             f"{cfg.n_layers} layers")
     if dev.type == "cuda":
         check_routes(cfg.name, routes, launches)
     times = {k: first_eng.step_times[k] + again.step_times[k]
@@ -995,7 +1022,8 @@ def run_model(sz: Sizes, dev, seed: int, arch: str = "zamba2-7b") -> dict:
             "new_tokens": sz.new_tokens, "batch": sz.model_batch,
             "max_len": max_len, "prefills": prefills,
             "launches": launches, "routes": routes,
-            "flash_shapes": flash_shapes, "dedup_hits": dedup_hits,
+            "flash_shapes": flash_shapes, "decode_shapes": decode_shapes,
+            "dedup_hits": dedup_hits,
             "records": len(records), "prefill_s": times["prefill_s"],
             "decode_step_s_median": float(np.median(decode)),
             "decode_step_s": decode,
@@ -1659,6 +1687,25 @@ def _check_close(name: str, got, want, tol: float) -> float:
     if not torch.isfinite(got.float()).all() or bool(bad.any()):
         raise AssertionError(f"{name}: max abs error {err} beyond {tol}")
     return err
+
+
+def _check_decode_close(name: str, got, want) -> tuple:
+    """bf16 decode attention against its plain version: each output
+    within 2**-6 of the largest |output| of its (row, head), about two
+    bf16 steps at the outputs' scale (the kernels round as the plain
+    version does: they differ by a step where an f32 sum in another order
+    rounds the other way), and never beyond the element limit
+    ``2e-2 + 2e-2 |want|``.  Returns the max abs error and its largest
+    share of the limit."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    lim = torch.minimum(2.0 ** -6 * want.abs().amax(-1, keepdim=True),
+                        2e-2 + 2e-2 * want.abs())
+    share = float((err / lim).max())
+    if not torch.isfinite(got).all() or share > 1:
+        raise AssertionError(f"{name}: max abs error {float(err.max())}, "
+                             f"{share:.3g} of the limit")
+    return float(err.max()), share
 
 
 def flash_inputs(dev, B, S, H, d, dtype, seed, K=None, Sk=None):
@@ -4592,6 +4639,89 @@ def time_ssd_bwd(dev, launches: int, errs: dict, sz: Sizes, arch: str,
             "dtype": "bfloat16"}
 
 
+# decode_attention at the served cell's decode shapes (B, H, K, d, S_max,
+# the positions written): qwen3-1.7b's batches of 61 prompts of 512 and of
+# 20 of 4096 through their 13 steps, and qwen2-7b's GQA 7:1 at the first
+DECODE_SHAPES = {
+    "qwen3-1.7b B61": (61, 16, 8, 128, 4109, range(512, 525)),
+    "qwen3-1.7b B20": (20, 16, 8, 128, 4109, range(4096, 4109)),
+    "qwen2-7b B61": (61, 28, 4, 128, 4109, range(512, 525))}
+
+
+def time_decode_attention(dev) -> list:
+    """decode_attention at :data:`DECODE_SHAPES`, bf16 (CUDA events, a
+    call's mean over the shape's positions in turn): the kernels' time
+    beside their bound (``decode_attention/ops.py:work``: q read, the
+    filled K and V rows read and the output written once, at 3.35 TB/s),
+    the plain version's (the filled slice through ``attention_scores``),
+    ``full_length_ms`` (``attention_scores`` over the whole cache under
+    the full-length mask, the decode step's attention before the kernel)
+    and SDPA over the filled slice with ``enable_gqa`` as
+    ``library_ms`` (timed only; the port never calls it).  Each entry
+    carries its three passes' build rows and its distance to the plain
+    version."""
+    out = []
+    for name, (B, H, K, d, S, pos_range) in DECODE_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(B * H)
+        q, k, v = (torch.randn(shape, generator=g, device=dev)
+                   .to(torch.bfloat16) for shape in (
+                       (B, 1, H, d), (B, S, K, d), (B, S, K, d)))
+        positions = [torch.full((B, 1), p, dtype=torch.int32, device=dev)
+                     for p in pos_range]
+        n = len(positions)
+        err, share = map(max, zip(*(_check_decode_close(
+            f"decode_attention {name} pos {int(p[0])}",
+            da_kernel.decode_attention_kernel(q, k, v, p),
+            decode_attention_plain(q, k, v, p))
+            for p in (positions[0], positions[-1]))))
+
+        def each(fn):
+            return lambda: [fn(p) for p in positions]
+        ms = cuda_ms(each(lambda p: da_kernel.decode_attention_kernel(
+            q, k, v, p))) / n
+        plain_ms = cuda_ms(each(lambda p: decode_attention_plain(
+            q, k, v, p)), iters=5) / n
+        kpos = torch.arange(S, device=dev)
+        full_ms = cuda_ms(each(lambda p: model_layers.attention_scores(
+            q, k, v, (kpos <= p[0, 0])[None, None, None, :])), iters=5) / n
+        qt = q.transpose(1, 2)
+        slices = [(k[:, :p + 1].transpose(1, 2), v[:, :p + 1].transpose(1, 2))
+                  for p in pos_range]
+        library_ms = cuda_ms(lambda: [
+            torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=K < H) for kt, vt in slices]) / n
+        works = [decode_work(B, H, K, d, p + 1) for p in pos_range]
+        bound = bound_of({key: sum(w[key] for w in works) / n
+                          for key in ("flops", "bytes")})
+        G = H // K
+        out.append({
+            "name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                      "decode_attention.cu",
+            "replaces": "none: the JAX package's decode attention is jnp "
+                        "(src/repro/models/layers.py:self_attention)",
+            "design": "split-K over 128-key splits in three passes (scores "
+                      "and per-split max and sum, P V with the row's max "
+                      "and sum, the splits combined in order), the cache "
+                      "read in place by 16-byte cp.async, the filled end "
+                      "from the device; no atomics",
+            "passes": {f: build_fields(f) for f in (
+                f"decode_attn_scores<bf16,{G}>", f"decode_attn_pv<bf16,{G}>",
+                "decode_attn_combine<bf16>")},
+            "arch": name.split()[0], "path": "serve-docs decode step",
+            "max_abs_err": err, "limit_share": share, "ms": ms,
+            "plain_ms": plain_ms, "full_length_ms": full_ms, **bound,
+            "library_ms": library_ms,
+            "library": "scaled_dot_product_attention(enable_gqa=True) over "
+                       "the filled slice",
+            "shape": [B, H, K, d, S], "filled": [pos_range[0] + 1,
+                                                 pos_range[-1] + 1],
+            "dtype": "bfloat16"})
+        del q, k, v, slices
+        free_card(dev)
+    return out
+
+
 def build_report(so: Path, ptxas: str) -> list:
     """Per compiled function of one library: registers and spill bytes
     (from the ``ptxas -v`` report) and the count of tensor-core
@@ -4707,6 +4837,13 @@ def main(argv=None) -> int:
                           "ssd_scan")
         for src in TENSOR_CORE_SOURCES:
             BUILD_ROWS.update((f["kernel"], f) for f in functions[src])
+        spills = [f["kernel"] for f in functions["decode_attention"]
+                  if f["spill_bytes"]]
+        if spills:
+            raise AssertionError(f"decode_attention functions spill: "
+                                 f"{spills}")
+        BUILD_ROWS.update((f["kernel"], f)
+                          for f in functions["decode_attention"])
         log({"phase": "build", "ok": True,
              "kernels": [k.SOURCE.stem for k in KERNELS],
              "libraries": [so.name for so, _ in built],
@@ -4945,6 +5082,9 @@ def main(argv=None) -> int:
         max(v for k, v in ssd_errs.items()
             if k.startswith("mamba2_bfloat16_S512")
             and "chunked_bf16" not in k), "mamba2-370m", "families"))
+    # decode_attention at the served cell's decode shapes (the model
+    # phase holds its launches to a call a layer and decode step)
+    kernels.extend(time_decode_attention(dev))
     # the examples' shapes: the f32 scalar kernel, with the launches the
     # examples phase made at each
     for ex in examples["flash_shapes"]:

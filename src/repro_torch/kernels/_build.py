@@ -116,9 +116,10 @@ def load(source: Path) -> ctypes.CDLL:
 
 
 def readable_name(mangled: str) -> str:
-    """``flash_fwd_tc<112>`` or ``nvt_probe_batch<4,8>`` from a kernel's
-    mangled name (a namespace, the name, then int or float template
-    arguments); the name as given where it does not parse so."""
+    """``flash_fwd_tc<112>``, ``nvt_probe_batch<4,8>`` or
+    ``decode_attn_pv<bf16,2>`` from a kernel's mangled name (a
+    namespace, the name, then int, float or bf16 template arguments); the
+    name as given where it does not parse so."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -127,11 +128,13 @@ def readable_name(mangled: str) -> str:
     if not m:
         return mangled
     name = rest[m.end():m.end() + int(m.group(1))]
-    args = re.match(r"I((?:Li\d+E|f)+)E", rest[m.end() + len(name):])
+    args = re.match(r"I((?:Li\d+E|f|13__nv_bfloat16)+)E",
+                    rest[m.end() + len(name):])
     if not args:
         return name
-    vals = re.findall(r"Li(\d+)E|(f)", args.group(1))
-    return f"{name}<{','.join(i or 'float' for i, _ in vals)}>"
+    vals = re.findall(r"Li(\d+)E|(f)|13__nv_bfloat16", args.group(1))
+    types = {"f": "float", "": "bf16"}
+    return f"{name}<{','.join(i or types[f] for i, f in vals)}>"
 
 
 def ptxas_functions(report: str) -> Dict[str, dict]:

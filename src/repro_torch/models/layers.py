@@ -11,7 +11,10 @@ encoder output -- runs through the ``flash_attention`` kernel wrapper
 (the Hopper kernel on a CUDA tensor, its plain version on a CPU one),
 where the reference computes the same functions in jnp
 (``attention_blocked``, ``attention_scores``).  Decode attends one query
-against the KV cache, or the precomputed cross k/v, in plain PyTorch, as
+against the KV cache through the ``decode_attention`` kernel wrapper
+(the Hopper kernels on a CUDA tensor, which read the cache in place over
+the filled positions only; ``attention_scores`` over the filled slice on
+a CPU one), and against the precomputed cross k/v in plain PyTorch, as
 the reference does.
 """
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 
 NEG_INF = -1e30
@@ -127,9 +131,10 @@ def self_attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     [B, S_max, K, dh]), fills it from position 0.  ``mode="bidir"`` (the
     encoder) attends over every token through ``flash_attention`` without
     a mask and keeps no cache.  ``mode="decode"`` (one new token) writes
-    its k/v at ``cache_pos`` and attends over the cache.  The cache
-    buffers are updated in place (the reference returns new arrays), so a
-    caller's stacked cache needs no copy back.
+    its k/v at ``cache_pos`` and attends through ``decode_attention``
+    over the cache up to ``positions`` (the same position, as a device
+    tensor).  The cache buffers are updated in place (the reference
+    returns new arrays), so a caller's stacked cache needs no copy back.
     """
     B, S, _ = x.shape
     q, k, v = qkv(p, x, cfg, positions)
@@ -139,12 +144,7 @@ def self_attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         pos = int(cache_pos)
         cache["k"][:, pos:pos + S] = k
         cache["v"][:, pos:pos + S] = v
-        kpos = torch.arange(cache["k"].shape[1], device=x.device)
-        m = kpos <= pos
-        if window > 0:
-            m = m & (kpos > pos - window)
-        out = attention_scores(q, cache["k"], cache["v"],
-                               m[None, None, None, :])
+        out = decode_attention(q, cache["k"], cache["v"], positions, window)
     elif mode == "causal":
         out = flash_attention(q, k, v, causal=True, window=window)
         if cache is not None:

@@ -248,11 +248,14 @@ def test_model_phase_serves_qwen2_exactly_once_on_the_cpu():
     assert got["arch"] == "qwen2-7b"
     assert (got["prefills"], got["dedup_hits"], got["records"]) == (2, 4, 2)
     assert got["launches"] == {"flash_attention": 0, "ssd_scan": 0,
-                               "nvt_probe": 0}
+                               "nvt_probe": 0, "decode_attention": 0}
     assert got["prefill_compute_bound_ms"] > 0
     full = TR.get_arch("qwen2-7b")
     assert chip_smoke.attn_launches_per_prefill(full) == 28
     assert chip_smoke.attn_launches_per_prefill(
+        TR.get_arch("zamba2-7b")) == 13
+    assert chip_smoke.decode_launches_per_step(full) == 28
+    assert chip_smoke.decode_launches_per_step(
         TR.get_arch("zamba2-7b")) == 13
     # 2 flops a non-embedding weight a token of a 4 x 512 prefill: ~29 ms
     bound = chip_smoke.prefill_bound_ms(full, chip_smoke.FULL)

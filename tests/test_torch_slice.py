@@ -204,7 +204,9 @@ def test_model_phase_serves_exactly_once_on_the_cpu():
     got = chip_smoke.run_model(chip_smoke.SMALL, torch.device("cpu"), 3)
     assert (got["prefills"], got["dedup_hits"], got["records"]) == (2, 4, 2)
     assert got["launches"] == {"flash_attention": 0, "ssd_scan": 0,
-                               "nvt_probe": 0}      # the CPU launches none
+                               "nvt_probe": 0,
+                               "decode_attention": 0}  # the CPU launches none
+    assert got["decode_shapes"] == []
     assert len(got["decode_step_s"]) == 2 * chip_smoke.SMALL.new_tokens
 
 
@@ -218,18 +220,19 @@ def test_families_phase_serves_every_family_exactly_once_on_the_cpu():
     for a in got["archs"]:
         assert (a["prefills"], a["dedup_hits"], a["records"]) == (2, 4, 2)
         assert a["launches"] == {"flash_attention": 0, "ssd_scan": 0,
-                                 "nvt_probe": 0}
+                                 "nvt_probe": 0, "decode_attention": 0}
     # on the card: full width, arctic-480b cut to one layer; gemma3-27b's
     # 62 launches a prefill are 52 local layers (window 1024) and 10 global
     full = {n: chip_smoke.model_config(chip_smoke.FULL, n)
             for n in chip_smoke.FAMILY_ARCHS}
     assert {n: (chip_smoke.attn_launches_per_prefill(c),
-                chip_smoke.ssd_launches_per_prefill(c))
+                chip_smoke.ssd_launches_per_prefill(c),
+                chip_smoke.decode_launches_per_step(c))
             for n, c in full.items()} == {
-        "qwen2-moe-a2.7b": (24, 0), "mamba2-370m": (0, 48),
-        "whisper-medium": (72, 0), "internvl2-26b": (48, 0),
-        "arctic-480b": (1, 0), "qwen1.5-32b": (64, 0),
-        "gemma3-27b": (62, 0)}
+        "qwen2-moe-a2.7b": (24, 0, 24), "mamba2-370m": (0, 48, 0),
+        "whisper-medium": (72, 0, 24), "internvl2-26b": (48, 0, 48),
+        "arctic-480b": (1, 0, 1), "qwen1.5-32b": (64, 0, 64),
+        "gemma3-27b": (62, 0, 62)}
     assert chip_smoke.layer_windows(full["gemma3-27b"]) == {1024: 52, 0: 10}
     assert chip_smoke.layer_windows(full["qwen1.5-32b"]) == {0: 64}
     tiny_gemma = next(a for a in got["archs"] if a["arch"] == "gemma3-27b")
